@@ -1,0 +1,87 @@
+"""K2: farthest-point sampling over coordinate planes, with selections.
+
+Replaces ``farthest_point_sample_planes_pallas_t_sel``
+(``mssvt_tpu/ops/pallas_fps.py``). Per row of the (B, N) x/y/z planes: the
+first pick is index 0, the min-distance cache starts at 1e10, each next pick
+is the argmax of the cache (ties to the lowest index), with squared
+distances ``(x-lx)^2 + (y-ly)^2 + (z-lz)^2`` in f32. Returns the picks
+(B, npoint) int32 and the values of every plane (x, y, z, *aux) at the
+picks, each (B, npoint) f32. With ``nw_half`` and ``num_valid`` the rows are
+two stacked halves of ``nw_half`` rows, each with a live prefix of
+``num_valid`` rows; dead rows return zeros.
+
+CUDA tensors go to ``csrc/fps.cu``; CPU tensors to :func:`fps_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _lib
+
+launches = 0
+MAX_N = 256
+MAX_PLANES = 8
+
+
+def _dead_rows(b, num_valid, nw_half, device):
+    r = torch.arange(b, device=device)
+    if nw_half:
+        r = torch.where(r < nw_half, r, r - nw_half)
+    return r >= num_valid
+
+
+def fps_plain(x, y, z, aux, npoint: int, num_valid=None, nw_half: int = 0):
+    """Plain PyTorch version (same contract as :func:`fps_select`)."""
+    planes = [p.float() for p in (x, y, z, *aux)]
+    x, y, z = planes[:3]
+    b, _ = x.shape
+    min_dist = torch.full_like(x, 1e10)
+    last = torch.zeros((b, 1), dtype=torch.long, device=x.device)
+    picks = []
+    for i in range(npoint):
+        picks.append(last)
+        if i == npoint - 1:
+            break
+        dx = x - x.gather(1, last)
+        dy = y - y.gather(1, last)
+        dz = z - z.gather(1, last)
+        min_dist = torch.minimum(min_dist, dx * dx + dy * dy + dz * dz)
+        last = torch.argmax(min_dist, dim=1, keepdim=True)
+    idx = torch.cat(picks, dim=1)
+    sels = [p.gather(1, idx) for p in planes]
+    idx = idx.to(torch.int32)
+    if num_valid is not None:
+        dead = _dead_rows(b, num_valid, nw_half, x.device)[:, None]
+        idx = torch.where(dead, 0, idx)
+        sels = [torch.where(dead, 0.0, s) for s in sels]
+    return idx, tuple(sels)
+
+
+def fps_select(x, y, z, aux, npoint: int, num_valid=None, nw_half: int = 0):
+    """FPS picks and the selected plane values (see module docstring)."""
+    global launches
+    if x.device.type == "cpu":
+        return fps_plain(x, y, z, aux, npoint, num_valid, nw_half)
+    planes = [x, y, z, *aux]
+    b, n = x.shape
+    dev = x.device
+    for i, p in enumerate(planes):
+        _lib.require(p, f"plane {i}", torch.float32, (b, n), dev)
+    if not (0 < n <= MAX_N) or len(planes) > MAX_PLANES or npoint < 1:
+        raise ValueError(f"fps: N={n} must be in (0, {MAX_N}], "
+                         f"at most {MAX_PLANES} planes, npoint >= 1")
+    if nw_half and 2 * nw_half != b:
+        raise ValueError("nw_half must be half the rows")
+    nv = None
+    if num_valid is not None:
+        nv = torch.as_tensor(num_valid, device=dev).to(torch.int32).reshape(1)
+    idx = torch.empty((b, npoint), dtype=torch.int32, device=dev)
+    sels = torch.empty((len(planes), b, npoint), dtype=torch.float32,
+                       device=dev)
+    err = _lib.lib().mssvt_fps(
+        _lib.ptr_array(planes), len(planes), b, n, int(npoint), int(nw_half),
+        _lib.ptr(nv), idx.data_ptr(), sels.data_ptr(), _lib.stream_ptr(x))
+    _lib.check(err, "mssvt_fps")
+    launches += 1
+    return idx, tuple(sels.unbind(0))

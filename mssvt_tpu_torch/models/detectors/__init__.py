@@ -1,0 +1,22 @@
+import torch
+
+from .centerpoint import CenterPoint
+
+__all__ = {"CenterPoint": CenterPoint}
+
+_DTYPES = {
+    "float32": torch.float32, "fp32": torch.float32,
+    "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+}
+
+
+def build_detector(model_cfg, **kw):
+    """Registry lookup of ``MODEL.NAME``; ``MODEL.DTYPE`` sets the compute
+    dtype (parameters stay float32)."""
+    name = model_cfg["NAME"]
+    if name not in __all__:
+        raise NotImplementedError(
+            f"detector '{name}' is not ported to mssvt_tpu_torch yet "
+            "(see ROADMAP.md)")
+    dtype = _DTYPES[str(model_cfg.get("DTYPE", "float32")).lower()]
+    return __all__[name](model_cfg=model_cfg, dtype=dtype, **kw)

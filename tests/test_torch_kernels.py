@@ -1,0 +1,224 @@
+"""Port kernels (mssvt_tpu_torch/kernels) against the JAX package.
+
+Each kernel's plain PyTorch version (what a wrapper runs for CPU tensors) is
+held against the JAX function on the same numpy inputs: the Pallas kernel in
+interpret mode and, where the JAX package has one, its XLA form. The CUDA
+kernels themselves are held against these plain versions on the card by
+``tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mssvt_tpu.ops.pallas_attention import fused_window_attention_assembled
+from mssvt_tpu.ops.pallas_ffn import fused_residual_ffn
+from mssvt_tpu.ops.pallas_fill import (
+    fill_capacity_buffer,
+    fill_capacity_buffer_xla,
+)
+from mssvt_tpu.ops.pallas_fps import farthest_point_sample_planes_pallas_t_sel
+from mssvt_tpu_torch.kernels import attention, ffn, fill, fps
+
+torch.set_num_threads(2)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+# ----------------------------------------------------------------- K1 fill
+FILL_CASES = [
+    # (nw, k, cap, order, own_slab, num_valid)
+    (40, 648, 96, True, True, None),    # block-0 table geometry
+    (40, 648, 96, True, True, 23),      # tail rows past num_valid
+    (130, 300, 48, False, False, None),
+    (16, 162, 96, True, True, 9),       # block-4 table geometry
+    (5, 129, 64, True, False, None),    # dense occupancy
+]
+
+
+def _fill_inputs(case):
+    nw, k, cap, with_order, with_slab, nv = case
+    rng = np.random.default_rng(nw * 1000 + k)
+    occp = rng.uniform(0.05, 0.9)
+    box = np.where(rng.random((nw, k)) < occp,
+                   rng.integers(0, 16_000_000, (nw, k)), -1).astype(np.int32)
+    if nv is not None:
+        box[nv:] = -1  # windows past the live prefix have empty tables
+    offs = rng.integers(0, 2**15, (k,)).astype(np.int32)
+    order = rng.permutation(k).astype(np.int64) if with_order else None
+    own_slab = elig = None
+    if with_slab:
+        own_slab = (k // 3, min(72, k - k // 3))
+        elig = rng.integers(0, 2, (k, 3)).astype(np.float32)
+    return box, offs, cap, order, own_slab, elig, nv
+
+
+@pytest.mark.parametrize("case", FILL_CASES,
+                         ids=[f"nw{c[0]}k{c[1]}nv{c[5]}" for c in FILL_CASES])
+def test_fill_plain_matches_jax(case):
+    """Exact: every int output against the XLA fill and the Pallas kernel
+    (interpret mode, with num_valid where given)."""
+    box, offs, cap, order, own_slab, elig, nv = _fill_inputs(case)
+    got = fill.fill_plain(_t(box), offs, cap, order=order, own_slab=own_slab,
+                          elig=elig,
+                          num_valid=None if nv is None else torch.tensor(nv))
+    want_xla = fill_capacity_buffer_xla(jnp.asarray(box), offs, cap,
+                                        order=order, own_slab=own_slab,
+                                        elig=elig)
+    want_pl = fill_capacity_buffer(
+        jnp.asarray(box), offs, cap, interpret=True, order=order,
+        own_slab=own_slab, elig=elig,
+        num_valid=None if nv is None else jnp.asarray(nv, jnp.int32))
+    assert len(got) == len(want_xla) == len(want_pl)
+    for i, (g, wx, wp) in enumerate(zip(got, want_xla, want_pl)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wx),
+                                      err_msg=f"output {i} vs xla")
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wp),
+                                      err_msg=f"output {i} vs pallas")
+
+
+# ------------------------------------------------------------------ K2 FPS
+@pytest.mark.parametrize("integer_planes", [True, False])
+def test_fps_plain_matches_pallas_select(integer_planes):
+    """Exact picks and selections, with two stacked halves and a live
+    prefix; integer planes (the model's offsets) produce many distance
+    ties, which must resolve to the lowest index."""
+    rng = np.random.default_rng(5)
+    nw_half, n, npoint, nv = 160, 96, 32, 40
+    b = 2 * nw_half
+    if integer_planes:
+        x, y, z = (rng.integers(-4, 5, (b, n)).astype(np.float32)
+                   for _ in range(3))
+    else:
+        x, y, z = (rng.normal(size=(b, n)).astype(np.float32) * 3
+                   for _ in range(3))
+    aux = rng.integers(-1, 90_000, (b, n)).astype(np.float32)
+    dead = np.zeros(b, bool)
+    dead[nv:nw_half] = True
+    dead[nw_half + nv:] = True
+    for p in (x, y, z, aux):
+        p[dead] = 0.0  # dead windows have empty (zero) buffers
+    got_idx, got_sel = fps.fps_plain(_t(x), _t(y), _t(z), (_t(aux),), npoint,
+                                     num_valid=torch.tensor(nv),
+                                     nw_half=nw_half)
+    want_idx, want_sel = farthest_point_sample_planes_pallas_t_sel(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), (jnp.asarray(aux),),
+        npoint, col_block=128, interpret=True,
+        num_valid=jnp.asarray(nv, jnp.int32), nw_half=nw_half)
+    np.testing.assert_array_equal(got_idx.numpy(), np.asarray(want_idx))
+    for g, w in zip(got_sel, want_sel):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (got_idx.numpy()[dead] == 0).all()
+
+
+# ------------------------------------------------------ K3 assembled attention
+def _blockdiag(blocks, d):
+    out = np.zeros((d, d), np.float32)
+    s = 0
+    for blk in blocks:
+        out[s:s + blk.shape[0], s:s + blk.shape[0]] = blk
+        s += blk.shape[0]
+    return out
+
+
+def _attn_inputs(q_prefix, pad_keys, rng):
+    nw, n1cap, nk1, nk2, d = 20, 24, 8, 8, 64
+    nq = 12
+    num_heads = (2, 2)
+    sd = d // 2
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    proj = []
+    for _ in range(4):
+        proj.append(_blockdiag([f(sd, sd) * 0.3, f(sd, sd) * 0.3], d))
+        proj.append(f(d) * 0.1)
+    qm = rng.random((nw, nq)) < 0.2
+    km = rng.random((nw, nk1 + nk2)) < 0.2
+    return dict(
+        win1_fea=f(nw, n1cap, d), k2_fea=f(nw, nk2, d),
+        fps1=rng.integers(0, n1cap, (nw, nk1)).astype(np.int32),
+        k_mask1=rng.random((nw, nk1)) < 0.3,
+        q_ext=None if q_prefix else f(nw, nq, d) * (~qm)[..., None],
+        q_keep=(~qm).astype(np.float32),
+        k_rel=tuple(f(nw, nk1 + nk2) for _ in range(3)),
+        q_rel=tuple(f(nw, nq) for _ in range(3)),
+        pos_base=f(nw, d), pos_w=f(3, d), proj=tuple(proj),
+        key_bias=np.where(km, -100.0, 0.0).astype(np.float32),
+        num_heads=num_heads, scale=(d // 4) ** -0.5, q_prefix=q_prefix,
+        nq=nq, pad_row=f(nw, d) if pad_keys else None, qm=qm)
+
+
+def _map_arrays(args, fn):
+    """Apply ``fn`` to every numpy array of ``args`` (and inside tuples)."""
+    def conv(v):
+        if isinstance(v, np.ndarray):
+            return fn(v)
+        if isinstance(v, tuple) and v and isinstance(v[0], np.ndarray):
+            return tuple(fn(x) for x in v)
+        return v
+    return {k: conv(v) for k, v in args.items()}
+
+
+@pytest.mark.parametrize("q_prefix,pad_keys", [(True, False), (False, False),
+                                               (True, True), (False, True)])
+def test_attention_plain_matches_pallas(q_prefix, pad_keys):
+    """f32, compared after the query mask and on the live windows (the
+    Pallas kernel zeroes only whole supertiles past num_valid). Tolerance
+    1e-4: the same f32 math, summed in another order."""
+    a = _attn_inputs(q_prefix, pad_keys, np.random.default_rng(7))
+    qm = a.pop("qm")
+    nv = 13
+    t_args = _map_arrays(a, _t)
+    got = attention.attention_plain(
+        **t_args, num_valid=torch.tensor(nv),
+        compute_dtype=torch.float32).numpy()
+    j_args = _map_arrays(a, jnp.asarray)
+    if j_args["q_ext"] is None:
+        j_args["q_ext"] = jnp.zeros((qm.shape[0], 1, 64), jnp.float32)
+    want = np.asarray(fused_window_attention_assembled(
+        **j_args, num_valid=jnp.asarray(nv, jnp.int32), window_block=8,
+        interpret=True, compute_dtype=jnp.float32))
+    keep = (~qm)[..., None]
+    np.testing.assert_allclose((got * keep)[:nv], (want * keep)[:nv],
+                               atol=1e-4, rtol=1e-4)
+    assert (got[nv:] == 0).all()
+
+
+# ------------------------------------------------------------------- K4 FFN
+def _ffn_inputs(rng, v=300, c=64, f=128):
+    r = lambda *s: rng.normal(size=s).astype(np.float32)
+    return (r(v, c), 1 + 0.1 * r(c), 0.1 * r(c), r(c, f) * 0.2, 0.1 * r(f),
+            r(f, c) * 0.2, 0.1 * r(c))
+
+
+def test_ffn_plain_bf16_matches_pallas():
+    """bf16 mode is the TPU kernel's arithmetic (LN output and hidden
+    activation rounded to bf16, f32 accumulation). Tolerance 2e-2 abs /
+    1e-2 rel: the f32 sums run in another order, which can move a hidden
+    activation across a bf16 rounding boundary (one bf16 ulp is 2^-8 rel)."""
+    args = _ffn_inputs(np.random.default_rng(2))
+    got = ffn.ffn_plain(*(_t(a) for a in args),
+                        compute_dtype=torch.bfloat16).numpy()
+    want = np.asarray(fused_residual_ffn(*(jnp.asarray(a) for a in args),
+                                         interpret=True))
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=1e-2)
+
+
+def test_ffn_plain_f32_matches_flax_chain():
+    """f32 mode against the JAX CPU path's flax LayerNorm + Dense chain;
+    tolerance 1e-5 (f32, different summation order)."""
+    from flax import linen as nn
+
+    x, s, b, w1, b1, w2, b2 = _ffn_inputs(np.random.default_rng(3))
+    ln = nn.LayerNorm().apply({"params": {"scale": s, "bias": b}},
+                              jnp.asarray(x))
+    h = nn.relu(nn.Dense(w1.shape[1]).apply(
+        {"params": {"kernel": w1, "bias": b1}}, ln))
+    want = np.asarray(jnp.asarray(x) + nn.Dense(w2.shape[1]).apply(
+        {"params": {"kernel": w2, "bias": b2}}, h))
+    got = ffn.ffn_plain(*(_t(a) for a in (x, s, b, w1, b1, w2, b2)),
+                        compute_dtype=torch.float32).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
