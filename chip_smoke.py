@@ -18,11 +18,26 @@ Phases (any failed check raises and the script exits non-zero):
    the bf16 tolerance below), both timed with CUDA events;
 5. the main path: ``mssvt.yaml`` CenterPoint, full width, bf16, seeded
    random weights, answering 3 requests (3 distinct scenes of batch 4),
-   with the kernel launch counts of every request checked.
+   with the kernel launch counts of every request checked;
+6a. small-input training reference: one f32 ``mssvt_tiny.yaml`` training
+   step on the card against the CPU plain path (loss within 1e-4 relative,
+   every gradient within 1e-3 of the global gradient norm);
+6b. K5, the attention backward, at ``mssvt.yaml`` block-0 shapes on the
+   inputs of a full-width training forward and backward: the CUDA kernel
+   against its plain version (each cotangent within the bf16 tolerance),
+   both timed with CUDA events;
+6c. the training path: 3 ``train_step``s of ``mssvt.yaml`` at full width,
+   bf16, batch 4 on 3 scenes with seeded GT boxes, ``adam_onecycle`` with
+   ``GRAD_NORM_CLIP: 10``: finite loss and gradient norm, a finite gradient
+   for every parameter, nonzero ones for the 3D backbone's attention,
+   position and FFN parameters and the head, the launch counts of every
+   step; then step 1's forward and backward again from the same weights,
+   batch and DropPath generator state, with bit-identical gradients.
 
-With ``--profile`` one more request runs under ``torch.profiler`` and the
-device time per kernel name is printed (top entries, and their sum as a
-share of the mean unprofiled request time).
+With ``--profile`` one more request and one more training step run under
+``torch.profiler`` and the device time per kernel name is printed (top
+entries, and their sum as a share of the mean unprofiled request or step
+time).
 
 Its last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -47,7 +62,11 @@ F32_FLOPS = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
 # land one bf16 ulp apart and carry that through the next product; the
 # outputs must agree to 2^-5 of their largest magnitude.
 BF16_TOL = 2.0 ** -5
-EXPECTED_LAUNCHES = {"fill": 5, "fps": 3, "attention": 3, "ffn": 3}
+EXPECTED_LAUNCHES = {"fill": 5, "fps": 3, "attention": 3, "attention_bwd": 0,
+                     "ffn": 3}
+TRAIN_LAUNCHES = {"fill": 5, "fps": 3, "attention": 3, "attention_bwd": 3,
+                  "ffn": 0}
+TRAIN_STEPS = 3
 GRID = (480, 480, 32)
 VOXEL = (0.32, 0.32, 0.1875)
 PCR = (-76.8, -76.8, -2.0, 76.8, 76.8, 4.0)
@@ -93,11 +112,24 @@ def load_cfg(name):
 
 
 # --------------------------------------------------------------- phase 3
-def small_reference(torch):
-    """mssvt_tiny.yaml in f32: CUDA kernels vs plain versions on the CPU."""
-    import numpy as np
+def tiny_gt(np, rng, bsz, max_gt=8):
+    """GT boxes inside mssvt_tiny.yaml's range (class 0 rows are padding)."""
+    gt = np.zeros((bsz, max_gt, 8), np.float32)
+    for b in range(bsz):
+        n = int(rng.integers(3, max_gt))
+        gt[b, :n, 0] = rng.uniform(1.0, 18.0, n)
+        gt[b, :n, 1] = rng.uniform(-8.5, 8.5, n)
+        gt[b, :n, 2] = rng.uniform(-1.0, 1.0, n)
+        gt[b, :n, 3:6] = rng.uniform(0.8, 4.0, (n, 3))
+        gt[b, :n, 6] = rng.uniform(-np.pi, np.pi, n)
+        gt[b, :n, 7] = rng.integers(1, 4, n)
+    return gt
 
-    from mssvt_tpu_torch.models import build_network
+
+def tiny_setup(seed, with_gt=False):
+    """mssvt_tiny.yaml and a seeded 2-frame scene of up to 1024 voxels
+    (with GT boxes for training): (cfg, build_network args, scene)."""
+    import numpy as np
 
     cfg = load_cfg("tools/cfgs/synthetic_models/mssvt_tiny.yaml")
     dc = cfg.DATA_CONFIG
@@ -105,7 +137,7 @@ def small_reference(torch):
     vs = tuple(dc.DATA_PROCESSOR[-1].VOXEL_SIZE)
     grid = tuple(int(round((pcr[i + 3] - pcr[i]) / vs[i])) for i in range(3))
     n_feat = len(dc.POINT_FEATURE_ENCODING.used_feature_list)
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     bsz, max_vox, n = 2, 1024, 1100
     coords = np.unique(np.stack([
         rng.integers(0, bsz, n), rng.integers(0, grid[2], n),
@@ -119,11 +151,21 @@ def small_reference(torch):
              "voxel_num_points": (rng.integers(1, 6, max_vox)
                                   * valid).astype(np.float32),
              "voxel_coords": pad, "voxel_valid": valid}
+    if with_gt:
+        scene["gt_boxes"] = tiny_gt(np, rng, bsz)
+    args = (cfg.MODEL, 3, CLASSES, grid, vs, pcr, bsz, max_vox, 5)
+    return args, n_feat, scene
+
+
+def small_reference(torch):
+    """mssvt_tiny.yaml in f32: CUDA kernels vs plain versions on the CPU."""
+    from mssvt_tpu_torch.models import build_network
+
+    args, n_feat, scene = tiny_setup(7)
     outs = {}
     for dev in ("cpu", "cuda"):
-        model = build_network(cfg.MODEL, 3, CLASSES, grid, vs, pcr, bsz,
-                              max_vox, 5, num_point_features=n_feat,
-                              device=dev, seed=11)
+        model = build_network(*args, num_point_features=n_feat, device=dev,
+                              seed=11)
         with torch.no_grad():
             outs[dev] = model(to_device(torch, scene, dev),
                               return_intermediates=True)
@@ -151,6 +193,7 @@ def small_reference(torch):
 
 
 # --------------------------------------------------------------- phase 4
+# the inference path's kernels (K5, the backward, is phase 6b's)
 KERNEL_FUNCS = {
     "fill": ("fill_capacity_buffer", "fill_plain"),
     "fps": ("fps_select", "fps_plain"),
@@ -163,17 +206,20 @@ TPU_COUNTERPART = {
            "farthest_point_sample_planes_pallas_t_sel",
     "attention": "mssvt_tpu/ops/pallas_attention.py:946 "
                  "fused_window_attention_assembled",
+    "attention_bwd": "mssvt_tpu/ops/pallas_attention.py:1190 "
+                     "_asm_attn_bwd_impl",
     "ffn": "mssvt_tpu/ops/pallas_ffn.py:42 fused_residual_ffn",
 }
 
 
 def capture_first_calls(torch, model, batch):
-    """Run one forward, recording each kernel wrapper's first call (block 0
-    for all four)."""
+    """Run one forward, recording each inference kernel wrapper's first call
+    (block 0 for all four)."""
     from mssvt_tpu_torch import kernels
 
     captured, saved = {}, {}
-    for name, mod in kernels.KERNELS.items():
+    for name in KERNEL_FUNCS:
+        mod = kernels.KERNELS[name]
         fname = KERNEL_FUNCS[name][0]
         orig = getattr(mod, fname)
         saved[name] = orig
@@ -188,8 +234,8 @@ def capture_first_calls(torch, model, batch):
             model(batch)
         torch.cuda.synchronize()
     finally:
-        for name, mod in kernels.KERNELS.items():
-            setattr(mod, KERNEL_FUNCS[name][0], saved[name])
+        for name in KERNEL_FUNCS:
+            setattr(kernels.KERNELS[name], KERNEL_FUNCS[name][0], saved[name])
     return captured
 
 
@@ -278,7 +324,8 @@ def kernel_phase(torch, captured):
     from mssvt_tpu_torch import kernels
 
     rows = {}
-    for name, mod in kernels.KERNELS.items():
+    for name in KERNEL_FUNCS:
+        mod = kernels.KERNELS[name]
         a, k = captured[name]
         kern = getattr(mod, KERNEL_FUNCS[name][0])
         plain = getattr(mod, KERNEL_FUNCS[name][1])
@@ -368,6 +415,248 @@ def profile_request(torch, model, scene, request_ms):
             f"{e.key[:90]}")
 
 
+# -------------------------------------------------------------- phase 6a
+def grad_vector(torch, model):
+    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                      .detach().float().reshape(-1)
+                      for p in model.parameters()])
+
+
+def small_train_reference(torch):
+    """mssvt_tiny.yaml, one f32 training step: CUDA kernels (K5 for the
+    attention backward) vs the plain versions on the CPU."""
+    import numpy as np
+
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.models import build_network
+    from mssvt_tpu_torch.runtime.train_utils import forward_backward
+
+    args, n_feat, scene = tiny_setup(17, with_gt=True)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = build_network(*args, num_point_features=n_feat, device=dev,
+                              seed=11)
+        kernels.reset_launch_counts()
+        loss, _ = forward_backward(model, to_device(torch, scene, dev),
+                                   torch.Generator(device=dev).manual_seed(0))
+        res[dev] = (float(loss), grad_vector(torch, model).cpu(),
+                    kernels.launch_counts())
+    torch.cuda.synchronize()
+    (l_cpu, g_cpu, _), (l_gpu, g_gpu, counts) = res["cpu"], res["cuda"]
+    if counts["attention_bwd"] != 2 or not np.isfinite(l_gpu):
+        raise AssertionError(f"small training reference: launches {counts}, "
+                             f"loss {l_gpu}")
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    norm = g_cpu.norm().item()
+    gerr = (g_gpu - g_cpu).abs().max().item()
+    if rel > 1e-4 or not gerr <= 1e-3 * norm:
+        raise AssertionError(f"small training reference: loss {l_gpu} vs "
+                             f"{l_cpu}, gradient error {gerr} (norm {norm})")
+    log(f"# small training reference (mssvt_tiny.yaml, f32): loss card "
+        f"{l_gpu:.6f} vs CPU {l_cpu:.6f} (relative {rel:.3g}); largest "
+        f"gradient difference {gerr:.3g} = {gerr / norm:.3g} of the global "
+        f"norm {norm:.4g}; launches {counts}")
+
+
+# -------------------------------------------------------------- phase 6b
+def capture_block0_backward(torch, model, batch, gen):
+    """One training forward and backward, recording K5's call with the
+    most windows (block 0)."""
+    from mssvt_tpu_torch.kernels import attention_bwd
+    from mssvt_tpu_torch.runtime.train_utils import forward_backward
+
+    orig = attention_bwd.fused_window_attention_assembled_bwd
+    box = {}
+
+    def rec(*a, **k):
+        if "a" not in box or a[0].shape[0] > box["a"][0].shape[0]:
+            box["a"], box["k"] = a, k
+        return orig(*a, **k)
+
+    attention_bwd.fused_window_attention_assembled_bwd = rec
+    try:
+        model.zero_grad()
+        forward_backward(model, batch, gen)
+        torch.cuda.synchronize()
+    finally:
+        attention_bwd.fused_window_attention_assembled_bwd = orig
+    model.zero_grad()
+    return box["a"], box["k"]
+
+
+def bwd_bound(a, k):
+    """(bound_ms, bound_by) for one K5 call: inputs of live windows read
+    once, every output written once, vs its block-diagonal products (the
+    forward recompute, the backward and the full (D, D) weight products)
+    at the bf16 tensor-core peak."""
+    win1, k2, fps1 = a[0], a[1], a[2]
+    nw, n1cap, d = win1.shape
+    nk1, nk2 = fps1.shape[1], k2.shape[1]
+    nkt = nk1 + nk2
+    heads = k["num_heads"]
+    nq = int(k["nq"]) if k["q_prefix"] else a[4].shape[1]
+    nv = int(k["num_valid"])
+    ph = d // sum(heads)
+    nk = nkt // len(heads)
+    mac_proj = sum((ph * h) ** 2 for h in heads)  # per token, one matrix
+    attn = sum(heads) * nq * nk * ph              # one per-head product
+    macs = ((nq + 2 * nkt) * mac_proj + 2 * attn       # forward recompute
+            + nq * mac_proj + 4 * attn                 # dO, dA, dV, dQ, dK
+            + (nq + 2 * nkt) * mac_proj                # dQ3, dK3
+            + (2 * nq + 2 * nkt) * d * d)              # dW (full D x D)
+    flops = 2 * macs * nv
+    per_win = (n1cap * d * 2 + nk2 * d * 2 + nk1 * 5 + nq * 4
+               + (0 if k["q_prefix"] else nq * d * 2)
+               + 4 * 3 * (nkt + nq) + d * 2 + nkt * 4 + d * 2 + nq * d * 2)
+    outs = nw * (n1cap * d * 2 + nk2 * d * 2 + 2 * d * 2
+                 + (0 if k["q_prefix"] else nq * d * 2))
+    by = nv * per_win + 4 * d * d * 2 + outs + (4 * d * d + 7 * d) * 4
+    t_by, t_op = by / MEM_BPS, flops / BF16_FLOPS
+    return max(t_by, t_op) * 1e3, "bytes" if t_by >= t_op else "operations"
+
+
+def bwd_kernel_phase(torch, a, k):
+    from mssvt_tpu_torch.kernels import attention, attention_bwd
+
+    kern = attention_bwd.fused_window_attention_assembled_bwd
+    plain = attention.attention_bwd_plain
+    flat = lambda r: [(n, t) for n, t in zip(
+        ("dwin1", "dk2", "dq_ext", "dpad_row", "dpos_base", "dpos_w",
+         "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwp", "dbp"),
+        (*r[:6], *r[6])) if t is not None]
+    with torch.no_grad():
+        got = flat(kern(*a, **k))
+        want = flat(plain(*a, **k))
+        torch.cuda.synchronize()
+        err = worst = 0.0
+        dbv = dict(want)["dbv"].float().abs().max().item()
+        for (name, g), (_, w) in zip(got, want):
+            g, w = g.float(), w.float()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"attention_bwd: non-finite {name}")
+            e = (g - w).abs().max().item()
+            # dbk is analytically zero (softmax rows are shift-invariant, so
+            # each row of dS sums to zero): rounding noise on both sides,
+            # held against max |dbv|, a sum over the same tokens
+            scale = dbv if name == "dbk" else w.abs().max().item()
+            err, worst = max(err, e), max(worst, e / max(scale, 1e-30))
+            if e > BF16_TOL * max(scale, 1e-6):
+                raise AssertionError(f"attention_bwd: {name} max abs error "
+                                     f"{e} > {BF16_TOL} x max |plain| {scale}")
+        log(f"# attention_bwd: max abs error {err:.4g}; worst cotangent "
+            f"error relative to its max |plain|: {worst:.4g} (limit "
+            f"{BF16_TOL:.4g}); {len(got)} cotangents")
+        del got, want
+        ms = time_ms(torch, lambda: kern(*a, **k), reps=5, warm=1)
+        plain_ms = time_ms(torch, lambda: plain(*a, **k), reps=1, warm=1)
+    bound_ms, bound_by = bwd_bound(a, k)
+    shapes = [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)]
+    log(f"# kernel attention_bwd: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={err:.3g} "
+        f"inputs={shapes} num_valid={int(k['num_valid'])}")
+    return dict(name="attention_bwd", route="cuda",
+                source="mssvt_tpu_torch/csrc/attention_bwd.cu",
+                replaces=TPU_COUNTERPART["attention_bwd"], launches=None,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+# -------------------------------------------------------------- phase 6c
+BACKBONE_GRADS = ("ms_attn.to_q", "ms_attn.to_kv", "ms_attn.proj",
+                  "pos_proj.proj0", "linear1", "linear2")
+
+
+def check_step_grads(torch, model, i):
+    """Finite gradient for every parameter; nonzero ones for the 3D
+    backbone's attention, position and FFN parameters and the head;
+    returns the global gradient norm."""
+    nonzero = {k: False for k in BACKBONE_GRADS + ("dense_head",)}
+    for name, p in model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"step {i}: no finite gradient for {name}")
+        if p.grad.abs().max().item() > 0:
+            for key in nonzero:
+                if name.startswith("backbone_3d.") and key in name or \
+                        name.startswith(key):
+                    nonzero[key] = True
+    missing = [k for k, v in nonzero.items() if not v]
+    if missing:
+        raise AssertionError(f"step {i}: zero gradients for {missing}")
+    norm = grad_vector(torch, model).norm().item()
+    if not (norm > 0 and norm < float("inf")):
+        raise AssertionError(f"step {i}: gradient norm {norm}")
+    return norm
+
+
+def train_path(torch, model, optimizer, scenes, gen):
+    """TRAIN_STEPS train_steps on distinct scenes, then step 1's forward
+    and backward again from the same weights, batch and generator state:
+    the gradients must repeat bit for bit. Returns (launch counts, mean
+    step ms)."""
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.runtime.train_utils import forward_backward, train_step
+
+    start = ({k: v.detach().clone() for k, v in model.state_dict().items()},
+             gen.get_state())
+    grads1, times = None, []
+    kernels.reset_launch_counts()
+    for i, scene in enumerate(scenes):
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, tb = train_step(model, optimizer, scene, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        times.append(ms)
+        after = kernels.launch_counts()
+        per = {n: after[n] - before[n] for n in after}
+        if per != TRAIN_LAUNCHES:
+            raise AssertionError(f"step {i}: launches {per} != {TRAIN_LAUNCHES}")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"step {i}: loss {loss.item()}")
+        norm = check_step_grads(torch, model, i)
+        if i == 0:
+            grads1 = [p.grad.clone() for p in model.parameters()]
+        log(f"# train step {i} (scene seed {i}, batch {BATCH}): {ms:.1f} ms, "
+            f"loss {loss.item():.4f} (hm {tb['hm_loss_head_0'].item():.4f}, "
+            f"loc {tb['loc_loss_head_0'].item():.4f}), gradient norm "
+            f"{norm:.4g}, launches {per}")
+    counts = kernels.launch_counts()
+    model.load_state_dict(start[0])
+    gen.set_state(start[1])
+    model.zero_grad()
+    forward_backward(model, scenes[0], gen)
+    torch.cuda.synchronize()
+    same = all(torch.equal(p.grad, g) for p, g in zip(model.parameters(),
+                                                      grads1))
+    if not same:
+        raise AssertionError("step 1 repeated: gradients differ")
+    log(f"# step 1 repeated from the same weights, batch and generator "
+        f"state: bit-identical gradients over {len(grads1)} parameters")
+    return counts, sum(times) / len(times)
+
+
+def profile_train_step(torch, model, optimizer, scene, gen, step_ms):
+    """Device-busy share of one more train step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mssvt_tpu_torch.runtime.train_utils import train_step
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train_step(model, optimizer, scene, gen)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and "CUDA" in str(e.device_type)]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"# profile: one train step, device kernels {total:.1f} ms = "
+        f"{100 * total / step_ms:.1f}% of the mean step time {step_ms:.1f} ms")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"#   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+
+
 def main(argv):
     try:
         import torch
@@ -429,8 +718,39 @@ def main(argv):
                                  "main path")
     if "--profile" in argv:
         profile_request(torch, model, scenes[0], request_ms)
-    log(f"# peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB; total {time.time() - t_start:.1f} s")
+    log(f"# inference: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    small_train_reference(torch)
+
+    from mssvt_tpu_torch.datasets.synthetic_scene import add_synth_gt
+    from mssvt_tpu_torch.runtime.optimization import build_optimizer
+
+    for i, scene in enumerate(scenes):
+        scene["gt_boxes"] = torch.as_tensor(
+            add_synth_gt({}, BATCH, seed=i)["gt_boxes"], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a, k = capture_block0_backward(torch, model, scenes[0], gen)
+    rows["attention_bwd"] = bwd_kernel_phase(torch, a, k)
+    del a, k
+    torch.cuda.empty_cache()
+
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model.named_parameters(),
+                                   total_steps=TRAIN_STEPS, steps_per_epoch=1)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    train_counts, step_ms = train_path(torch, model, optimizer, scenes, gen)
+    log(f"# training: mean step {step_ms:.1f} ms over {TRAIN_STEPS} steps; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    for name in TRAIN_LAUNCHES:
+        if TRAIN_LAUNCHES[name] and train_counts[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "training path")
+    rows["attention_bwd"]["launches"] = train_counts["attention_bwd"]
+    if "--profile" in argv:
+        profile_train_step(torch, model, optimizer, scenes[1], gen, step_ms)
+    log(f"# total {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Carry a JAX model's variables into the port.
+"""Carry a JAX model's variables into the port, and the port's back.
 
 ``load_flax_variables(model, tree)`` takes the flax variables as a nested
 dict of numpy arrays (``{"params": ..., "batch_stats": ...}``) and fills
@@ -16,6 +16,11 @@ is mechanical. Layout rules:
 MixedScaleAttention's per-group ``to_q_i``/``to_kv_i``/``proj_i`` are
 stored as they are (the block-diagonal folding happens at call time), and
 ``input_proj`` is carried like any Dense.
+
+``to_flax_tree(model, collection, grads)`` is the other direction: the
+port's parameters (or their ``.grad``) or BatchNorm statistics as a nested
+flax-path tree of numpy arrays, with the inverse layout rules, so that a
+test can compare gradients and updated statistics leaf by leaf.
 """
 
 from __future__ import annotations
@@ -26,7 +31,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.model_utils.layers import BatchNorm, ConvTranspose2d
+from .models.model_utils.layers import (
+    BatchNorm,
+    Conv2d,
+    ConvTranspose2d,
+    Dense,
+    LayerNorm,
+)
 
 
 def _tensor(a, like: torch.Tensor, name: str) -> torch.Tensor:
@@ -89,3 +100,44 @@ def load_flax_variables(model: nn.Module, tree: Dict) -> int:
     if n != expected:
         raise ValueError(f"loaded {n} arrays, the port holds {expected}")
     return n
+
+
+def _to_flax_layout(mod: nn.Module, key: str, t: torch.Tensor) -> np.ndarray:
+    a = t.detach().float().cpu().numpy()
+    if key != "kernel":
+        return a
+    if isinstance(mod, ConvTranspose2d):
+        return a.transpose(2, 3, 0, 1)[::-1, ::-1].copy()
+    if a.ndim == 4:
+        return a.transpose(2, 3, 1, 0).copy()
+    return a.T.copy()
+
+
+def to_flax_tree(model: nn.Module, collection: str = "params",
+                 grads: bool = False) -> Dict:
+    """The port's ``params`` (their ``.grad`` with ``grads``; a parameter
+    without one gives zeros) or ``batch_stats`` as a nested flax-path dict of
+    numpy arrays."""
+    tree: Dict = {}
+    for name, mod in model.named_modules():
+        if collection == "batch_stats":
+            if not isinstance(mod, BatchNorm):
+                continue
+            leaves = {"mean": mod.mean, "var": mod.var}
+        elif isinstance(mod, (Dense, Conv2d, ConvTranspose2d)):
+            leaves = {"kernel": mod.weight, "bias": mod.bias}
+        elif isinstance(mod, (LayerNorm, BatchNorm)):
+            leaves = {"scale": mod.weight if isinstance(mod, LayerNorm)
+                      else mod.scale, "bias": mod.bias}
+        else:
+            continue
+        node = tree
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        for key, t in leaves.items():
+            if t is None:
+                continue
+            if grads:
+                t = t.grad if t.grad is not None else torch.zeros_like(t)
+            node[key] = _to_flax_layout(mod, key, t)
+    return tree

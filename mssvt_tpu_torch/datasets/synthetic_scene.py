@@ -1,9 +1,11 @@
-"""Synthetic Waymo-scale scene: the recipe of ``make_waymo_scale_scene`` in
-the repo's ``bench.py``, copied so the port does not import the JAX side.
+"""Synthetic Waymo-scale scene and GT boxes: the recipes of
+``make_waymo_scale_scene`` and ``add_synth_gt`` in the repo's ``bench.py``,
+copied so the port does not import the JAX side.
 
 ~80k occupied voxels per frame with a LiDAR-like radial density falloff
 around the grid centre, geometric z occupancy, random point features and
-point counts, all from ``numpy.random.default_rng(seed)``.
+point counts, all from ``numpy.random.default_rng(seed)``; 20-63 boxes per
+frame for the training step's targets.
 """
 
 from __future__ import annotations
@@ -46,3 +48,23 @@ def make_waymo_scale_scene(max_voxels, grid, seed=0, batch=1):
         "voxel_coords": pad,
         "voxel_valid": valid,
     }, n
+
+
+def add_synth_gt(batch, batch_size, seed=0, max_gt=64):
+    """Adds ``gt_boxes`` (B, max_gt, 8) f32 to ``batch``: per frame 20 to
+    max_gt - 1 boxes (x, y in [-70, 70], z, dims, heading, 1-based class
+    1..3), the rest zero padding; from ``default_rng(1000 + seed)``."""
+    rng = np.random.default_rng(1000 + seed)
+    gt = np.zeros((batch_size, max_gt, 8), np.float32)
+    for b in range(batch_size):
+        n = rng.integers(20, max_gt)
+        gt[b, :n, 0] = rng.uniform(-70, 70, n)
+        gt[b, :n, 1] = rng.uniform(-70, 70, n)
+        gt[b, :n, 2] = rng.uniform(-1, 2, n)
+        gt[b, :n, 3] = rng.uniform(1.5, 6, n)
+        gt[b, :n, 4] = rng.uniform(1.0, 3, n)
+        gt[b, :n, 5] = rng.uniform(1.0, 3, n)
+        gt[b, :n, 6] = rng.uniform(-np.pi, np.pi, n)
+        gt[b, :n, 7] = rng.integers(1, 4, n)
+    batch["gt_boxes"] = gt
+    return batch

@@ -39,6 +39,7 @@ _SIGNATURES = {
     "mssvt_fill": [VP, CI, CI, CI, VP, VP, VP, CI, CI, VP, VP, VP, VP, VP, VP],
     "mssvt_fps": [VP, CI, CI, CI, CI, CI, VP, VP, VP, VP],
     "mssvt_attention": [VP, VP, CF, CI, VP],
+    "mssvt_attention_bwd": [VP, VP, CF, CI, VP],
     "mssvt_ffn": [VP, VP, VP, VP, VP, VP, VP, VP, CI, CI, CI, CF, CI, VP],
 }
 

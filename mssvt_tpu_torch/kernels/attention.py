@@ -20,7 +20,8 @@ Windows at or past ``num_valid`` return zeros. Callers apply their query
 mask afterwards, as the JAX module does.
 
 CUDA tensors go to ``csrc/attention.cu``; CPU tensors to
-:func:`attention_plain`.
+:func:`attention_plain`. The module also holds :func:`attention_bwd_plain`,
+the plain version of K5, the backward (``kernels/attention_bwd.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ MAX_GROUPS = 4
 
 def _assemble(win1, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
               pos_base, pos_w, pad_row, nq, q_prefix, t):
+    """(q3, k3, zq, zk): assembled tokens and the pre-relu position
+    activations (the backward's relu masks), all in ``t``."""
     n1cap = win1.shape[1]
     pick_ok = (~k_mask1) & (fps1 >= 0) & (fps1 < n1cap)
     take = torch.take_along_dim(
@@ -48,14 +51,15 @@ def _assemble(win1, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
     w0, w1, w2 = (pos_w.to(t)[i] for i in range(3))
     base = pos_base.to(t)[:, None, :]
 
-    def pos(rel):
+    def pre(rel):
         rx, ry, rz = (r.to(t)[..., None] for r in rel)
-        return torch.relu(rx * w0 + ry * w1 + rz * w2 + base)
+        return rx * w0 + ry * w1 + rz * w2 + base
 
-    k3 = torch.cat([k1, k2_fea.to(t)], dim=1) + pos(k_rel)
+    zk, zq = pre(k_rel), pre(q_rel)
+    k3 = torch.cat([k1, k2_fea.to(t)], dim=1) + torch.relu(zk)
     q_raw = win1[:, :nq] if q_prefix else q_ext.to(t)
-    q3 = q_raw * q_keep.to(t)[..., None] + pos(q_rel)
-    return q3, k3
+    q3 = q_raw * q_keep.to(t)[..., None] + torch.relu(zq)
+    return q3, k3, zq, zk
 
 
 def attention_plain(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel,
@@ -66,8 +70,9 @@ def attention_plain(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel,
     t = compute_dtype or win1_fea.dtype
     nw, _, d = win1_fea.shape
     nq = int(nq) if q_prefix else q_ext.shape[1]
-    q3, k3 = _assemble(win1_fea.to(t), k2_fea, fps1, k_mask1, q_ext, q_keep,
-                       k_rel, q_rel, pos_base, pos_w, pad_row, nq, q_prefix, t)
+    q3, k3, _, _ = _assemble(win1_fea.to(t), k2_fea, fps1, k_mask1, q_ext,
+                             q_keep, k_rel, q_rel, pos_base, pos_w, pad_row,
+                             nq, q_prefix, t)
     wq, bq, wk, bk, wv, bv, wp, bp = (p.to(t).float() for p in proj)
     q = (q3.float() @ wq + bq).to(t).float()
     k = (k3.float() @ wk + bk).to(t).float()
@@ -97,20 +102,113 @@ def attention_plain(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel,
     return out
 
 
-def fused_window_attention_assembled(
-        win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
-        pos_base, pos_w, proj, key_bias, num_heads, scale, q_prefix, nq=0,
-        pad_row=None, num_valid=None, compute_dtype=None):
-    """(NW, nq, D) window attention from the raw gather products."""
-    global launches
-    if win1_fea.device.type == "cpu":
-        return attention_plain(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep,
-                               k_rel, q_rel, pos_base, pos_w, proj, key_bias,
-                               num_heads, scale, q_prefix, nq, pad_row,
-                               num_valid, compute_dtype)
+def attention_bwd_plain(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep,
+                        k_rel, q_rel, pos_base, pos_w, proj, key_bias, g,
+                        num_heads, scale, q_prefix, nq=0, pad_row=None,
+                        num_valid=None, compute_dtype=None):
+    """Plain PyTorch version of K5, the backward of
+    :func:`fused_window_attention_assembled` for the output cotangent ``g``
+    (NW, nq, D). It repeats the JAX backward step by step
+    (``_attn_assembled_bwd_body`` and ``_bwd_qstk_core`` in
+    ``mssvt_tpu/ops/pallas_attention.py``), rounding to the compute dtype
+    where that does, rather than differentiating :func:`attention_plain`.
+
+    Returns ``(dwin1, dk2, dq_ext, dpad_row, dpos_base, dpos_w, dproj)`` with
+    ``dproj = (dwq, dbq, dwk, dbk, dwv, dbv, dwp, dbp)`` (full (D, D) weight
+    cotangents, summed in f32); ``dq_ext`` is None when ``q_prefix``. Each
+    cotangent has its primal's dtype. Windows at or past ``num_valid`` get
+    zero cotangents and add nothing to the sums."""
+    t = compute_dtype or win1_fea.dtype
+    f32 = torch.float32
+    nw, n1cap, d = win1_fea.shape
+    nk1 = fps1.shape[1]
+    nq = int(nq) if q_prefix else q_ext.shape[1]
+    q3, k3, zq, zk = _assemble(win1_fea.to(t), k2_fea, fps1, k_mask1, q_ext,
+                               q_keep, k_rel, q_rel, pos_base, pos_w, pad_row,
+                               nq, q_prefix, t)
+    wq, bq, wk, bk, wv, bv, wp, bp = (p.to(t).float() for p in proj)
+    q = (q3.float() @ wq + bq).to(t).float()
+    k = (k3.float() @ wk + bk).to(t).float()
+    v = (k3.float() @ wv + bv).to(t).float()
+    gf = g.to(t).float()
+    if num_valid is not None:
+        live = torch.arange(nw, device=g.device) < num_valid
+        gf = gf * live[:, None, None].to(f32)
+    groups = len(num_heads)
+    ph = d // sum(num_heads)
+    nk = k3.shape[1] // groups
+    bias = key_bias.float()
+    do1 = (gf @ wp.t()).to(t).float()
+    o1 = torch.zeros_like(gf)
+    dq = torch.zeros_like(gf)
+    dk = torch.zeros_like(k)
+    dv = torch.zeros_like(k)
+    h = 0
+    for gi, heads in enumerate(num_heads):
+        ks = slice(gi * nk, (gi + 1) * nk)
+        for _ in range(heads):
+            cs = slice(h * ph, (h + 1) * ph)
+            s = q[:, :, cs] @ k[:, ks, cs].transpose(1, 2) * scale \
+                + bias[:, None, ks]
+            e = torch.exp(s - s.amax(dim=2, keepdim=True))
+            a = e / (e.sum(dim=2, keepdim=True) + 1e-30)
+            ab = a.to(t).float()
+            o1[:, :, cs] = ab @ v[:, ks, cs]
+            da = do1[:, :, cs] @ v[:, ks, cs].transpose(1, 2)
+            dv[:, ks, cs] = ab.transpose(1, 2) @ do1[:, :, cs]
+            rs = (da * a).sum(dim=2, keepdim=True)
+            ds = (a * (da - rs) * scale).to(t).float()
+            dq[:, :, cs] = ds @ k[:, ks, cs]
+            dk[:, ks, cs] = ds.transpose(1, 2) @ q[:, :, cs]
+            h += 1
+    dq_pb, dk_pb, dv_pb = (x.to(t).float() for x in (dq, dk, dv))
+
+    def wgrad(x, dy):  # sum over windows and tokens of x^T dy, f32
+        return x.float().reshape(-1, d).t() @ dy.reshape(-1, d)
+
+    dproj = (wgrad(q3, dq_pb), dq.sum(dim=(0, 1)),
+             wgrad(k3, dk_pb), dk.sum(dim=(0, 1)),
+             wgrad(k3, dv_pb), dv.sum(dim=(0, 1)),
+             wgrad(o1.to(t), gf), gf.sum(dim=(0, 1)))
+    dq3 = (dq_pb @ wq.t()).to(t)
+    dk3 = (dk_pb @ wk.t() + dv_pb @ wv.t()).to(t)
+    zero = torch.zeros((), dtype=t, device=g.device)
+    dzk = torch.where(zk.float() > 0, dk3, zero).float()
+    dzq = torch.where(zq.float() > 0, dq3, zero).float()
+    dbase = dzk.sum(dim=1) + dzq.sum(dim=1)
+    dposw = torch.stack([
+        (rk.to(t).float()[:, None, :] @ dzk)[:, 0].sum(dim=0)
+        + (rq.to(t).float()[:, None, :] @ dzq)[:, 0].sum(dim=0)
+        for rk, rq in zip(k_rel, q_rel)])
+    dk1 = dk3[:, :nk1].float()
+    slot = torch.arange(n1cap, device=g.device)
+    oh = ((fps1[:, :, None] == slot) & ~k_mask1[:, :, None]).to(f32)
+    dwin1 = oh.transpose(1, 2) @ dk1
+    dpad = None
+    if pad_row is not None:
+        dpad = (k_mask1[:, :, None].to(f32) * dk1).sum(dim=1).to(pad_row.dtype)
+    dq_raw = (dq3 * q_keep.to(t)[..., None]).float()
+    dqext = None
+    if q_prefix:
+        dwin1[:, :nq] += dq_raw
+    else:
+        dqext = dq_raw.to(q_ext.dtype)
+    dproj = tuple(dp.to(p.dtype) for dp, p in zip(dproj, proj))
+    return (dwin1.to(win1_fea.dtype), dk3[:, nk1:].to(k2_fea.dtype), dqext,
+            dpad, dbase.to(pos_base.dtype), dposw.to(pos_w.dtype), dproj)
+
+
+def kernel_inputs(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel,
+                  q_rel, pos_base, pos_w, proj, key_bias, num_heads, q_prefix,
+                  nq, pad_row, num_valid, compute_dtype, name):
+    """Checks what the assembled-attention kernels (K3 and its backward K5)
+    take and raises on the rest; returns (compute dtype, nq, the 25 input
+    tensors in the order the C entries read them, the 12 layout dims). The
+    projections may come in any float dtype; the kernels read them rounded
+    to the compute dtype, as JAX's kernels do."""
     t = compute_dtype or win1_fea.dtype
     if t not in (torch.bfloat16, torch.float32) or win1_fea.dtype != t:
-        raise TypeError("attention kernel: win1_fea and compute dtype must "
+        raise TypeError(f"{name} kernel: win1_fea and compute dtype must "
                         "both be bfloat16 or both float32")
     dev = win1_fea.device
     nw, n1cap, d = win1_fea.shape
@@ -121,7 +219,7 @@ def fused_window_attention_assembled(
     groups = len(num_heads)
     if (groups > MAX_GROUPS or d % 32 or d > 256 or d % sum(num_heads)
             or nk_tot % groups or nq < 1):
-        raise ValueError(f"attention kernel: unsupported layout d={d} "
+        raise ValueError(f"{name} kernel: unsupported layout d={d} "
                          f"heads={num_heads} nk={nk_tot} nq={nq}")
     req = _lib.require
     req(win1_fea, "win1_fea", t, (nw, n1cap, d), dev)
@@ -137,6 +235,7 @@ def fused_window_attention_assembled(
         req(r, "q_rel", torch.float32, (nw, nq), dev)
     req(pos_base, "pos_base", t, (nw, d), dev)
     req(pos_w, "pos_w", t, (3, d), dev)
+    proj = tuple(p.to(t).contiguous() for p in proj)  # any float dtype
     for i, p in enumerate(proj):
         req(p, f"proj[{i}]", t, (d, d) if i % 2 == 0 else (d,), dev)
     req(key_bias, "key_bias", torch.float32, (nw, nk_tot), dev)
@@ -145,18 +244,35 @@ def fused_window_attention_assembled(
     nv = None
     if num_valid is not None:
         nv = torch.as_tensor(num_valid, device=dev).to(torch.int32).reshape(1)
-    out = torch.empty((nw, nq, d), dtype=t, device=dev)
     wq, bq, wk, bk, wv, bv, wp, bp = proj
-    ptrs = _lib.ptr_array([
-        win1_fea, k2_fea, fps1, k_mask1, None if q_prefix else q_ext, q_keep,
-        *k_rel, *q_rel, pos_base, pos_w, wq, wk, wv, wp, bq, bk, bv, bp,
-        key_bias, pad_row, nv, out])
-    heads = list(num_heads) + [0] * (MAX_GROUPS - groups)
-    dims = (ctypes.c_int * 12)(nw, n1cap, nk1, nk2, nq, d, groups,
-                               int(bool(q_prefix)), *heads)
-    err = _lib.lib().mssvt_attention(ptrs, dims, float(scale),
-                                     int(t == torch.bfloat16),
-                                     _lib.stream_ptr(win1_fea))
+    tensors = [win1_fea, k2_fea, fps1, k_mask1, None if q_prefix else q_ext,
+               q_keep, *k_rel, *q_rel, pos_base, pos_w, wq, wk, wv, wp, bq, bk,
+               bv, bp, key_bias, pad_row, nv]
+    dims = [nw, n1cap, nk1, nk2, nq, d, groups, int(bool(q_prefix))]
+    dims += list(num_heads) + [0] * (MAX_GROUPS - groups)
+    return t, nq, tensors, dims
+
+
+def fused_window_attention_assembled(
+        win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
+        pos_base, pos_w, proj, key_bias, num_heads, scale, q_prefix, nq=0,
+        pad_row=None, num_valid=None, compute_dtype=None):
+    """(NW, nq, D) window attention from the raw gather products."""
+    global launches
+    if win1_fea.device.type == "cpu":
+        return attention_plain(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep,
+                               k_rel, q_rel, pos_base, pos_w, proj, key_bias,
+                               num_heads, scale, q_prefix, nq, pad_row,
+                               num_valid, compute_dtype)
+    t, nq, tensors, dims = kernel_inputs(
+        win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
+        pos_base, pos_w, proj, key_bias, num_heads, q_prefix, nq, pad_row,
+        num_valid, compute_dtype, "attention")
+    nw, _, d = win1_fea.shape
+    out = torch.empty((nw, nq, d), dtype=t, device=win1_fea.device)
+    err = _lib.lib().mssvt_attention(
+        _lib.ptr_array(tensors + [out]), (ctypes.c_int * len(dims))(*dims),
+        float(scale), int(t == torch.bfloat16), _lib.stream_ptr(win1_fea))
     _lib.check(err, "mssvt_attention")
     launches += 1
     return out

@@ -23,7 +23,7 @@ class BaseBEVBackbone(nn.Module):
         self.layer_nums = tuple(layer_nums)
         self.upsample_strides = tuple(upsample_strides)
         self.compute_dtype = dtype
-        bn = lambda c: BatchNorm(c, 1e-3, dtype=dtype)
+        bn = lambda c: BatchNorm(c, 1e-3, momentum=0.99, dtype=dtype)
         c_in = in_channels
         for i, nf in enumerate(num_filters):
             self.add_module(f"block{i}_conv0", Conv2d(

@@ -32,7 +32,8 @@ class HeightCompression(nn.Module):
             self.add_module(f"compress_conv_{i}", Conv2d(
                 c, c, 3, stride=s, padding=p, dilation=d, bias=False,
                 dtype=dtype))
-            self.add_module(f"compress_bn_{i}", BatchNorm(c, 1e-5, dtype=dtype))
+            self.add_module(f"compress_bn_{i}", BatchNorm(
+                c, 1e-5, momentum=0.9, dtype=dtype))
 
     def forward(self, sp: SparseVoxels) -> torch.Tensor:
         x = sp.bev()  # (B, H, W, D*C), z-major channels

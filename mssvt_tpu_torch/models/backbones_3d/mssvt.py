@@ -1,14 +1,19 @@
 """Mixed-scale Sparse Voxel Transformer backbone (torch counterpart of
-``mssvt_tpu/models/backbones_3d/mssvt.py``), inference.
+``mssvt_tpu/models/backbones_3d/mssvt.py``), inference and training.
 
 ``MsSVTBlock`` runs, per call: window partition, the mixed-scale gather
 (K1 fill kernel), one FPS pass over the stacked win1/win2 buffers (K2),
-the assembled attention (K3), 3-NN interpolation and the inverse
-write-back, and the residual LayerNorm FFN (K4). ``MsSVTCompressBlock``
+the assembled attention (K3 forward, K5 backward), 3-NN interpolation and
+the inverse write-back, and the residual LayerNorm FFN: one K4 launch at
+inference, the plain chain with its two DropPath draws in training (as the
+JAX block, which keeps its FFN kernel for inference). ``MsSVTCompressBlock``
 turns windows into the next stage's voxels with a max-pooled query on the
 per-group einsum attention. Shapes are static; valid windows are a sorted
 prefix of each block's capacity, and ``num_valid`` (a device scalar) lets
 the kernels skip the tail without a host sync.
+
+Training draws DropPath masks from the ``torch.Generator`` the detector
+threads down (``generator=``), which must live on the model's device.
 """
 
 from __future__ import annotations
@@ -81,10 +86,7 @@ class MsSVTBlock(nn.Module):
         if out_channels != in_channels:
             self.out_linear = Dense(in_channels, out_channels, dtype=dtype)
 
-    def forward(self, sp: SparseVoxels) -> SparseVoxels:
-        if self.training:
-            raise NotImplementedError("MsSVT training comes with the training "
-                                      "slice (ROADMAP.md)")
+    def forward(self, sp: SparseVoxels, generator=None) -> SparseVoxels:
         dt = self.compute_dtype
         bsz = sp.batch_size
         shortcut = sp.features
@@ -119,7 +121,7 @@ class MsSVTBlock(nn.Module):
         col = torch.arange(fps.shape[1], device=fps.device)
         fps_mask = (fps == 0) & (col > 0)
         k_ind = sind.to(torch.int32)
-        bstart = row0 = b_w = None
+        bstart = b_w = pad_row = None
         if self.ref_compat_keys:
             # empty-slot picks become real keys carrying the batch's first
             # voxel (the reference's (float + 0.1).int() maps -1 to row 0)
@@ -128,9 +130,12 @@ class MsSVTBlock(nn.Module):
             bstart = torch.stack([
                 torch.argmax((sp.coords[:, 0] == b).to(torch.int32))
                 for b in range(bsz)])
-            row0 = bstart[b_w]
-            row02 = torch.cat([row0, row0])[:, None].to(torch.int32)
-            k_ind = torch.where(pad_key, row02, k_ind)
+            # each window's pad row is its frame's first voxel row: taken
+            # as a (NW, B) one-hot product with the B first rows (exact, one
+            # nonzero term), whose backward is a (B, NW) product. Gathering
+            # it per window (x[bstart[b_w]]) would send ~NW duplicates to B
+            # rows, which the sorted index_put_ backward sums serially
+            pad_row = F.one_hot(b_w, bsz).to(x.dtype) @ x[bstart]
             k_mask = fps_mask
             pad1, pad2 = pad_key[:nw], pad_key[nw:]
         else:
@@ -160,7 +165,14 @@ class MsSVTBlock(nn.Module):
                 * (~q["mask"])[..., None].to(win1_fea.dtype)
         else:
             q_ext = group_features(x, q["ind"])
-        k_fea2 = group_features(x, k_ind2)
+        # windows past nv hold FPS picks of 0; their attention output is
+        # zero whatever their keys, so they pick nothing (else ~1M picks of
+        # row 0 would meet in the gather's backward)
+        live = torch.arange(nw, device=k_ind2.device) < nv
+        k_ind2 = torch.where(live[:, None], k_ind2, -1)
+        k_fea2 = group_features(x, k_ind2)  # pad picks (-1) give zero rows
+        if self.ref_compat_keys:  # ... and carry the pad row instead
+            k_fea2 = torch.where(pad2[..., None], pad_row[:, None, :], k_fea2)
 
         # metric centre of a buffer slot = window-centre voxel + offset
         vsx, vsy, vsz = sp.voxel_size
@@ -215,7 +227,7 @@ class MsSVTBlock(nn.Module):
             pos_w=self.pos_proj.rel_kernel(), nq=nq, num_valid=nv)
         if self.ref_compat_keys:
             assembled["pad1"] = pad1
-            assembled["pad_row"] = x[row0]
+            assembled["pad_row"] = pad_row
         attn_fea = self.ms_attn(query_mask=q["mask"],
                                 key_masks=torch.cat([k_mask1, k_mask2], dim=1),
                                 assembled=assembled)  # (NW, nq, C)
@@ -237,13 +249,19 @@ class MsSVTBlock(nn.Module):
             base[safe] = upd_fea.reshape(-1, upd_fea.shape[-1]).to(shortcut.dtype)
             updated = base[:v]
 
-        # residual + LayerNorm + FFN: one K4 launch (droppath/dropout are
-        # identities at inference)
-        new = ffn_kernel.fused_residual_ffn(
-            (updated + shortcut).to(dt).contiguous(), self.norm2.weight,
-            self.norm2.bias, self.linear1.kernel(), self.linear1.bias,
-            self.linear2.kernel(), self.linear2.bias, eps=self.norm2.eps,
-            compute_dtype=dt)
+        if self.training:
+            # the plain chain, two independent DropPath draws (dropout is 0)
+            new = self.droppath(updated, generator) + shortcut
+            act = self.linear2(torch.relu(self.linear1(self.norm2(new))))
+            new = new + self.droppath(act, generator)
+        else:
+            # residual + LayerNorm + FFN: one K4 launch (droppath/dropout are
+            # identities at inference)
+            new = ffn_kernel.fused_residual_ffn(
+                (updated + shortcut).to(dt).contiguous(), self.norm2.weight,
+                self.norm2.bias, self.linear1.kernel(), self.linear1.bias,
+                self.linear2.kernel(), self.linear2.bias, eps=self.norm2.eps,
+                compute_dtype=dt)
         if self.out_channels != self.in_channels:
             new = self.out_linear(new)
         new = new * sp.valid[:, None].to(new.dtype)
@@ -274,9 +292,6 @@ class MsSVTCompressBlock(nn.Module):
             self.out_linear = Dense(in_channels, out_channels, dtype=dtype)
 
     def forward(self, sp: SparseVoxels) -> SparseVoxels:
-        if self.training:
-            raise NotImplementedError("MsSVT training comes with the training "
-                                      "slice (ROADMAP.md)")
         bsz = sp.batch_size
         x = self.norm1(sp.features)
         win_coords, win_valid, win_grid, num_win, vrow = window_partition(
@@ -286,9 +301,16 @@ class MsSVTCompressBlock(nn.Module):
         g = gather_window_voxels(
             win_coords, win_valid, sp.coords, sp.valid, sp.spatial_shape,
             self.win1, self.tables, max_num_win1=self.cap1, batch_size=bsz,
-            num_valid=nv, voxel_win_row=vrow)
+            return_inverse=self.training, num_valid=nv, voxel_win_row=vrow)
         k = g["win1"]
-        k_fea = group_features(x, k["ind"])  # (NW, ns, C)
+        inv = g.get("inv_win1")
+        if inv is not None:
+            # training: the key gather's backward is a row gather through
+            # the voxel -> (window, slot) inverse map
+            k_fea = group_features_paired(x, k["ind"], inv["win_row"],
+                                          inv["slot"], inv["valid"])
+        else:
+            k_fea = group_features(x, k["ind"])  # (NW, ns, C)
 
         wx, wy, wz = self.win1
         vsx, vsy, vsz = sp.voxel_size
@@ -306,7 +328,9 @@ class MsSVTCompressBlock(nn.Module):
         qcz = (win_coords[:, 1].float() + 0.5) * (vsz * wz) + minz
 
         # query = max-pool over the window's keys (zero pads included); the
-        # key position embedding is not masked (reference behaviour)
+        # key position embedding is not masked (reference behaviour). amax
+        # splits the gradient evenly over tied maxima, as jnp.max's VJP does
+        # (ties at the zero pad rows are common); max().values would not
         q_fea = k_fea.amax(dim=1, keepdim=True)
         k_fea = k_fea + self.pos_proj.deep_from_planes(
             mx - qcx[:, None], my - qcy[:, None], mz - qcz[:, None],
@@ -362,10 +386,11 @@ class MixedScaleSparseTransformer(nn.Module):
     def blocks(self):
         return [getattr(self, f"blocks_{i}") for i in range(self.num_blocks)]
 
-    def forward(self, sp: SparseVoxels) -> SparseVoxels:
+    def forward(self, sp: SparseVoxels, generator=None) -> SparseVoxels:
         feats = self.input_proj(sp.features) * sp.valid[:, None].to(
             self.input_proj.compute_dtype)
         sp = sp.with_features(feats)
         for block in self.blocks():
-            sp = block(sp)
+            sp = (block(sp, generator) if isinstance(block, MsSVTBlock)
+                  else block(sp))
         return sp

@@ -1,7 +1,9 @@
-"""CenterPoint detection head, inference (torch counterpart of
+"""CenterPoint detection head (torch counterpart of
 ``mssvt_tpu/models/dense_heads/center_head.py``): shared conv, per-task
-conv towers, heatmap decode and per-head NMS into fixed-size padded
-outputs. NHWC at the public boundary."""
+conv towers; for training the on-device target assignment (gaussian
+heatmaps, centre indices, regression targets) and the loss; for inference
+the heatmap decode and per-head NMS into fixed-size padded outputs. NHWC at
+the public boundary."""
 
 from __future__ import annotations
 
@@ -13,7 +15,13 @@ from torch import nn
 
 from ...ops.nms import circle_nms, nms_bev
 from ...utils.device import device_constant
-from ..model_utils.centernet import decode_bbox_from_heatmap
+from ..losses import focal_loss_centernet, reg_loss_centernet
+from ..model_utils.centernet import (
+    decode_bbox_from_heatmap,
+    draw_gaussians,
+    draw_gaussians_dense,
+    gaussian_radius,
+)
 from ..model_utils.layers import BatchNorm, Conv2d
 
 
@@ -29,8 +37,8 @@ class SeparateHead(nn.Module):
                 self.add_module(f"{name}_conv{k}", Conv2d(
                     channels, channels, 3, padding=1, bias=use_bias,
                     dtype=dtype))
-                self.add_module(f"{name}_bn{k}", BatchNorm(channels, 1e-5,
-                                                           dtype=dtype))
+                self.add_module(f"{name}_bn{k}", BatchNorm(
+                    channels, 1e-5, momentum=0.9, dtype=dtype))
             self.add_module(f"{name}_out", Conv2d(
                 channels, int(spec["out_channels"]), 3, padding=1, bias=True,
                 dtype=dtype))
@@ -54,6 +62,7 @@ class CenterHead(nn.Module):
         super().__init__()
         cfg = model_cfg
         self.model_cfg = cfg
+        self.num_class = int(num_class)
         self.class_names = tuple(class_names)
         self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
         self.voxel_size = tuple(float(v) for v in voxel_size)
@@ -70,7 +79,8 @@ class CenterHead(nn.Module):
         use_bias = bool(cfg.get("USE_BIAS_BEFORE_NORM", False))
         self.shared_conv = Conv2d(input_channels, shared, 3, padding=1,
                                   bias=use_bias, dtype=dtype)
-        self.shared_bn = BatchNorm(shared, 1e-5, dtype=dtype)
+        self.shared_bn = BatchNorm(shared, 1e-5, momentum=0.9,
+                                   dtype=dtype)
         self.num_heads = len(self.class_names_each_head)
         for i, names in enumerate(self.class_names_each_head):
             head_dict = {k: dict(v) for k, v in
@@ -84,6 +94,88 @@ class CenterHead(nn.Module):
         x = spatial_features_2d.to(self.compute_dtype).permute(0, 3, 1, 2)
         x = torch.relu(self.shared_bn(self.shared_conv(x)))
         return [getattr(self, f"head_{i}")(x) for i in range(self.num_heads)]
+
+    def assign_targets(self, gt_boxes, feature_map_size):
+        """Targets for (B, M, C+1) padded GT boxes (last column the 1-based
+        global class, 0 = padding) on an (H, W) head map. One dict per head:
+        ``heatmaps`` (B, ncls, H, W), ``target_boxes`` (B, M, 8+extras),
+        ``inds`` (B, M) int32 flat y*W+x, ``masks`` (B, M) bool."""
+        tac = self.model_cfg["TARGET_ASSIGNER_CONFIG"]
+        h, w = (int(v) for v in feature_map_size)
+        b, m, code = gt_boxes.shape
+        dev = gt_boxes.device
+        overlap = float(tac.get("GAUSSIAN_OVERLAP", 0.1))
+        min_radius = int(tac.get("MIN_RADIUS", 2))
+        max_radius = int(tac.get("MAX_RADIUS", 24))
+        x, y, z = gt_boxes[..., 0], gt_boxes[..., 1], gt_boxes[..., 2]
+        heading = gt_boxes[..., 6]
+        gcls = gt_boxes[..., -1].to(torch.int32)
+        vx, vy = self.voxel_size[0], self.voxel_size[1]
+        stride = self.feature_map_stride
+        coord_x = torch.clamp((x - self.point_cloud_range[0]) / vx / stride,
+                              0, w - 0.5)
+        coord_y = torch.clamp((y - self.point_cloud_range[1]) / vy / stride,
+                              0, h - 0.5)
+        center = torch.stack([coord_x, coord_y], dim=-1)
+        center_int = center.to(torch.int32)
+        dxf = gt_boxes[..., 3] / vx / stride
+        dyf = gt_boxes[..., 4] / vy / stride
+        radius = torch.clamp(
+            gaussian_radius(dxf, dyf, min_overlap=overlap).to(torch.int32),
+            min=min_radius)
+        ret = []
+        for names in self.class_names_each_head:
+            lut = np.full((self.num_class + 1,), -1, np.int32)
+            for local, gname in enumerate(names):
+                lut[self.class_names.index(gname) + 1] = local
+            local_cls = device_constant(lut, dev)[
+                torch.clamp(gcls, 0, self.num_class).long()]
+            valid = ((local_cls >= 0) & (dxf > 0) & (dyf > 0)
+                     & (center_int[..., 0] >= 0) & (center_int[..., 0] < w)
+                     & (center_int[..., 1] >= 0) & (center_int[..., 1] < h))
+            drawer = (draw_gaussians_dense if b * m * h * w <= 128 * 1024 * 1024
+                      else draw_gaussians)
+            heatmap = drawer((b, len(names), h, w), center, radius,
+                             torch.clamp(local_cls, min=0), valid, max_radius)
+            inds = torch.where(valid, center_int[..., 1] * w + center_int[..., 0],
+                               0)
+            safe_dims = torch.clamp(gt_boxes[..., 3:6], min=1e-6)
+            tb = [center - center_int.float(), z[..., None],
+                  torch.log(safe_dims), torch.cos(heading)[..., None],
+                  torch.sin(heading)[..., None]]
+            if code > 8:
+                tb.append(gt_boxes[..., 7:-1])
+            ret.append({
+                "heatmaps": heatmap,
+                "target_boxes": torch.cat(tb, dim=-1) * valid[..., None],
+                "inds": inds.to(torch.int32),
+                "masks": valid,
+            })
+        return ret
+
+    def get_loss(self, pred_dicts, target_dicts):
+        """(total loss, tb_dict) with ``hm_loss_head_i``,
+        ``loc_loss_head_i`` and ``rpn_loss``, as the JAX head names them."""
+        lw = self.model_cfg["LOSS_CONFIG"]["LOSS_WEIGHTS"]
+        head_order = list(self.model_cfg["SEPARATE_HEAD_CFG"]["HEAD_ORDER"])
+        loc_weight = float(lw["loc_weight"])
+        total = 0.0
+        tb = {}
+        for i, (pred, tgt) in enumerate(zip(pred_dicts, target_dicts)):
+            hm = torch.clamp(torch.sigmoid(pred["hm"]), 1e-4, 1 - 1e-4)
+            hm_loss = focal_loss_centernet(hm.permute(0, 3, 1, 2),
+                                           tgt["heatmaps"])
+            pred_boxes = torch.cat([pred[k] for k in head_order], dim=-1)
+            reg = reg_loss_centernet(pred_boxes, tgt["masks"], tgt["inds"],
+                                     tgt["target_boxes"])
+            code_weights = device_constant(
+                np.asarray(lw["code_weights"], np.float32), reg.device)
+            loc_loss = (reg * code_weights).sum() * loc_weight
+            total = total + hm_loss + loc_loss
+            tb[f"hm_loss_head_{i}"] = hm_loss
+            tb[f"loc_loss_head_{i}"] = loc_loss
+        tb["rpn_loss"] = total
+        return total, tb
 
     def generate_predicted_boxes(self, pred_dicts):
         """Decode + per-head NMS -> (boxes (B, N, 7+), scores (B, N),

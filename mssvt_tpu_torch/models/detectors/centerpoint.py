@@ -1,11 +1,13 @@
 """CenterPoint detector shell (torch counterpart of
 ``mssvt_tpu/models/detectors/centerpoint.py``): MeanVFE ->
 MixedScaleSparseTransformer -> HeightCompression -> BaseBEVBackbone ->
-CenterHead, inference.
+CenterHead. In eval mode it returns detections; in train mode (after
+``model.train()``) the loss of the batch's ``gt_boxes``.
 
 Inputs (padded to static capacities, on the model's device):
     voxels (max_voxels, max_points, C_pt), voxel_num_points (max_voxels,),
-    voxel_coords (max_voxels, 4) int32 (b, z, y, x), voxel_valid (max_voxels,).
+    voxel_coords (max_voxels, 4) int32 (b, z, y, x), voxel_valid (max_voxels,),
+    gt_boxes (batch, max_gt, 8) f32, last column the 1-based class (training).
 """
 
 from __future__ import annotations
@@ -52,20 +54,22 @@ class CenterPoint(nn.Module):
         self.dense_head = build_dense_head(
             model_cfg["DENSE_HEAD"], ctx, self.backbone_2d.num_bev_features)
 
-    def forward(self, batch, return_intermediates: bool = False):
-        """Detections as fixed-size padded tensors (``final_*``); with
+    def forward(self, batch, return_intermediates: bool = False,
+                generator=None):
+        """Eval: detections as fixed-size padded tensors (``final_*``).
+        Train: ``loss`` and ``tb_dict`` (DropPath draws from ``generator``,
+        a ``torch.Generator`` on the model's device). With
         ``return_intermediates`` also the backbone voxels and BEV maps."""
-        if self.training:
-            raise NotImplementedError("training comes with the training slice "
-                                      "(ROADMAP.md)")
         sp = SparseVoxels.create(
             apply_vfe(self.vfe, batch), batch["voxel_coords"],
             batch["voxel_valid"], self.batch_size, self.grid_size,
             self.voxel_size, self.point_cloud_range)
-        sp = self.backbone_3d(sp)
+        sp = self.backbone_3d(sp, generator)
         spatial_features = self.map_to_bev(sp)
         spatial_features_2d = self.backbone_2d(spatial_features)
-        out = run_dense_head(self.dense_head, spatial_features_2d)
+        out = run_dense_head(self.dense_head, spatial_features_2d, batch,
+                             train=self.training)
+        out["feature_map_size"] = tuple(spatial_features_2d.shape[1:3])
         if return_intermediates:
             out.update(backbone_voxels=sp, spatial_features=spatial_features,
                        spatial_features_2d=spatial_features_2d)

@@ -8,9 +8,18 @@ over its own contiguous key stripe. Pad keys get an additive -100 (not
 
 Two paths:
 - ``assembled`` (the MsSVT blocks, nq >= 8): the raw gather products go to
-  the K3 kernel (``kernels/attention.py``), with the per-group parameters
-  folded into block-diagonal (D, D) weights at call time;
-- per-group einsum (the compress blocks, nq = 1): plain tensor ops.
+  ``AssembledAttention`` (``kernels/attention_bwd.py``): the K3 kernel
+  forward and, in training, the K5 kernel backward, with the per-group
+  parameters folded into block-diagonal (D, D) weights at call time (the
+  folding is differentiable, so K5's full (D, D) weight cotangents reach
+  the per-group parameters through their diagonal blocks);
+- per-group einsum (the compress blocks, nq = 1): plain tensor ops,
+  differentiated by autograd.
+
+Training on the assembled path needs the ref-compat inputs (``pad1``,
+``pad_row``) and ``num_valid``, as JAX's trainable kernel does. Without
+them (``ref_compat_keys: False``) JAX trains through its plain fused
+attention kernels (K6/K7), which are not ported yet: the port raises.
 """
 
 from __future__ import annotations
@@ -18,10 +27,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...kernels import attention as attention_kernel
+from ...kernels.attention_bwd import AssembledAttention
 from .layers import Dense
 
 KEY_PAD_NEG = -100.0
+
+
+def _k6_not_ported():
+    return NotImplementedError(
+        "training without ref-compat keys runs JAX's fused attention "
+        "kernels K6/K7, which are not ported yet (see ROADMAP.md)")
 
 
 class MixedScaleAttention(nn.Module):
@@ -30,6 +45,7 @@ class MixedScaleAttention(nn.Module):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = tuple(int(h) for h in num_heads)
+        self.dropout = float(dropout)
         self.compute_dtype = dtype
         per_head = embed_dim // sum(self.num_heads)
         for i, h in enumerate(self.num_heads):
@@ -43,7 +59,7 @@ class MixedScaleAttention(nn.Module):
 
     def folded_projections(self):
         """Block-diagonal (wq, bq, wk, bk, wv, bv, wp, bp) in the flax (in,
-        out) layout and the compute dtype; cross-group blocks are zero."""
+        out) layout, f32 like the parameters; cross-group blocks are zero."""
         d = self.embed_dim
         per_head = d // sum(self.num_heads)
         dev = self.to_q_0.weight.device
@@ -65,43 +81,42 @@ class MixedScaleAttention(nn.Module):
             ws[3][sl, sl] = kp.weight.t()
             bs[3][sl] = kp.bias
             start += sd
-        dt = self.compute_dtype
-        return tuple(t.to(dt).contiguous() for pair in zip(ws, bs)
-                     for t in pair)
+        return tuple(t.contiguous() for pair in zip(ws, bs) for t in pair)
 
     def forward(self, query=None, keys=None, query_mask=None, key_masks=None,
                 assembled=None):
-        if self.training:
-            raise NotImplementedError("attention training comes with the "
-                                      "training slice (ROADMAP.md)")
         dt = self.compute_dtype
         if assembled is not None:
             a = assembled
             pad1 = a.get("pad1")
             pad_row = a.get("pad_row")
-            out = attention_kernel.fused_window_attention_assembled(
-                a["win1_fea"].contiguous(), a["k2_fea"].contiguous(),
-                a["fps1"].to(torch.int32).contiguous(),
-                (a["k_mask1"] if pad1 is None else pad1).contiguous(),
-                None if a.get("q_ext") is None else
-                a["q_ext"].to(dt).contiguous(),
-                a["q_keep"].float().contiguous(),
-                tuple(r.float().contiguous() for r in a["k_rel"]),
-                tuple(r.float().contiguous() for r in a["q_rel"]),
+            if self.training and (pad1 is None or a.get("num_valid") is None
+                                  or self.dropout != 0.0):
+                raise _k6_not_ported()
+            q_prefix = a.get("q_ext") is None
+            static = (self.num_heads,
+                      (self.embed_dim // sum(self.num_heads)) ** -0.5,
+                      q_prefix, int(a["nq"]), dt)
+            out = AssembledAttention.apply(
+                static, a["win1_fea"].contiguous(), a["k2_fea"].contiguous(),
+                None if q_prefix else a["q_ext"].to(dt).contiguous(),
                 a["pos_base"].to(dt).contiguous(),
                 a["pos_w"].to(dt).contiguous(),
-                self.folded_projections(),
+                None if pad_row is None else pad_row.to(dt).contiguous(),
+                *self.folded_projections(),
+                a["fps1"].to(torch.int32).contiguous(),
+                (a["k_mask1"] if pad1 is None else pad1).contiguous(),
+                a["q_keep"].float().contiguous(),
+                *(r.float().contiguous() for r in a["k_rel"]),
+                *(r.float().contiguous() for r in a["q_rel"]),
                 torch.where(key_masks, KEY_PAD_NEG, 0.0).float().contiguous(),
-                num_heads=self.num_heads,
-                scale=(self.embed_dim // sum(self.num_heads)) ** -0.5,
-                q_prefix=a.get("q_ext") is None, nq=int(a["nq"]),
-                pad_row=None if pad_row is None else
-                pad_row.to(dt).contiguous(),
-                num_valid=a.get("num_valid"), compute_dtype=dt)
+                a.get("num_valid"))
             if query_mask is not None:
                 out = out * (~query_mask)[..., None].to(out.dtype)
             return out
 
+        if self.training and query.shape[1] >= 8:
+            raise _k6_not_ported()
         b, nq, _ = query.shape
         tot_nk = keys.shape[1]
         groups = len(self.num_heads)

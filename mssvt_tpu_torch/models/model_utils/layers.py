@@ -45,23 +45,41 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the channels of an NCHW tensor, with flax
-    parameter names: ``scale``/``bias`` parameters, ``mean``/``var`` running
-    statistics."""
+    """BatchNorm over the channels of an NCHW tensor with flax's semantics
+    and parameter names: ``scale``/``bias`` parameters, ``mean``/``var``
+    running statistics, and flax's ``momentum`` (the running average keeps
+    ``momentum`` of its old value).
 
-    def __init__(self, channels, eps, dtype=torch.float32):
+    In training the batch statistics are taken in f32 over N*H*W as flax
+    does (``var = max(0, E[x^2] - E[x]^2)``, the biased variance), the input
+    is normalised with them, and the running statistics are updated with
+    the same biased variance (``F.batch_norm`` would update ``var`` with
+    the unbiased one)."""
+
+    def __init__(self, channels, eps, momentum=0.99, dtype=torch.float32):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
         self.eps = eps
+        self.momentum = momentum
         self.compute_dtype = dtype
 
     def forward(self, x):
         if self.training:
-            raise NotImplementedError("BatchNorm training comes with the "
-                                      "training slice (ROADMAP.md)")
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+            mul = torch.rsqrt(var + self.eps) * self.scale
+            y = (xf - mean[:, None, None]) * mul[:, None, None] \
+                + self.bias[:, None, None]
+            return y.to(self.compute_dtype)
         a = self.scale * torch.rsqrt(self.var + self.eps)
         b = self.bias - self.mean * a
         return (x.float() * a[:, None, None] + b[:, None, None]).to(
@@ -98,7 +116,9 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth per leading-axis row; identity at eval."""
+    """Stochastic depth per leading-axis row; identity at eval. The keep
+    mask is drawn from the ``torch.Generator`` the caller passes (it must
+    live on ``x``'s device), so a run repeats when the generator does."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -107,6 +127,8 @@ class DropPath(nn.Module):
     def forward(self, x, generator=None):
         if self.rate == 0.0 or not self.training:
             return x
+        if generator is None:
+            raise ValueError("DropPath in training needs a torch.Generator")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
         mask = torch.rand(shape, generator=generator, device=x.device) < keep

@@ -3,9 +3,29 @@
 
 The FPS of the MsSVT blocks runs as the K2 kernel
 (:func:`farthest_point_sample_planes_select` -> ``kernels/fps.py``); the
-rest are plain tensor ops. ``group_features_paired`` and
-``writeback_inverse_paired`` carry their forward only here: their
-row-gather backward comes with training.
+rest are plain tensor ops.
+
+Backward forms. The JAX package's gradients are deterministic, and so are
+these, bit for bit from one run to the next:
+
+- ``group_features_paired`` / ``writeback_inverse_paired`` are autograd
+  Functions whose backward is a row gather (each voxel occupies at most one
+  (window, slot) address), as in JAX: no sum at all.
+- The many-to-one gathers (:func:`group_features`, whose rows are keys of
+  up to 9 windows, and :func:`gather_along_batch`) sum their backward with
+  ``index_put_(accumulate=True)``, the backward of advanced indexing
+  ``x[idx]``. On CUDA that always runs PyTorch's sort-based kernel: a
+  stable sort of the indices, then each destination row's contributions
+  summed in that order by one thread, the same order on every run (PyTorch
+  lists it among the deterministic operations; on the CPU it sums with
+  atomics unless ``torch.use_deterministic_algorithms`` is on). That kernel
+  sums a row's duplicates serially, so no row may collect thousands: empty
+  picks go to distinct scratch rows, and the row every window of a frame
+  takes (the MsSVT block's pad row) is a one-hot product instead.
+  ``torch.gather``/``take_along_dim`` (backward ``scatter_add_``) and
+  ``index_select`` (backward ``index_add_``) sum with float atomics on
+  CUDA, in an order that changes between runs, so the training path does
+  not use them where a row can be picked twice.
 """
 
 from __future__ import annotations
@@ -60,35 +80,104 @@ def three_interp_weights_planes(ux, uy, uz, kx, ky, kz, dtype=torch.float32):
 
 
 def gather_along_batch(values, idx):
-    """(B, N, ...) values by (B, M) indices -> (B, M, ...)."""
-    extra = values.ndim - 2
-    ix = idx.long().reshape(idx.shape + (1,) * extra).expand(
-        *idx.shape, *values.shape[2:])
-    return torch.gather(values, 1, ix)
+    """(B, N, ...) values by (B, M) indices -> (B, M, ...). Advanced
+    indexing: its backward is the sorted, deterministic ``index_put_``
+    (see the module note)."""
+    rows = torch.arange(values.shape[0], device=values.device)[:, None]
+    return values[rows, idx.long()]
+
+
+class _GroupFeatures(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, idx):
+        v = features.shape[0]
+        padded = torch.cat([features, features.new_zeros((1, features.shape[1]))])
+        safe = torch.where((idx >= 0) & (idx < v), idx, v).long()
+        ctx.save_for_backward(safe)
+        ctx.v = v
+        return padded[safe]
+
+    @staticmethod
+    def backward(ctx, g):
+        (safe,) = ctx.saved_tensors
+        v, c = ctx.v, g.shape[-1]
+        flat = safe.reshape(-1)
+        # empty picks go to distinct scratch rows past v (not all to one
+        # zero row, whose thousands of duplicates the sorted kernel would
+        # sum serially); valid rows collect their few picks in index order
+        dest = torch.where(flat < v, flat,
+                           v + torch.arange(flat.numel(), device=flat.device))
+        dx = g.new_zeros((v + flat.numel(), c))
+        dx.index_put_((dest,), g.reshape(-1, c), accumulate=True)
+        return dx[:v], None
 
 
 def group_features(features, idx):
     """Rows of flat (V, C) features at (..., n) global indices; -1 (and
-    any index >= V) gives a zero row (routed to an appended zero row)."""
-    v = features.shape[0]
-    padded = torch.cat([features, features.new_zeros((1, features.shape[1]))])
-    safe = torch.where((idx >= 0) & (idx < v), idx, v).long()
-    return padded[safe]
+    any index >= V) gives a zero row. A row may be picked several times (a
+    voxel is a key of up to 9 windows); the backward sums its picks with
+    the sorted, deterministic ``index_put_`` (see the module note)."""
+    return _GroupFeatures.apply(features, idx)
+
+
+class _GroupFeaturesPaired(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, ind, win_row, slot, inv_valid):
+        ctx.save_for_backward(win_row, slot, inv_valid)
+        ctx.meta = (tuple(ind.shape), features.dtype)
+        return group_features(features, ind)
+
+    @staticmethod
+    def backward(ctx, g):
+        win_row, slot, inv_valid = ctx.saved_tensors
+        (nw, cap), dtype = ctx.meta
+        pos = (win_row.long() * cap + slot.long()).clamp(0, nw * cap - 1)
+        rows = g.reshape(-1, g.shape[-1])[pos]
+        dx = torch.where(inv_valid[:, None], rows, torch.zeros((), dtype=g.dtype,
+                                                               device=g.device))
+        return dx.to(dtype), None, None, None, None
 
 
 def group_features_paired(features, ind, win_row, slot, inv_valid):
-    """Forward of the JAX ``group_features_paired`` (the inverse map only
-    shapes its backward)."""
-    del win_row, slot, inv_valid
-    return group_features(features, ind)
+    """:func:`group_features` whose backward is a row gather, not a sum.
+
+    Requires the partial-permutation property of the win1 buffers
+    (``gather_window_voxels(return_inverse=True)``): ``ind[w, s] == v`` iff
+    ``inv_valid[v] & win_row[v] == w & slot[v] == s``. Each voxel then has
+    at most one contribution, so ``dx[v] = g[win_row[v], slot[v]]`` (zero
+    where ``inv_valid`` is False)."""
+    return _GroupFeaturesPaired.apply(features, ind, win_row, slot, inv_valid)
+
+
+class _WritebackInversePaired(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, upd_fea, shortcut, ind, win_row, slot, inv_valid):
+        nw_b, n1b, c = upd_fea.shape
+        pos = (win_row.long() * n1b + slot.long()).clamp(0, nw_b * n1b - 1)
+        rows = upd_fea.reshape(-1, c)[pos].to(shortcut.dtype)
+        ctx.save_for_backward(ind, inv_valid)
+        ctx.dtypes = (upd_fea.dtype, shortcut.dtype)
+        return torch.where(inv_valid[:, None], rows, shortcut)
+
+    @staticmethod
+    def backward(ctx, gy):
+        ind, inv_valid = ctx.saved_tensors
+        u_dtype, s_dtype = ctx.dtypes
+        v = gy.shape[0]
+        gpad = torch.cat([gy, gy.new_zeros((1, gy.shape[1]))])
+        safe = torch.where((ind >= 0) & (ind < v), ind, v).long()
+        d_upd = gpad[safe].to(u_dtype)
+        zero = torch.zeros((), dtype=gy.dtype, device=gy.device)
+        d_short = torch.where(inv_valid[:, None], zero, gy).to(s_dtype)
+        return d_upd, d_short, None, None, None, None
 
 
 def writeback_inverse_paired(upd_fea, shortcut, ind, win_row, slot,
                              inv_valid):
     """Each voxel takes its updated row from (window, slot); voxels in no
-    live slot keep ``shortcut``. Forward of the JAX op of the same name."""
-    del ind
-    nw_b, n1b, c = upd_fea.shape
-    pos = (win_row.long() * n1b + slot.long()).clamp(0, nw_b * n1b - 1)
-    rows = upd_fea.reshape(-1, c)[pos].to(shortcut.dtype)
-    return torch.where(inv_valid[:, None], rows, shortcut)
+    live slot keep ``shortcut``. The backward is a row gather too:
+    ``d_upd[w, s] = gy[ind[w, s]]`` (zero where ``ind < 0``) and
+    ``d_shortcut = gy`` where no slot took the voxel (same property as
+    :func:`group_features_paired`)."""
+    return _WritebackInversePaired.apply(upd_fea, shortcut, ind, win_row,
+                                         slot, inv_valid)

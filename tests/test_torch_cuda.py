@@ -5,16 +5,17 @@ nothing of JAX, so on a machine with a card and no JAX it runs as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Fill and FPS must match exactly; attention and FFN in f32 to 1e-4 (the same
-f32 math summed in another order) and in bf16 to 2^-5 of the largest output
-magnitude (an intermediate may round one bf16 ulp apart).
+Fill and FPS must match exactly; attention (forward and backward) and FFN
+in f32 to 1e-4 (the same f32 math summed in another order) and in bf16 to
+2^-5 of the largest output magnitude (an intermediate may round one bf16 ulp
+apart).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mssvt_tpu_torch.kernels import attention, ffn, fill, fps
+from mssvt_tpu_torch.kernels import attention, attention_bwd, ffn, fill, fps
 
 
 @pytest.fixture
@@ -122,6 +123,60 @@ def test_attention_kernel_matches_plain(dev, dtype, q_prefix, pad_keys,
     assert got.dtype == want.dtype == dtype
     _close(got * keep, want * keep, dtype)
     assert (got[29:] == 0).all()
+
+
+BWD_NAMES = ("dwin1", "dk2", "dq_ext", "dpad_row", "dpos_base", "dpos_w",
+             "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwp", "dbp")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,q_prefix,num_heads,nq", [
+    (dt, *case) for dt in (torch.float32, torch.bfloat16)
+    for case in ((True, (2, 2), 32), (False, (2, 2), 8), (True, (2, 2), 20))
+] + [(torch.bfloat16, False, (4,), 32)])
+def test_attention_bwd_kernel_matches_plain(dev, dtype, q_prefix, num_heads,
+                                            nq):
+    """K5 against attention_bwd_plain: every cotangent within 1e-4 in f32
+    (plus 1e-5 of the largest element for the sums over windows: dW, db,
+    dpos_w, dpad_row) and 2^-5 of its largest magnitude in bf16 (tensor-core
+    tiles; nq = 8 and 20 pad the query tiles); windows past num_valid get zeros; a second
+    call gives bit-identical cotangents (no float atomics). ``dbk`` is
+    analytically zero (a softmax does not change when all its keys' scores
+    shift, so each row of dS sums to zero): both sides compute rounding
+    noise, held to the tolerance times max |dbv|, a sum over the same
+    tokens that does not cancel. (In f32, one head group of 4 heads at
+    D = 128 and 32 queries needs more shared memory than a CTA has; no
+    configuration runs it.)"""
+    args, _ = _attn_args(dev, dtype, q_prefix, True, num_heads, nq)
+    nw, d = args["win1_fea"].shape[0], args["win1_fea"].shape[2]
+    g = torch.Generator().manual_seed(9)
+    args["g"] = torch.randn(nw, nq, d, generator=g).to(dev, dtype)
+    got = attention_bwd.fused_window_attention_assembled_bwd(**args)
+    again = attention_bwd.fused_window_attention_assembled_bwd(**args)
+    want = attention.attention_bwd_plain(**args)
+    torch.cuda.synchronize()
+    flat = lambda r: dict(zip(BWD_NAMES, (*r[:6], *r[6])))
+    got, again, want = flat(got), flat(again), flat(want)
+    assert (got["dq_ext"] is None) == q_prefix
+    for name, wt in want.items():
+        gt = got[name]
+        if wt is None:
+            continue
+        assert gt.dtype == wt.dtype and gt.shape == wt.shape, name
+        assert torch.equal(gt, again[name]), name
+        if name == "dbk":
+            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -5
+            scale = want["dbv"].float().abs().max()
+            assert (gt.float() - wt.float()).abs().max() <= tol * scale
+        elif dtype == torch.float32 and name[:2] in ("dw", "db", "dp"):
+            # f32 sums over all windows and tokens, in another order: the
+            # error scales with the terms, the largest elements
+            torch.testing.assert_close(
+                gt, wt, rtol=1e-4, atol=1e-4 + 1e-5 * wt.abs().max().item())
+        else:
+            _close(gt, wt, dtype)
+    for name in ("dwin1", "dk2", "dpad_row", "dpos_base"):
+        assert (got[name][29:] == 0).all()
 
 
 @pytest.mark.cuda

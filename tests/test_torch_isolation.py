@@ -74,16 +74,33 @@ def test_build_network_defaults_to_cuda_and_refuses_without_it(monkeypatch):
 
 def test_unported_names_raise_pointing_at_roadmap():
     from mssvt_tpu_torch.models.builders import BuildCtx, build_backbone_3d
+    from mssvt_tpu_torch.models.model_utils.attention import MixedScaleAttention
 
     ctx = BuildCtx(3, ("a", "b", "c"), (8, 8, 8), (1, 1, 1), (0,) * 6, 1, 8, 5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_backbone_3d({"NAME": "VoxelBackBone8x"}, ctx)
+    # training where JAX would run its plain fused attention K6/K7: query
+    # path with nq >= 8, or the assembled path without ref-compat keys
+    attn = MixedScaleAttention(32, (1, 1)).train()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        attn(query=torch.randn(3, 8, 32), keys=torch.randn(3, 8, 32),
+             key_masks=torch.zeros(3, 8, dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        attn(key_masks=torch.zeros(3, 8, dtype=torch.bool),
+             assembled={"nq": 8, "num_valid": torch.tensor(3)})
 
 
 def test_wrappers_take_plain_versions_on_cpu(monkeypatch):
     """CPU tensors never reach the kernel library, and add no launches."""
     from mssvt_tpu_torch import kernels
-    from mssvt_tpu_torch.kernels import _lib, attention, ffn, fill, fps
+    from mssvt_tpu_torch.kernels import (
+        _lib,
+        attention,
+        attention_bwd,
+        ffn,
+        fill,
+        fps,
+    )
 
     def no_lib():
         raise AssertionError("the CUDA library was requested for CPU tensors")
@@ -116,13 +133,21 @@ def test_wrappers_take_plain_versions_on_cpu(monkeypatch):
     kw = dict(num_heads=(1, 1), scale=0.25, q_prefix=True, nq=4)
     assert torch.equal(attention.fused_window_attention_assembled(*args, **kw),
                        attention.attention_plain(*args, **kw))
+    kw.update(pad_row=torch.randn(nw, d), num_valid=torch.tensor(2))
+    g = torch.randn(nw, 4, d)
+    got = attention_bwd.fused_window_attention_assembled_bwd(*args, g, **kw)
+    want = attention.attention_bwd_plain(*args, g, **kw)
+    for a, b in zip(got[:2] + got[3:6] + got[6], want[:2] + want[3:6] + want[6]):
+        assert torch.equal(a, b)
+    assert got[2] is None and want[2] is None
     assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}
 
 
 def test_kernel_sources_are_present():
     names = {p.name for p in (PORT / "csrc").glob("*.cu")}
-    assert names == {"fill.cu", "fps.cu", "attention.cu", "ffn.cu"}
+    assert names == {"fill.cu", "fps.cu", "attention.cu", "attention_bwd.cu",
+                     "ffn.cu"}
     mods = {m.name for m in pkgutil.iter_modules([str(PORT / "kernels")])}
-    assert {"fill", "fps", "attention", "ffn", "_lib"} <= mods
+    assert {"fill", "fps", "attention", "attention_bwd", "ffn", "_lib"} <= mods
     assert importlib.import_module("mssvt_tpu_torch.kernels._lib").BUILD_DIR \
         == ROOT / "build" / "kernels"
