@@ -33,6 +33,20 @@ Phases (any failed check raises and the script exits non-zero):
    position and FFN parameters and the head, the launch counts of every
    step; then step 1's forward and backward again from the same weights,
    batch and DropPath generator state, with bit-identical gradients.
+7a. as 6a with ``ref_compat_keys: False`` on the MsSVT blocks: the tiny
+   model then trains through the outside assembly and K6/K7 (the window
+   attention on pre-assembled tokens, forward and backward).
+7b. K6 and K7 at ``mssvt.yaml`` block-0 shapes on the inputs of a full-width
+   flag-off training forward and backward: each kernel against its plain
+   version on every window (K7 per cotangent), K7 twice with bit-identical
+   results, all timed with CUDA events.
+7c. the flag-off training path: 3 ``train_step``s of ``mssvt.yaml`` with
+   ``ref_compat_keys: False`` set on the loaded config, checked as 6c.
+7d. the selection-free FPS entry point
+   ``ops.sampling.farthest_point_sample_planes`` on block 0's planes (N = 96,
+   K2b) and on 4 096 rows of 2 048 seeded points (K2c): picks equal to the
+   plain version's, launch counts checked. (Phase 4 holds and times K2b and
+   K2c beside K2.)
 
 With ``--profile`` one more request and one more training step run under
 ``torch.profiler`` and the device time per kernel name is printed (top
@@ -62,11 +76,22 @@ F32_FLOPS = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
 # land one bf16 ulp apart and carry that through the next product; the
 # outputs must agree to 2^-5 of their largest magnitude.
 BF16_TOL = 2.0 ** -5
-EXPECTED_LAUNCHES = {"fill": 5, "fps": 3, "attention": 3, "attention_bwd": 0,
-                     "ffn": 3}
-TRAIN_LAUNCHES = {"fill": 5, "fps": 3, "attention": 3, "attention_bwd": 3,
-                  "ffn": 0}
+KERNEL_NAMES = ("fill", "fps", "fps_picks_warp", "fps_picks_block",
+                "attention", "attention_bwd", "attention_qk",
+                "attention_qk_bwd", "ffn")
+
+
+def launches(**counts):
+    """Expected launch counts: the named kernels, 0 for every other."""
+    return {n: counts.get(n, 0) for n in KERNEL_NAMES}
+
+
+EXPECTED_LAUNCHES = launches(fill=5, fps=3, attention=3, ffn=3)
+TRAIN_LAUNCHES = launches(fill=5, fps=3, attention=3, attention_bwd=3)
+FLAG_OFF_LAUNCHES = launches(fill=5, fps=3, attention_qk=3, attention_qk_bwd=3)
+SAMPLING_LAUNCHES = launches(fps_picks_warp=1, fps_picks_block=1)
 TRAIN_STEPS = 3
+FPS_BLOCK_SHAPE = (4096, 2048, 512)  # K2c: rows, points a row, picks
 GRID = (480, 480, 32)
 VOXEL = (0.32, 0.32, 0.1875)
 PCR = (-76.8, -76.8, -2.0, 76.8, 76.8, 4.0)
@@ -104,11 +129,18 @@ def to_device(torch, scene, dev):
     return {k: torch.as_tensor(v, device=dev) for k, v in scene.items()}
 
 
-def load_cfg(name):
+def load_cfg(name, ref_compat_keys=True):
+    """The YAML config; ``ref_compat_keys=False`` sets that flag on its
+    MsSVT blocks, as a caller who trains from scratch would."""
     from mssvt_tpu_torch.config import cfg_from_yaml_file
     from mssvt_tpu_torch.utils.edict import EasyDict
 
-    return cfg_from_yaml_file(str(ROOT / name), EasyDict())
+    cfg = cfg_from_yaml_file(str(ROOT / name), EasyDict())
+    if not ref_compat_keys:
+        for p in cfg.MODEL.BACKBONE_3D.PARAMS:
+            if p["name"] == "MixedScaleSparseTransformerBlock":
+                p["ref_compat_keys"] = False
+    return cfg
 
 
 # --------------------------------------------------------------- phase 3
@@ -126,12 +158,13 @@ def tiny_gt(np, rng, bsz, max_gt=8):
     return gt
 
 
-def tiny_setup(seed, with_gt=False):
+def tiny_setup(seed, with_gt=False, ref_compat_keys=True):
     """mssvt_tiny.yaml and a seeded 2-frame scene of up to 1024 voxels
     (with GT boxes for training): (cfg, build_network args, scene)."""
     import numpy as np
 
-    cfg = load_cfg("tools/cfgs/synthetic_models/mssvt_tiny.yaml")
+    cfg = load_cfg("tools/cfgs/synthetic_models/mssvt_tiny.yaml",
+                   ref_compat_keys)
     dc = cfg.DATA_CONFIG
     pcr = tuple(dc.POINT_CLOUD_RANGE)
     vs = tuple(dc.DATA_PROCESSOR[-1].VOXEL_SIZE)
@@ -209,7 +242,24 @@ TPU_COUNTERPART = {
     "attention_bwd": "mssvt_tpu/ops/pallas_attention.py:1190 "
                      "_asm_attn_bwd_impl",
     "ffn": "mssvt_tpu/ops/pallas_ffn.py:42 fused_residual_ffn",
+    "attention_qk": "mssvt_tpu/ops/pallas_attention.py:426 "
+                    "_fused_attention_fwd_impl",
+    "attention_qk_bwd": "mssvt_tpu/ops/pallas_attention.py:705 "
+                        "_fused_attention_bwd_impl",
+    "fps_picks_warp": "mssvt_tpu/ops/pallas_fps.py:244 "
+                      "farthest_point_sample_planes_pallas_t",
+    "fps_picks_block": "mssvt_tpu/ops/pallas_fps.py:278 "
+                       "farthest_point_sample_planes_pallas",
 }
+SOURCE = {n: f"mssvt_tpu_torch/csrc/{n}.cu" for n in KERNEL_NAMES}
+SOURCE["fps_picks_warp"] = SOURCE["fps_picks_block"] = SOURCE["fps"]
+
+
+def kernel_row(name, err, ms, plain_ms, bound_ms, bound_by):
+    return dict(name=name, route="cuda", source=SOURCE[name],
+                replaces=TPU_COUNTERPART[name], launches=None,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def capture_first_calls(torch, model, batch):
@@ -337,18 +387,78 @@ def kernel_phase(torch, captured):
             ms = time_ms(torch, lambda: kern(*a, **k), reps=10, warm=2)
             plain_ms = time_ms(torch, lambda: plain(*a, **k), reps=3, warm=1)
         bound_ms, bound_by = bound(name, a, k, torch)
-        rows[name] = dict(
-            name=name, route="cuda",
-            source=f"mssvt_tpu_torch/csrc/{name}.cu",
-            replaces=TPU_COUNTERPART[name], launches=None,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None)
+        rows[name] = kernel_row(name, err, ms, plain_ms, bound_ms, bound_by)
         shapes = [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)]
         log(f"# kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={err:.3g} "
             f"inputs={shapes}")
         del got, want
     return rows
+
+
+def fps_picks_inputs(torch, planes):
+    """(K2b inputs, K2c inputs): block 0's planes (N = 96, 32 picks) and
+    FPS_BLOCK_SHAPE rows of seeded normal points."""
+    rows, n, npoint = FPS_BLOCK_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(5)
+    wide = tuple(torch.randn(rows, n, generator=g, device="cuda")
+                 for _ in range(3))
+    return (*planes, 32), (*wide, npoint)
+
+
+def fps_picks_phase(torch, planes):
+    """K2b and K2c against fps_plain: exact picks, timed, with bounds (the
+    planes read once and the picks written once, vs ~10 f32 operations a
+    point and iteration)."""
+    from mssvt_tpu_torch.kernels import fps
+
+    rows = {}
+    for name, kern, a in zip(("fps_picks_warp", "fps_picks_block"),
+                             (fps.fps_picks_warp, fps.fps_picks_block),
+                             fps_picks_inputs(torch, planes)):
+        x, npoint = a[0], a[3]
+        got = kern(*a)
+        want = fps.fps_plain(*a[:3], (), npoint)[0]
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel != plain version")
+        ms = time_ms(torch, lambda: kern(*a), reps=10, warm=2)
+        plain_ms = time_ms(torch, lambda: fps.fps_plain(*a[:3], (), npoint),
+                           reps=1, warm=1)
+        b, n = x.shape
+        t_by = (3 * b * n * 4 + b * npoint * 4) / MEM_BPS
+        t_op = b * (npoint - 1) * n * 10 / F32_FLOPS
+        rows[name] = kernel_row(name, 0.0, ms, plain_ms,
+                                max(t_by, t_op) * 1e3,
+                                "bytes" if t_by >= t_op else "operations")
+        log(f"# kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={rows[name]['bound_ms']:.4f} "
+            f"({rows[name]['bound_by']}) picks equal; inputs=({b}, {n}) -> "
+            f"{npoint}")
+    return rows
+
+
+def sampling_path(torch, planes):
+    """Phase 7d: the selection-free FPS entry point on CUDA tensors launches
+    K2b for N <= 256 and K2c above it."""
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.kernels import fps
+    from mssvt_tpu_torch.ops.sampling import farthest_point_sample_planes
+
+    kernels.reset_launch_counts()
+    for a in fps_picks_inputs(torch, planes):
+        got = farthest_point_sample_planes(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, fps.fps_plain(*a[:3], (), a[3])[0]):
+            raise AssertionError("farthest_point_sample_planes != plain")
+    counts = kernels.launch_counts()
+    if counts != SAMPLING_LAUNCHES:
+        raise AssertionError(f"sampling entry point: launches {counts} != "
+                             f"{SAMPLING_LAUNCHES}")
+    log(f"# sampling entry point: picks equal the plain version's at N = "
+        f"{planes[0].shape[1]} and N = {FPS_BLOCK_SHAPE[1]}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
 
 
 # --------------------------------------------------------------- phase 5
@@ -422,16 +532,20 @@ def grad_vector(torch, model):
                       for p in model.parameters()])
 
 
-def small_train_reference(torch):
+def small_train_reference(torch, ref_compat_keys=True):
     """mssvt_tiny.yaml, one f32 training step: CUDA kernels (K5 for the
-    attention backward) vs the plain versions on the CPU."""
+    attention backward; K6/K7 where nq >= 8 with ``ref_compat_keys`` off)
+    vs the plain versions on the CPU."""
     import numpy as np
 
     from mssvt_tpu_torch import kernels
     from mssvt_tpu_torch.models import build_network
     from mssvt_tpu_torch.runtime.train_utils import forward_backward
 
-    args, n_feat, scene = tiny_setup(17, with_gt=True)
+    args, n_feat, scene = tiny_setup(17, with_gt=True,
+                                     ref_compat_keys=ref_compat_keys)
+    label = "small training reference" + ("" if ref_compat_keys else
+                                          ", ref_compat_keys off")
     res = {}
     for dev in ("cpu", "cuda"):
         model = build_network(*args, num_point_features=n_feat, device=dev,
@@ -443,16 +557,18 @@ def small_train_reference(torch):
                     kernels.launch_counts())
     torch.cuda.synchronize()
     (l_cpu, g_cpu, _), (l_gpu, g_gpu, counts) = res["cpu"], res["cuda"]
-    if counts["attention_bwd"] != 2 or not np.isfinite(l_gpu):
-        raise AssertionError(f"small training reference: launches {counts}, "
-                             f"loss {l_gpu}")
+    ran = (counts["attention_bwd"] == 2 if ref_compat_keys else
+           counts["attention_bwd"] == 0 and counts["attention_qk_bwd"] >= 1
+           and counts["attention_qk"] == counts["attention_qk_bwd"])
+    if not ran or not np.isfinite(l_gpu):
+        raise AssertionError(f"{label}: launches {counts}, loss {l_gpu}")
     rel = abs(l_gpu - l_cpu) / abs(l_cpu)
     norm = g_cpu.norm().item()
     gerr = (g_gpu - g_cpu).abs().max().item()
     if rel > 1e-4 or not gerr <= 1e-3 * norm:
-        raise AssertionError(f"small training reference: loss {l_gpu} vs "
+        raise AssertionError(f"{label}: loss {l_gpu} vs "
                              f"{l_cpu}, gradient error {gerr} (norm {norm})")
-    log(f"# small training reference (mssvt_tiny.yaml, f32): loss card "
+    log(f"# {label} (mssvt_tiny.yaml, f32): loss card "
         f"{l_gpu:.6f} vs CPU {l_cpu:.6f} (relative {rel:.3g}); largest "
         f"gradient difference {gerr:.3g} = {gerr / norm:.3g} of the global "
         f"norm {norm:.4g}; launches {counts}")
@@ -554,11 +670,135 @@ def bwd_kernel_phase(torch, a, k):
     log(f"# kernel attention_bwd: ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={err:.3g} "
         f"inputs={shapes} num_valid={int(k['num_valid'])}")
-    return dict(name="attention_bwd", route="cuda",
-                source="mssvt_tpu_torch/csrc/attention_bwd.cu",
-                replaces=TPU_COUNTERPART["attention_bwd"], launches=None,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    return kernel_row("attention_bwd", err, ms, plain_ms, bound_ms, bound_by)
+
+
+# -------------------------------------------------------------- phase 7b
+def capture_block0_qk_backward(torch, model, batch, gen):
+    """One flag-off training forward and backward, recording K7's call with
+    the most windows (block 0); its inputs are K6's too."""
+    from mssvt_tpu_torch.kernels import attention_qk_bwd
+    from mssvt_tpu_torch.runtime.train_utils import forward_backward
+
+    orig = attention_qk_bwd.fused_window_attention_bwd
+    box = {}
+
+    def rec(*a, **k):
+        if "a" not in box or a[0].shape[0] > box["a"][0].shape[0]:
+            box["a"], box["k"] = a, k
+        return orig(*a, **k)
+
+    attention_qk_bwd.fused_window_attention_bwd = rec
+    try:
+        model.zero_grad()
+        forward_backward(model, batch, gen)
+        torch.cuda.synchronize()
+    finally:
+        attention_qk_bwd.fused_window_attention_bwd = orig
+    model.zero_grad()
+    return box["a"], box["k"]
+
+
+def qk_bounds(a, k):
+    """((bound_ms, bound_by) of K6, the same of K7) for one call: every
+    window's tokens (and g) read once, the outputs written once, vs the
+    block-diagonal products at the bf16 tensor-core peak (K7: the forward
+    recompute, the backward and the full (D, D) weight products)."""
+    query, keys = a[0], a[1]
+    nw, nq, d = query.shape
+    nkt = keys.shape[1]
+    heads = k["num_heads"]
+    ph = d // sum(heads)
+    nk = nkt // len(heads)
+    es = query.element_size()
+    mac_proj = sum((ph * h) ** 2 for h in heads)  # per token, one matrix
+    attn = sum(heads) * nq * nk * ph              # one per-head product
+    fwd_macs = (nq + 2 * nkt) * mac_proj + nq * mac_proj + 2 * attn
+    bwd_macs = ((nq + 2 * nkt) * mac_proj + 2 * attn       # forward recompute
+                + nq * mac_proj + 4 * attn                 # dO, dA, dV, dQ, dK
+                + (nq + 2 * nkt) * mac_proj                # dq, dk
+                + (2 * nq + 2 * nkt) * d * d)              # dW (full D x D)
+    weights = (4 * d * d + 4 * d) * es
+    tokens = nw * (nq + nkt) * d * es + nw * nkt * 4
+    fwd_by = tokens + weights + nw * nq * d * es
+    bwd_by = (tokens + weights + nw * nq * d * es          # + g
+              + nw * (nq + nkt) * d * es + (4 * d * d + 4 * d) * 4)
+    out = []
+    for by, macs in ((fwd_by, fwd_macs), (bwd_by, bwd_macs)):
+        t_by, t_op = by / MEM_BPS, 2 * macs * nw / BF16_FLOPS
+        out.append((max(t_by, t_op) * 1e3,
+                    "bytes" if t_by >= t_op else "operations"))
+    return out
+
+
+def qk_kernel_phase(torch, a, k):
+    """K6 and K7 against their plain versions on block 0's inputs."""
+    from mssvt_tpu_torch.kernels import attention_qk, attention_qk_bwd
+
+    query, keys, proj, key_bias, g = a
+    fkw = dict(num_heads=k["num_heads"], scale=k["scale"],
+               compute_dtype=k["compute_dtype"])
+    fwd = lambda fn: fn(query, keys, proj, key_bias, **fkw)
+    bwd = lambda fn: fn(*a, **k)
+    flat = lambda r: list(zip(
+        ("dq", "dk", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwp", "dbp"),
+        (*r[:2], *r[2])))
+    rows = {}
+    (fb_ms, fb_by), (bb_ms, bb_by) = qk_bounds(a, k)
+    with torch.no_grad():
+        got = fwd(attention_qk.fused_window_attention)
+        want = fwd(attention_qk.attention_qk_plain)
+        torch.cuda.synchronize()
+        err = compare("attention_qk", got, want, a, k, torch)
+        del got, want
+        ms = time_ms(torch, lambda: fwd(attention_qk.fused_window_attention),
+                     reps=10, warm=2)
+        plain_ms = time_ms(torch, lambda: fwd(attention_qk.attention_qk_plain),
+                           reps=3, warm=1)
+        rows["attention_qk"] = kernel_row("attention_qk", err, ms, plain_ms,
+                                          fb_ms, fb_by)
+        log(f"# kernel attention_qk: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={fb_ms:.4f} ({fb_by}) max_abs_err={err:.3g} "
+            f"query={tuple(query.shape)} keys={tuple(keys.shape)}")
+
+        got = flat(bwd(attention_qk_bwd.fused_window_attention_bwd))
+        again = flat(bwd(attention_qk_bwd.fused_window_attention_bwd))
+        want = flat(bwd(attention_qk_bwd.attention_qk_bwd_plain))
+        torch.cuda.synchronize()
+        err = worst = 0.0
+        dbv = dict(want)["dbv"].float().abs().max().item()
+        for (name, gt), (_, ag), (_, wt) in zip(got, again, want):
+            if not torch.equal(gt, ag):
+                raise AssertionError(f"attention_qk_bwd: {name} differs on "
+                                     "a repeated call")
+            gt, wt = gt.float(), wt.float()
+            if not torch.isfinite(gt).all():
+                raise AssertionError(f"attention_qk_bwd: non-finite {name}")
+            e = (gt - wt).abs().max().item()
+            # dbk is analytically zero: held against max |dbv| (see 6b)
+            scale = dbv if name == "dbk" else wt.abs().max().item()
+            err, worst = max(err, e), max(worst, e / max(scale, 1e-30))
+            if e > BF16_TOL * max(scale, 1e-6):
+                raise AssertionError(
+                    f"attention_qk_bwd: {name} max abs error {e} > "
+                    f"{BF16_TOL} x max |plain| {scale}")
+        log(f"# attention_qk_bwd: max abs error {err:.4g}; worst cotangent "
+            f"error relative to its max |plain|: {worst:.4g} (limit "
+            f"{BF16_TOL:.4g}); {len(got)} cotangents, bit-identical on a "
+            "repeated call")
+        del got, again, want
+        ms = time_ms(torch,
+                     lambda: bwd(attention_qk_bwd.fused_window_attention_bwd),
+                     reps=5, warm=1)
+        plain_ms = time_ms(torch,
+                           lambda: bwd(attention_qk_bwd.attention_qk_bwd_plain),
+                           reps=1, warm=1)
+    rows["attention_qk_bwd"] = kernel_row("attention_qk_bwd", err, ms,
+                                          plain_ms, bb_ms, bb_by)
+    log(f"# kernel attention_qk_bwd: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bb_ms:.4f} ({bb_by}) max_abs_err={err:.3g} "
+        f"g={tuple(g.shape)}")
+    return rows
 
 
 # -------------------------------------------------------------- phase 6c
@@ -588,7 +828,7 @@ def check_step_grads(torch, model, i):
     return norm
 
 
-def train_path(torch, model, optimizer, scenes, gen):
+def train_path(torch, model, optimizer, scenes, gen, expected, label="train"):
     """TRAIN_STEPS train_steps on distinct scenes, then step 1's forward
     and backward again from the same weights, batch and generator state:
     the gradients must repeat bit for bit. Returns (launch counts, mean
@@ -610,14 +850,15 @@ def train_path(torch, model, optimizer, scenes, gen):
         times.append(ms)
         after = kernels.launch_counts()
         per = {n: after[n] - before[n] for n in after}
-        if per != TRAIN_LAUNCHES:
-            raise AssertionError(f"step {i}: launches {per} != {TRAIN_LAUNCHES}")
+        if per != expected:
+            raise AssertionError(f"{label} step {i}: launches {per} != "
+                                 f"{expected}")
         if not torch.isfinite(loss):
-            raise AssertionError(f"step {i}: loss {loss.item()}")
+            raise AssertionError(f"{label} step {i}: loss {loss.item()}")
         norm = check_step_grads(torch, model, i)
         if i == 0:
             grads1 = [p.grad.clone() for p in model.parameters()]
-        log(f"# train step {i} (scene seed {i}, batch {BATCH}): {ms:.1f} ms, "
+        log(f"# {label} step {i} (scene seed {i}, batch {BATCH}): {ms:.1f} ms, "
             f"loss {loss.item():.4f} (hm {tb['hm_loss_head_0'].item():.4f}, "
             f"loc {tb['loc_loss_head_0'].item():.4f}), gradient norm "
             f"{norm:.4g}, launches {per}")
@@ -630,8 +871,8 @@ def train_path(torch, model, optimizer, scenes, gen):
     same = all(torch.equal(p.grad, g) for p, g in zip(model.parameters(),
                                                       grads1))
     if not same:
-        raise AssertionError("step 1 repeated: gradients differ")
-    log(f"# step 1 repeated from the same weights, batch and generator "
+        raise AssertionError(f"{label} step 1 repeated: gradients differ")
+    log(f"# {label} step 1 repeated from the same weights, batch and generator "
         f"state: bit-identical gradients over {len(grads1)} parameters")
     return counts, sum(times) / len(times)
 
@@ -707,15 +948,18 @@ def main(argv):
 
     captured = capture_first_calls(torch, model, scenes[0])
     rows = kernel_phase(torch, captured)
+    fps_planes = tuple(captured["fps"][0][:3])  # block 0: (192 000, 96)
+    rows.update(fps_picks_phase(torch, fps_planes))
     del captured
     torch.cuda.empty_cache()
 
     counts, request_ms = main_path(torch, model, scenes)
-    for name, row in rows.items():
-        row["launches"] = counts[name]
-        if counts[name] == 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+    for name, n in EXPECTED_LAUNCHES.items():
+        if n:
+            rows[name]["launches"] = counts[name]
+            if counts[name] == 0:
+                raise AssertionError(f"kernel {name} was not launched on "
+                                     "the main path")
     if "--profile" in argv:
         profile_request(torch, model, scenes[0], request_ms)
     log(f"# inference: peak device memory "
@@ -739,7 +983,8 @@ def main(argv):
                                    total_steps=TRAIN_STEPS, steps_per_epoch=1)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    train_counts, step_ms = train_path(torch, model, optimizer, scenes, gen)
+    train_counts, step_ms = train_path(torch, model, optimizer, scenes, gen,
+                                       TRAIN_LAUNCHES)
     log(f"# training: mean step {step_ms:.1f} ms over {TRAIN_STEPS} steps; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB")
@@ -750,9 +995,48 @@ def main(argv):
     rows["attention_bwd"]["launches"] = train_counts["attention_bwd"]
     if "--profile" in argv:
         profile_train_step(torch, model, optimizer, scenes[1], gen, step_ms)
+    del model, optimizer
+    torch.cuda.empty_cache()
+
+    # phases 7a-7d: ref_compat_keys off (K6/K7), and the FPS entry point
+    small_train_reference(torch, ref_compat_keys=False)
+    cfg = load_cfg("tools/cfgs/waymo_models/mssvt.yaml", ref_compat_keys=False)
+    model = build_network(cfg.MODEL, 3, CLASSES, GRID, VOXEL, PCR, BATCH,
+                          max_voxels, 5, num_point_features=5, device="cuda",
+                          seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a, k = capture_block0_qk_backward(torch, model, scenes[0], gen)
+    rows.update(qk_kernel_phase(torch, a, k))
+    del a, k
+    torch.cuda.empty_cache()
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model.named_parameters(),
+                                   total_steps=TRAIN_STEPS, steps_per_epoch=1)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    off_counts, off_ms = train_path(torch, model, optimizer, scenes, gen,
+                                    FLAG_OFF_LAUNCHES,
+                                    "train (ref_compat_keys off)")
+    log(f"# training, ref_compat_keys off: mean step {off_ms:.1f} ms over "
+        f"{TRAIN_STEPS} steps; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if "--profile" in argv:
+        profile_train_step(torch, model, optimizer, scenes[1], gen, off_ms)
+    sampling_counts = sampling_path(torch, fps_planes)
+    for name, counts_ in (("attention_qk", off_counts),
+                          ("attention_qk_bwd", off_counts),
+                          ("fps_picks_warp", sampling_counts),
+                          ("fps_picks_block", sampling_counts)):
+        if counts_[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on its "
+                                 "path")
+        rows[name]["launches"] = counts_[name]
+    missing = [n for n in KERNEL_NAMES
+               if n not in rows or not rows[n]["launches"]]
+    if missing:
+        raise AssertionError(f"kernels without a row or a launch: {missing}")
     log(f"# total {time.time() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": list(rows.values())}))
+    print(json.dumps({"kernels": [rows[n] for n in KERNEL_NAMES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

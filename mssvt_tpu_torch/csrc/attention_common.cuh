@@ -1,9 +1,13 @@
-// Pieces shared by the assembled-attention kernels: K3, the forward
-// (attention.cu), and K5, its backward (attention_bwd.cu). Both recompute the
-// same assembly and projections, so they share the code that does it: the
-// input layout, the head/group layout, the token assembly with the JAX
-// kernel's bf16 rounding points, the block-diagonal projections (FMA loops
-// and 16x16x16 WMMA tiles), and the host-side argument parsing.
+// Pieces shared by the window-attention kernels: K3, the assembled forward
+// (attention.cu), K5, its backward (attention_bwd.cu), K6, the forward on
+// pre-assembled tokens (attention_qk.cu), and K7, its backward
+// (attention_qk_bwd.cu; the backward's own shared pieces are in
+// attention_bwd_common.cuh). Here: the head/group layout, the assembled
+// input layout and its host-side parsing, the token assembly with the JAX
+// kernel's bf16 rounding points (K3, K5), the token load (K6, K7), the
+// block-diagonal projections (FMA loops and 16x16x16 WMMA tiles), and the
+// per-window forward core from the tokens in shared memory to the output
+// projection (K3, K6).
 #pragma once
 
 #include <mma.h>
@@ -49,6 +53,29 @@ __host__ __device__ inline size_t align128(size_t x) {
   return (x + 127) & ~size_t(127);
 }
 
+// Head/group layout of d channels and nk_tot keys over `groups` head groups
+// of heads[g] heads each. Returns a cudaError_t.
+inline int derive_layout(int d, int nq, int nk_tot, int groups, const int* heads,
+                         Layout& L) {
+  int tot = 0;
+  for (int g = 0; g < MAX_GROUPS; ++g) tot += g < groups ? heads[g] : 0;
+  if (groups < 1 || groups > MAX_GROUPS || tot < 1 || tot > 64 || d % tot ||
+      d % 32 || d > NT || nk_tot % groups || nq < 1)
+    return (int)cudaErrorInvalidValue;
+  L.tot_heads = tot;
+  L.ph = d / tot;
+  L.nk_tot = nk_tot;
+  L.nk = nk_tot / groups;
+  int h = 0, c = 0;
+  for (int g = 0; g < groups; ++g) {
+    L.gstart[g] = c;
+    for (int j = 0; j < heads[g]; ++j) L.head_group[h++] = g;
+    c += heads[g] * L.ph;
+  }
+  L.gstart[groups] = c;
+  return 0;
+}
+
 // Fills the inputs from the pointer array (win1, k2, fps1, kmask, q_ext,
 // q_keep, krel x3, qrel x3, base, posw, wq, wk, wv, wp, bq, bk, bv, bp,
 // key_bias, pad_row, num_valid) and dims (nw, n1cap, nk1, nk2, nq, d, groups,
@@ -65,32 +92,17 @@ inline int parse_inputs(const void* const* p, const int* dims, float scale,
   a.nw = dims[0]; a.n1cap = dims[1]; a.nk1 = dims[2]; a.nk2 = dims[3];
   a.nq = dims[4]; a.d = dims[5]; a.groups = dims[6]; a.q_prefix = dims[7];
   a.scale = scale;
-  int tot = 0;
-  for (int g = 0; g < MAX_GROUPS; ++g) { a.heads[g] = g < a.groups ? dims[8 + g] : 0; tot += a.heads[g]; }
-  if (a.groups < 1 || a.groups > MAX_GROUPS || tot < 1 || tot > 64 || a.d % tot ||
-      a.d % 32 || a.d > NT || (a.nk1 + a.nk2) % a.groups || a.nq < 1)
-    return (int)cudaErrorInvalidValue;
-  L.tot_heads = tot;
-  L.ph = a.d / tot;
-  L.nk_tot = a.nk1 + a.nk2;
-  L.nk = L.nk_tot / a.groups;
-  int h = 0, c = 0;
-  for (int g = 0; g < a.groups; ++g) {
-    L.gstart[g] = c;
-    for (int j = 0; j < a.heads[g]; ++j) L.head_group[h++] = g;
-    c += a.heads[g] * L.ph;
-  }
-  L.gstart[a.groups] = c;
-  return 0;
+  for (int g = 0; g < MAX_GROUPS; ++g) a.heads[g] = g < a.groups ? dims[8 + g] : 0;
+  return derive_layout(a.d, a.nq, a.nk1 + a.nk2, a.groups, a.heads, L);
 }
 
 // Tensor cores for bf16 when every tile lies inside one head and one stripe;
 // query rows padded to 16 then.
 template <typename T>
-inline void set_mma(const AsmIn& a, Layout& L) {
-  L.use_mma = std::is_same<T, BF>::value && a.d % 16 == 0 && L.ph % 16 == 0 &&
+inline void set_mma(int d, int nq, Layout& L) {
+  L.use_mma = std::is_same<T, BF>::value && d % 16 == 0 && L.ph % 16 == 0 &&
               L.nk % 16 == 0;
-  L.nqp = L.use_mma ? (a.nq + 15) / 16 * 16 : a.nq;
+  L.nqp = L.use_mma ? (nq + 15) / 16 * 16 : nq;
 }
 
 __device__ __forceinline__ int group_of(const Layout& L, int c, int groups) {
@@ -231,6 +243,193 @@ __device__ void project_mma(const BF* tok, int ntok_pad, const BF* W,
     }
     tile_epilogue(acc, scratch, out, d, r0, c0, rows, bvec);
   }
+}
+
+// Copies window tokens that are already assembled (K6, K7) into shared
+// memory: nq query rows (then zero rows up to nqp) followed by nk_tot key
+// rows, 16 bytes a thread (d % 32 == 0 keeps every row a multiple of 16
+// bytes; the wrapper checks the base pointers).
+template <typename T>
+__device__ void load_tokens(const T* gq, const T* gk, int nq, int nqp,
+                            int nk_tot, int d, T* tokq) {
+  constexpr int V = 16 / sizeof(T);
+  const uint4* q4 = (const uint4*)gq;
+  const uint4* k4 = (const uint4*)gk;
+  uint4* tq4 = (uint4*)tokq;
+  uint4* tk4 = (uint4*)(tokq + (size_t)nqp * d);
+  const int nq4 = nq * d / V, nqp4 = nqp * d / V, nk4 = nk_tot * d / V;
+  for (int e = threadIdx.x; e < nqp4; e += NT)
+    tq4[e] = e < nq4 ? __ldg(q4 + e) : make_uint4(0u, 0u, 0u, 0u);
+  for (int e = threadIdx.x; e < nk4; e += NT) tk4[e] = __ldg(k4 + e);
+}
+
+// Shared-memory plan of the forward kernels (byte offsets, 128-aligned);
+// the same code sizes the launch on the host:
+//   [0, r0): q/k tokens (T) | later scores (f32) + softmax weights (bf16)
+//   [r0, ..): Qp (later O), Kp, Vp (T); per-warp 16x16 f32 scratch (WMMA)
+struct FwdPlan {
+  size_t s_bytes, r0, total;
+  __host__ __device__ FwdPlan(const Layout& L, int d, size_t es) {
+    const size_t hq = (size_t)L.tot_heads * L.nqp * L.nk;
+    const size_t tok = (size_t)(L.nqp + L.nk_tot) * d * es;
+    s_bytes = align128(hq * sizeof(float));
+    const size_t sa = s_bytes + (L.use_mma ? hq * sizeof(BF) : 0);
+    r0 = align128(tok > sa ? tok : sa);
+    total = r0 + (size_t)(L.nqp + 2 * L.nk_tot) * d * es +
+            (L.use_mma ? NWARP * 256 * sizeof(float) : 0);
+  }
+};
+
+// The per-window forward from the tokens in shared memory (at sm.tokq, as
+// assemble/load_tokens leave them; the caller has synchronised) to the
+// output rows in global memory:
+//   2. q/k/v projections with the block-diagonal weights, f32 accumulation,
+//      + bias, rounded to T;
+//   3. per head: scores against its own group's key stripe, * scale + kb,
+//      softmax in f32, weights rounded to T, value product in f32;
+//   4. output projection + bias, written in T.
+// `a` supplies w[4], b[4], scale, nq, d, groups (AsmIn or the K6 inputs).
+// Pointers into the shared memory of one forward CTA (FwdPlan). Built before
+// the tokens are assembled or loaded: the compiler then keeps fewer
+// registers live through the core (64 against 80 a thread in bf16).
+template <typename T>
+struct FwdSmem {
+  T *tokq, *tokk, *Qp, *Kp, *Vp;
+  float *S, *scratch;
+  BF* A_;
+  __device__ __forceinline__ FwdSmem(unsigned char* smem_raw, const Layout& L, int d) {
+    const int nqp = L.nqp, nk_tot = L.nk_tot;
+    const FwdPlan P(L, d, sizeof(T));
+    tokq = (T*)smem_raw;
+    tokk = tokq + nqp * d;
+    S = (float*)smem_raw;
+    A_ = (BF*)(smem_raw + P.s_bytes);
+    Qp = (T*)(smem_raw + P.r0);
+    Kp = Qp + nqp * d;
+    Vp = Kp + nk_tot * d;
+    scratch = (float*)(Vp + nk_tot * d) + (threadIdx.x >> 5) * 256;
+  }
+};
+
+template <typename T, typename A>
+__device__ __forceinline__ void attention_core(const A& a, const Layout& L,
+                                               const FwdSmem<T>& sm,
+                                               const float* kb, T* gout) {
+  using E = Elem<T>;
+  const int d = a.d, nq = a.nq;
+  const int nk_tot = L.nk_tot, nk = L.nk, ph = L.ph, H = L.tot_heads;
+  const int nqp = L.nqp;
+  T* tokq = sm.tokq;
+  T* tokk = sm.tokk;
+  float* S = sm.S;
+  BF* A_ = sm.A_;
+  T* Qp = sm.Qp;
+  T* Kp = sm.Kp;
+  T* Vp = sm.Vp;
+  float* scratch = sm.scratch;
+
+  if constexpr (std::is_same<T, BF>::value) {
+    if (L.use_mma) {
+      // 2. projections on the tensor cores
+      project_mma(tokq, nqp, (const BF*)a.w[0], (const BF*)a.b[0], Qp, nqp, L, d, a.groups, scratch);
+      project_mma(tokk, nk_tot, (const BF*)a.w[1], (const BF*)a.b[1], Kp, nk_tot, L, d, a.groups, scratch);
+      project_mma(tokk, nk_tot, (const BF*)a.w[2], (const BF*)a.b[2], Vp, nk_tot, L, d, a.groups, scratch);
+      __syncthreads();
+      // 3. per-head scores Q_h K_h^T over the head group's key stripe
+      const int warp = threadIdx.x >> 5;
+      const int tq = nqp / 16, tk = nk / 16;
+      for (int t = warp; t < H * tq * tk; t += NWARP) {
+        const int h = t / (tq * tk), q0 = ((t / tk) % tq) * 16, k0 = (t % tk) * 16;
+        const int key0 = L.head_group[h] * nk + k0;
+        wm::fragment<wm::accumulator, 16, 16, 16, float> acc;
+        wm::fill_fragment(acc, 0.f);
+        for (int c0 = 0; c0 < ph; c0 += 16) {
+          wm::fragment<wm::matrix_a, 16, 16, 16, BF, wm::row_major> fa;
+          wm::fragment<wm::matrix_b, 16, 16, 16, BF, wm::col_major> fb;
+          wm::load_matrix_sync(fa, Qp + q0 * d + h * ph + c0, d);
+          wm::load_matrix_sync(fb, Kp + key0 * d + h * ph + c0, d);
+          wm::mma_sync(acc, fa, fb, acc);
+        }
+        wm::store_matrix_sync(S + (h * nqp + q0) * nk + k0, acc, nk, wm::mem_row_major);
+      }
+      __syncthreads();
+      for (int row = threadIdx.x; row < H * nqp; row += NT) {
+        float* sr = S + row * nk;
+        const float* kbg = kb + L.head_group[row / nqp] * nk;
+        float m = -INFINITY;
+        for (int j = 0; j < nk; ++j) { sr[j] = sr[j] * a.scale + kbg[j]; m = fmaxf(m, sr[j]); }
+        float sum = 0.f;
+        for (int j = 0; j < nk; ++j) { const float ex = expf(sr[j] - m); sr[j] = ex; sum += ex; }
+        const float inv = 1.f / (sum + 1e-30f);
+        for (int j = 0; j < nk; ++j) A_[row * nk + j] = __float2bfloat16_rn(sr[j] * inv);
+      }
+      __syncthreads();
+      // value products A_h V_h into O (aliases Qp, dead after the scores)
+      BF* O = Qp;
+      const int tc = ph / 16;
+      for (int t = warp; t < H * tq * tc; t += NWARP) {
+        const int h = t / (tq * tc), q0 = ((t / tc) % tq) * 16, c0 = (t % tc) * 16;
+        const int key0 = L.head_group[h] * nk;
+        wm::fragment<wm::accumulator, 16, 16, 16, float> acc;
+        wm::fill_fragment(acc, 0.f);
+        for (int k0 = 0; k0 < nk; k0 += 16) {
+          wm::fragment<wm::matrix_a, 16, 16, 16, BF, wm::row_major> fa;
+          wm::fragment<wm::matrix_b, 16, 16, 16, BF, wm::row_major> fb;
+          wm::load_matrix_sync(fa, A_ + (h * nqp + q0) * nk + k0, nk);
+          wm::load_matrix_sync(fb, Vp + (key0 + k0) * d + h * ph + c0, d);
+          wm::mma_sync(acc, fa, fb, acc);
+        }
+        tile_epilogue(acc, scratch, O, d, q0, h * ph + c0, nqp, nullptr);
+      }
+      __syncthreads();
+      // 4. output projection straight to global memory
+      project_mma(O, nqp, (const BF*)a.w[3], (const BF*)a.b[3], (BF*)gout, nq, L, d, a.groups, scratch);
+      return;
+    }
+  }
+
+  // FMA path: 2. projections (block-diagonal: group channels only)
+  project<T>(tokq, nq, (const T*)a.w[0], (const T*)a.b[0], Qp, L, d, a.groups, nullptr);
+  project<T>(tokk, nk_tot, (const T*)a.w[1], (const T*)a.b[1], Kp, L, d, a.groups, nullptr);
+  project<T>(tokk, nk_tot, (const T*)a.w[2], (const T*)a.b[2], Vp, L, d, a.groups, nullptr);
+  __syncthreads();
+
+  // 3. scores over each head's own key stripe, then row softmax
+  for (int e = threadIdx.x; e < H * nq * nk; e += NT) {
+    const int h = e / (nq * nk), qi = (e / nk) % nq, kj = e % nk;
+    const int key = L.head_group[h] * nk + kj;
+    const T* qrow = Qp + qi * d + h * ph;
+    const T* krow = Kp + key * d + h * ph;
+    float s = 0.f;
+    for (int c = 0; c < ph; ++c) s += E::load(qrow + c) * E::load(krow + c);
+    S[e] = s * a.scale + kb[key];
+  }
+  __syncthreads();
+  for (int row = threadIdx.x; row < H * nq; row += NT) {
+    float* sr = S + row * nk;
+    float m = -INFINITY;
+    for (int j = 0; j < nk; ++j) m = fmaxf(m, sr[j]);
+    float sum = 0.f;
+    for (int j = 0; j < nk; ++j) { const float ex = expf(sr[j] - m); sr[j] = ex; sum += ex; }
+    const float inv = 1.f / (sum + 1e-30f);
+    for (int j = 0; j < nk; ++j) sr[j] = E::round(sr[j] * inv);
+  }
+  __syncthreads();
+
+  // value product into O (aliases Qp, dead after the scores)
+  T* O = Qp;
+  for (int e = threadIdx.x; e < nq * d; e += NT) {
+    const int qi = e / d, c = e % d, h = c / ph;
+    const int g = L.head_group[h];
+    const float* ar = S + (h * nq + qi) * nk;
+    float acc = 0.f;
+    for (int kj = 0; kj < nk; ++kj) acc += ar[kj] * E::load(Vp + (g * nk + kj) * d + c);
+    E::store(O + e, acc);
+  }
+  __syncthreads();
+
+  // 4. output projection straight to global memory
+  project<T>(O, nq, (const T*)a.w[3], (const T*)a.b[3], nullptr, L, d, a.groups, gout);
 }
 
 }  // namespace

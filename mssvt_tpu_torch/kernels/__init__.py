@@ -1,22 +1,30 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
 Each wrapper module (``fill``, ``fps``, ``attention``, ``attention_bwd``,
-``ffn``) takes the plain version for CPU tensors and launches its CUDA
-kernel for CUDA tensors (or raises); it adds one to its module-level
-``launches`` at each launch. Importing this package needs neither ``nvcc``
-nor a card: the kernels are built on first use (``_lib.lib()``).
+``attention_qk``, ``attention_qk_bwd``, ``ffn``) takes the plain version for
+CPU tensors and launches its CUDA kernel for CUDA tensors (or raises); it
+adds one to its kernel's module-level launch counter at each launch.
+Importing this package needs neither ``nvcc`` nor a card: the kernels are
+built on first use (``_lib.lib()``).
 """
 
-from . import attention, attention_bwd, ffn, fill, fps
+from . import (attention, attention_bwd, attention_qk, attention_qk_bwd, ffn,
+               fill, fps)
 
-KERNELS = {"fill": fill, "fps": fps, "attention": attention,
-           "attention_bwd": attention_bwd, "ffn": ffn}
+# kernel name -> (wrapper module, name of its launch counter there)
+KERNELS = {"fill": fill, "fps": fps, "fps_picks_warp": fps,
+           "fps_picks_block": fps, "attention": attention,
+           "attention_bwd": attention_bwd, "attention_qk": attention_qk,
+           "attention_qk_bwd": attention_qk_bwd, "ffn": ffn}
+_COUNTERS = {"fps_picks_warp": "launches_warp",
+             "fps_picks_block": "launches_block"}
 
 
 def launch_counts() -> dict:
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, _COUNTERS.get(name, "launches"))
+            for name, mod in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for name, mod in KERNELS.items():
+        setattr(mod, _COUNTERS.get(name, "launches"), 0)

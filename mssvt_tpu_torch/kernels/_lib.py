@@ -38,8 +38,12 @@ CF = ctypes.c_float
 _SIGNATURES = {
     "mssvt_fill": [VP, CI, CI, CI, VP, VP, VP, CI, CI, VP, VP, VP, VP, VP, VP],
     "mssvt_fps": [VP, CI, CI, CI, CI, CI, VP, VP, VP, VP],
+    "mssvt_fps_picks_warp": [VP, VP, VP, CI, CI, CI, VP, VP],
+    "mssvt_fps_picks_block": [VP, VP, VP, CI, CI, CI, VP, VP],
     "mssvt_attention": [VP, VP, CF, CI, VP],
     "mssvt_attention_bwd": [VP, VP, CF, CI, VP],
+    "mssvt_attention_qk": [VP, VP, CF, CI, VP],
+    "mssvt_attention_qk_bwd": [VP, VP, CF, CI, VP],
     "mssvt_ffn": [VP, VP, VP, VP, VP, VP, VP, VP, CI, CI, CI, CF, CI, VP],
 }
 

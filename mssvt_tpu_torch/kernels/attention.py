@@ -21,7 +21,10 @@ mask afterwards, as the JAX module does.
 
 CUDA tensors go to ``csrc/attention.cu``; CPU tensors to
 :func:`attention_plain`. The module also holds :func:`attention_bwd_plain`,
-the plain version of K5, the backward (``kernels/attention_bwd.py``).
+the plain version of K5, the backward (``kernels/attention_bwd.py``), and
+the two per-window cores on assembled tokens that those share with the plain
+versions of K6/K7 (``kernels/attention_qk.py``, ``attention_qk_bwd.py``):
+:func:`attention_core_plain` and :func:`attention_core_bwd_plain`.
 """
 
 from __future__ import annotations
@@ -62,17 +65,14 @@ def _assemble(win1, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
     return q3, k3, zq, zk
 
 
-def attention_plain(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel,
-                    q_rel, pos_base, pos_w, proj, key_bias, num_heads, scale,
-                    q_prefix, nq=0, pad_row=None, num_valid=None,
-                    compute_dtype=None):
-    """Plain PyTorch version (same contract as :func:`fused_window_attention_assembled`)."""
-    t = compute_dtype or win1_fea.dtype
-    nw, _, d = win1_fea.shape
-    nq = int(nq) if q_prefix else q_ext.shape[1]
-    q3, k3, _, _ = _assemble(win1_fea.to(t), k2_fea, fps1, k_mask1, q_ext,
-                             q_keep, k_rel, q_rel, pos_base, pos_w, pad_row,
-                             nq, q_prefix, t)
+def attention_core_plain(q3, k3, proj, key_bias, num_heads, scale, t,
+                         out_dtype):
+    """The per-window attention from assembled tokens ``q3`` (NW, nq, D) and
+    ``k3`` (NW, nk_tot, D) in the compute dtype ``t``: block-diagonal
+    projections rounded to ``t``, per-head softmax in f32 over the head
+    group's own key stripe, weights rounded to ``t``, output projection.
+    Shared by the plain versions of K3 and K6."""
+    d = q3.shape[2]
     wq, bq, wk, bk, wv, bv, wp, bp = (p.to(t).float() for p in proj)
     q = (q3.float() @ wq + bq).to(t).float()
     k = (k3.float() @ wk + bk).to(t).float()
@@ -94,46 +94,24 @@ def attention_plain(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel,
             outs.append(a.to(t).float() @ v[:, ks, cs])
             h += 1
     o = torch.cat(outs, dim=2).to(t).float()
-    out = (o @ wp + bp).to(win1_fea.dtype)
-    if num_valid is not None:
-        live = torch.arange(nw, device=out.device) < num_valid
-        out = torch.where(live[:, None, None], out,
-                          torch.zeros((), dtype=out.dtype, device=out.device))
-    return out
+    return (o @ wp + bp).to(out_dtype)
 
 
-def attention_bwd_plain(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep,
-                        k_rel, q_rel, pos_base, pos_w, proj, key_bias, g,
-                        num_heads, scale, q_prefix, nq=0, pad_row=None,
-                        num_valid=None, compute_dtype=None):
-    """Plain PyTorch version of K5, the backward of
-    :func:`fused_window_attention_assembled` for the output cotangent ``g``
-    (NW, nq, D). It repeats the JAX backward step by step
-    (``_attn_assembled_bwd_body`` and ``_bwd_qstk_core`` in
-    ``mssvt_tpu/ops/pallas_attention.py``), rounding to the compute dtype
-    where that does, rather than differentiating :func:`attention_plain`.
-
-    Returns ``(dwin1, dk2, dq_ext, dpad_row, dpos_base, dpos_w, dproj)`` with
-    ``dproj = (dwq, dbq, dwk, dbk, dwv, dbv, dwp, dbp)`` (full (D, D) weight
-    cotangents, summed in f32); ``dq_ext`` is None when ``q_prefix``. Each
-    cotangent has its primal's dtype. Windows at or past ``num_valid`` get
-    zero cotangents and add nothing to the sums."""
-    t = compute_dtype or win1_fea.dtype
-    f32 = torch.float32
-    nw, n1cap, d = win1_fea.shape
-    nk1 = fps1.shape[1]
-    nq = int(nq) if q_prefix else q_ext.shape[1]
-    q3, k3, zq, zk = _assemble(win1_fea.to(t), k2_fea, fps1, k_mask1, q_ext,
-                               q_keep, k_rel, q_rel, pos_base, pos_w, pad_row,
-                               nq, q_prefix, t)
+def attention_core_bwd_plain(q3, k3, proj, key_bias, gf, num_heads, scale, t):
+    """The backward of :func:`attention_core_plain` for the output cotangent
+    ``gf`` (f32 values already rounded to ``t``), step by step as JAX's
+    ``_bwd_qstk_core`` / ``_finish_bwd`` (``mssvt_tpu/ops/pallas_attention.py``):
+    ``dO``, ``dS`` and ``dQ/dK/dV`` before the raw-token products are rounded
+    to ``t``; the bias cotangents sum the unrounded f32 ``dQ/dK/dV`` and
+    ``gf``. Returns ``(dq3, dk3, dproj)``: the raw tokens' cotangents in f32
+    (callers round them) and ``dproj = (dwq, dbq, ..., dwp, dbp)`` in f32
+    (full (D, D) weight cotangents). Shared by the plain versions of K5 and
+    K7."""
+    d = q3.shape[2]
     wq, bq, wk, bk, wv, bv, wp, bp = (p.to(t).float() for p in proj)
     q = (q3.float() @ wq + bq).to(t).float()
     k = (k3.float() @ wk + bk).to(t).float()
     v = (k3.float() @ wv + bv).to(t).float()
-    gf = g.to(t).float()
-    if num_valid is not None:
-        live = torch.arange(nw, device=g.device) < num_valid
-        gf = gf * live[:, None, None].to(f32)
     groups = len(num_heads)
     ph = d // sum(num_heads)
     nk = k3.shape[1] // groups
@@ -170,8 +148,62 @@ def attention_bwd_plain(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep,
              wgrad(k3, dk_pb), dk.sum(dim=(0, 1)),
              wgrad(k3, dv_pb), dv.sum(dim=(0, 1)),
              wgrad(o1.to(t), gf), gf.sum(dim=(0, 1)))
-    dq3 = (dq_pb @ wq.t()).to(t)
-    dk3 = (dk_pb @ wk.t() + dv_pb @ wv.t()).to(t)
+    dq3 = dq_pb @ wq.t()
+    dk3 = dk_pb @ wk.t() + dv_pb @ wv.t()
+    return dq3, dk3, dproj
+
+
+def attention_plain(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel,
+                    q_rel, pos_base, pos_w, proj, key_bias, num_heads, scale,
+                    q_prefix, nq=0, pad_row=None, num_valid=None,
+                    compute_dtype=None):
+    """Plain PyTorch version (same contract as :func:`fused_window_attention_assembled`)."""
+    t = compute_dtype or win1_fea.dtype
+    nw = win1_fea.shape[0]
+    nq = int(nq) if q_prefix else q_ext.shape[1]
+    q3, k3, _, _ = _assemble(win1_fea.to(t), k2_fea, fps1, k_mask1, q_ext,
+                             q_keep, k_rel, q_rel, pos_base, pos_w, pad_row,
+                             nq, q_prefix, t)
+    out = attention_core_plain(q3, k3, proj, key_bias, num_heads, scale, t,
+                               win1_fea.dtype)
+    if num_valid is not None:
+        live = torch.arange(nw, device=out.device) < num_valid
+        out = torch.where(live[:, None, None], out,
+                          torch.zeros((), dtype=out.dtype, device=out.device))
+    return out
+
+
+def attention_bwd_plain(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep,
+                        k_rel, q_rel, pos_base, pos_w, proj, key_bias, g,
+                        num_heads, scale, q_prefix, nq=0, pad_row=None,
+                        num_valid=None, compute_dtype=None):
+    """Plain PyTorch version of K5, the backward of
+    :func:`fused_window_attention_assembled` for the output cotangent ``g``
+    (NW, nq, D). It repeats the JAX backward step by step
+    (``_attn_assembled_bwd_body`` and ``_bwd_qstk_core`` in
+    ``mssvt_tpu/ops/pallas_attention.py``), rounding to the compute dtype
+    where that does, rather than differentiating :func:`attention_plain`.
+
+    Returns ``(dwin1, dk2, dq_ext, dpad_row, dpos_base, dpos_w, dproj)`` with
+    ``dproj = (dwq, dbq, dwk, dbk, dwv, dbv, dwp, dbp)`` (full (D, D) weight
+    cotangents, summed in f32); ``dq_ext`` is None when ``q_prefix``. Each
+    cotangent has its primal's dtype. Windows at or past ``num_valid`` get
+    zero cotangents and add nothing to the sums."""
+    t = compute_dtype or win1_fea.dtype
+    f32 = torch.float32
+    nw, n1cap, _ = win1_fea.shape
+    nk1 = fps1.shape[1]
+    nq = int(nq) if q_prefix else q_ext.shape[1]
+    q3, k3, zq, zk = _assemble(win1_fea.to(t), k2_fea, fps1, k_mask1, q_ext,
+                               q_keep, k_rel, q_rel, pos_base, pos_w, pad_row,
+                               nq, q_prefix, t)
+    gf = g.to(t).float()
+    if num_valid is not None:
+        live = torch.arange(nw, device=g.device) < num_valid
+        gf = gf * live[:, None, None].to(f32)
+    dq3, dk3, dproj = attention_core_bwd_plain(q3, k3, proj, key_bias, gf,
+                                               num_heads, scale, t)
+    dq3, dk3 = dq3.to(t), dk3.to(t)
     zero = torch.zeros((), dtype=t, device=g.device)
     dzk = torch.where(zk.float() > 0, dk3, zero).float()
     dzq = torch.where(zq.float() > 0, dq3, zero).float()

@@ -1,6 +1,6 @@
-"""K2: farthest-point sampling over coordinate planes, with selections.
+"""K2, K2b, K2c: farthest-point sampling over coordinate planes.
 
-Replaces ``farthest_point_sample_planes_pallas_t_sel``
+K2 (:func:`fps_select`), with selections, replaces ``farthest_point_sample_planes_pallas_t_sel``
 (``mssvt_tpu/ops/pallas_fps.py``). Per row of the (B, N) x/y/z planes: the
 first pick is index 0, the min-distance cache starts at 1e10, each next pick
 is the argmax of the cache (ties to the lowest index), with squared
@@ -10,7 +10,17 @@ picks, each (B, npoint) f32. With ``nw_half`` and ``num_valid`` the rows are
 two stacked halves of ``nw_half`` rows, each with a live prefix of
 ``num_valid`` rows; dead rows return zeros.
 
-CUDA tensors go to ``csrc/fps.cu``; CPU tensors to :func:`fps_plain`.
+K2b (:func:`fps_picks_warp`) and K2c (:func:`fps_picks_block`) are the
+selection-free forms: the picks only, no aux planes, no dead rows. K2b
+replaces ``farthest_point_sample_planes_pallas_t`` (the transposed layout
+JAX takes on the TPU) with K2's one-warp-per-row loop, N <= 256; K2c
+replaces ``farthest_point_sample_planes_pallas`` (the row layout, any N)
+with one CTA per row, planes and min-distance cache in shared memory,
+N <= 14 336 (16 N bytes of a CTA's 227 KB). :func:`fps_picks` chooses by N.
+
+CUDA tensors go to ``csrc/fps.cu``; CPU tensors to :func:`fps_plain`. The
+distances are built from single rounded operations, so all three kernels'
+picks equal the plain version's exactly.
 """
 
 from __future__ import annotations
@@ -19,8 +29,11 @@ import torch
 
 from . import _lib
 
-launches = 0
-MAX_N = 256
+launches = 0        # K2
+launches_warp = 0   # K2b
+launches_block = 0  # K2c
+MAX_N = 256            # one warp per row (K2, K2b)
+MAX_N_BLOCK = 14336    # one CTA per row (K2c)
 MAX_PLANES = 8
 
 
@@ -85,3 +98,45 @@ def fps_select(x, y, z, aux, npoint: int, num_valid=None, nw_half: int = 0):
     _lib.check(err, "mssvt_fps")
     launches += 1
     return idx, tuple(sels.unbind(0))
+
+
+def _picks(x, y, z, npoint, entry, max_n):
+    b, n = x.shape
+    for i, p in enumerate((x, y, z)):
+        _lib.require(p, f"plane {i}", torch.float32, (b, n), x.device)
+    if not (0 < n <= max_n) or npoint < 1:
+        raise ValueError(f"{entry}: N={n} must be in (0, {max_n}], "
+                         "npoint >= 1")
+    idx = torch.empty((b, npoint), dtype=torch.int32, device=x.device)
+    err = getattr(_lib.lib(), entry)(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), b, n, int(npoint),
+        idx.data_ptr(), _lib.stream_ptr(x))
+    _lib.check(err, entry)
+    return idx
+
+
+def fps_picks_warp(x, y, z, npoint: int):
+    """K2b: (B, N <= 256) f32 planes -> (B, npoint) int32 picks."""
+    global launches_warp
+    if x.device.type == "cpu":
+        return fps_plain(x, y, z, (), npoint)[0]
+    idx = _picks(x, y, z, npoint, "mssvt_fps_picks_warp", MAX_N)
+    launches_warp += 1
+    return idx
+
+
+def fps_picks_block(x, y, z, npoint: int):
+    """K2c: (B, N <= 14 336) f32 planes -> (B, npoint) int32 picks."""
+    global launches_block
+    if x.device.type == "cpu":
+        return fps_plain(x, y, z, (), npoint)[0]
+    idx = _picks(x, y, z, npoint, "mssvt_fps_picks_block", MAX_N_BLOCK)
+    launches_block += 1
+    return idx
+
+
+def fps_picks(x, y, z, npoint: int):
+    """Selection-free FPS: K2b for N <= 256, K2c above it (CUDA tensors);
+    the plain version for CPU tensors."""
+    fn = fps_picks_warp if x.shape[1] <= MAX_N else fps_picks_block
+    return fn(x, y, z, npoint)

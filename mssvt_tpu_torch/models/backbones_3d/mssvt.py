@@ -3,7 +3,8 @@
 
 ``MsSVTBlock`` runs, per call: window partition, the mixed-scale gather
 (K1 fill kernel), one FPS pass over the stacked win1/win2 buffers (K2),
-the assembled attention (K3 forward, K5 backward), 3-NN interpolation and
+the assembled attention (K3 forward, K5 backward; with ``ref_compat_keys``
+off training assembles outside and runs K6/K7), 3-NN interpolation and
 the inverse write-back, and the residual LayerNorm FFN: one K4 launch at
 inference, the plain chain with its two DropPath draws in training (as the
 JAX block, which keeps its FFN kernel for inference). ``MsSVTCompressBlock``

@@ -6,20 +6,30 @@ attends with its own q/kv projections (``to_q_i``, ``to_kv_i``, ``proj_i``)
 over its own contiguous key stripe. Pad keys get an additive -100 (not
 -inf), so an all-pad window gives a uniform, then query-masked, result.
 
-Two paths:
-- ``assembled`` (the MsSVT blocks, nq >= 8): the raw gather products go to
-  ``AssembledAttention`` (``kernels/attention_bwd.py``): the K3 kernel
-  forward and, in training, the K5 kernel backward, with the per-group
-  parameters folded into block-diagonal (D, D) weights at call time (the
-  folding is differentiable, so K5's full (D, D) weight cotangents reach
-  the per-group parameters through their diagonal blocks);
-- per-group einsum (the compress blocks, nq = 1): plain tensor ops,
-  differentiated by autograd.
+Three routes, chosen as the JAX module chooses them on the TPU
+(``_use_fused_kernel``):
+- ``assembled`` with the inputs the trainable assembled kernel needs (at
+  inference always; in training when the ref-compat ``pad1``/``pad_row`` and
+  ``num_valid`` are present): the raw gather products go to
+  ``AssembledAttention`` (``kernels/attention_bwd.py``), the K3 kernel
+  forward and the K5 kernel backward;
+- assembled tokens, nq >= 8 and no active dropout: ``FusedAttention``
+  (``kernels/attention_qk_bwd.py``), the K6 kernel forward and the K7 kernel
+  backward. This serves the plain ``query=/keys=`` call and training with
+  ``ref_compat_keys: False``, where the block passes no pad inputs and the
+  query and keys are assembled here in plain differentiable tensor ops
+  (:meth:`MixedScaleAttention.assemble`);
+- per-group einsum otherwise (nq < 8: the compress blocks with nq = 1),
+  plain tensor ops differentiated by autograd.
 
-Training on the assembled path needs the ref-compat inputs (``pad1``,
-``pad_row``) and ``num_valid``, as JAX's trainable kernel does. Without
-them (``ref_compat_keys: False``) JAX trains through its plain fused
-attention kernels (K6/K7), which are not ported yet: the port raises.
+For the kernels the per-group parameters fold into block-diagonal (D, D)
+weights at call time (the folding is differentiable, so the kernels' full
+(D, D) weight cotangents reach the per-group parameters through their
+diagonal blocks).
+
+Attention dropout > 0 in training is not ported: JAX then leaves the kernels
+and runs the per-group einsum with ``nn.Dropout`` on the attention weights
+and on the projection output.
 """
 
 from __future__ import annotations
@@ -28,15 +38,20 @@ import torch
 from torch import nn
 
 from ...kernels.attention_bwd import AssembledAttention
+from ...kernels.attention_qk_bwd import FusedAttention
+from ...ops.sampling import gather_along_batch
 from .layers import Dense
 
 KEY_PAD_NEG = -100.0
+MIN_KERNEL_QUERIES = 8  # below it (the compress blocks) the einsum path runs
 
 
-def _k6_not_ported():
+def _dropout_not_ported():
     return NotImplementedError(
-        "training without ref-compat keys runs JAX's fused attention "
-        "kernels K6/K7, which are not ported yet (see ROADMAP.md)")
+        "training with attention dropout > 0 is not ported: JAX leaves its "
+        "fused kernels there and runs the per-group einsum with nn.Dropout "
+        "on the attention weights and the projection output "
+        "(see ROADMAP.md, Queue 1 item 9)")
 
 
 class MixedScaleAttention(nn.Module):
@@ -83,16 +98,55 @@ class MixedScaleAttention(nn.Module):
             start += sd
         return tuple(t.contiguous() for pair in zip(ws, bs) for t in pair)
 
+    def assemble(self, a):
+        """(query, keys) from the raw gather products of ``assembled``, in
+        plain differentiable tensor ops: the formulation the assembled
+        kernel fuses (``kernels/attention.py``). keys = [the ``fps1`` picks
+        of ``win1_fea``, zero at ``k_mask1`` (or zero at ``pad1`` plus the
+        window's ``pad_row`` there) | ``k2_fea``] + pos(k_rel); query =
+        ``win1_fea[:, :nq] * q_keep`` (or ``q_ext``) + pos(q_rel), with
+        pos(rel) = relu(rx*w0 + ry*w1 + rz*w2 + pos_base)."""
+        dt = self.compute_dtype
+        win1 = a["win1_fea"]
+        pw = a["pos_w"].to(dt)
+        base = a["pos_base"].to(dt)[:, None, :]
+
+        def pos(rel):
+            rx, ry, rz = (r[..., None].to(dt) for r in rel)
+            return torch.relu(rx * pw[0] + ry * pw[1] + rz * pw[2] + base)
+
+        # the take's backward is the sorted, deterministic index_put_ (a
+        # window's picks repeat a slot at most key_num_sample times)
+        take = gather_along_batch(win1, a["fps1"])
+        pad1 = a.get("pad1")
+        if pad1 is not None:
+            k1 = take * (~pad1)[..., None] + pad1[..., None].to(win1.dtype) \
+                * a["pad_row"][:, None, :].to(win1.dtype)
+        else:
+            k1 = take * (~a["k_mask1"])[..., None]
+        keys = torch.cat([k1, a["k2_fea"]], dim=1) + pos(a["k_rel"])
+        if a.get("q_ext") is None:
+            q_raw = win1[:, :int(a["nq"])] * a["q_keep"][..., None].to(win1.dtype)
+        else:
+            q_raw = a["q_ext"]
+        return q_raw + pos(a["q_rel"]), keys
+
     def forward(self, query=None, keys=None, query_mask=None, key_masks=None,
                 assembled=None):
         dt = self.compute_dtype
+        if self.training and self.dropout != 0.0:
+            raise _dropout_not_ported()
         if assembled is not None:
             a = assembled
             pad1 = a.get("pad1")
             pad_row = a.get("pad_row")
-            if self.training and (pad1 is None or a.get("num_valid") is None
-                                  or self.dropout != 0.0):
-                raise _k6_not_ported()
+            if self.training and (pad1 is None or a.get("num_valid") is None):
+                # JAX's trainable assembled kernel needs the ref-compat
+                # inputs; without them it assembles outside and trains
+                # through its plain fused attention, as here
+                query, keys = self.assemble(a)
+                return self.forward(query=query, keys=keys,
+                                    query_mask=query_mask, key_masks=key_masks)
             q_prefix = a.get("q_ext") is None
             static = (self.num_heads,
                       (self.embed_dim // sum(self.num_heads)) ** -0.5,
@@ -115,14 +169,25 @@ class MixedScaleAttention(nn.Module):
                 out = out * (~query_mask)[..., None].to(out.dtype)
             return out
 
-        if self.training and query.shape[1] >= 8:
-            raise _k6_not_ported()
         b, nq, _ = query.shape
         tot_nk = keys.shape[1]
         groups = len(self.num_heads)
         per_head = self.embed_dim // sum(self.num_heads)
         nk = tot_nk // groups
         scale = per_head ** -0.5
+        if nq >= MIN_KERNEL_QUERIES:
+            # K6 forward, K7 backward on the unsliced tokens
+            if key_masks is not None:
+                bias = torch.where(key_masks, KEY_PAD_NEG, 0.0).float()
+            else:
+                bias = torch.zeros((b, tot_nk), device=query.device)
+            out = FusedAttention.apply(
+                (self.num_heads, scale, dt), query.to(dt).contiguous(),
+                keys.to(dt).contiguous(), *self.folded_projections(),
+                bias.contiguous()).to(query.dtype)
+            if query_mask is not None:
+                out = out * (~query_mask)[..., None].to(out.dtype)
+            return out
         outs = []
         start = 0
         for i, h in enumerate(self.num_heads):

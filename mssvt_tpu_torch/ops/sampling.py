@@ -2,8 +2,9 @@
 ``mssvt_tpu/ops/sampling.py``), channel-last throughout.
 
 The FPS of the MsSVT blocks runs as the K2 kernel
-(:func:`farthest_point_sample_planes_select` -> ``kernels/fps.py``); the
-rest are plain tensor ops.
+(:func:`farthest_point_sample_planes_select` -> ``kernels/fps.py``), the
+selection-free :func:`farthest_point_sample_planes` as K2b/K2c; the rest
+are plain tensor ops.
 
 Backward forms. The JAX package's gradients are deterministic, and so are
 these, bit for bit from one run to the next:
@@ -36,9 +37,12 @@ from ..kernels import fps as fps_kernel
 
 
 def farthest_point_sample_planes(x, y, z, npoint: int):
-    """Plain FPS on (B, N) coordinate planes -> (B, npoint) int32: first
-    pick 0, min-dist starts at 1e10, argmax ties to the lowest index."""
-    return fps_kernel.fps_plain(x, y, z, (), npoint)[0]
+    """FPS on (B, N) coordinate planes -> (B, npoint) int32: first pick 0,
+    min-dist starts at 1e10, argmax ties to the lowest index. CUDA tensors
+    run the K2b kernel (N <= 256) or K2c (above it); CPU tensors the plain
+    version."""
+    return fps_kernel.fps_picks(x.float().contiguous(), y.float().contiguous(),
+                                z.float().contiguous(), npoint)
 
 
 def farthest_point_sample_planes_select(x, y, z, aux, npoint: int,

@@ -15,7 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-from mssvt_tpu_torch.kernels import attention, attention_bwd, ffn, fill, fps
+from mssvt_tpu_torch.kernels import (
+    attention,
+    attention_bwd,
+    attention_qk,
+    attention_qk_bwd,
+    ffn,
+    fill,
+    fps,
+)
 
 
 @pytest.fixture
@@ -180,6 +188,121 @@ def test_attention_bwd_kernel_matches_plain(dev, dtype, q_prefix, num_heads,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel,n,integer", [
+    ("warp", 96, True), ("warp", 33, False), ("warp", 256, False),
+    ("block", 257, False), ("block", 2048, True), ("block", 700, False),
+    ("block", 96, True)])
+def test_fps_picks_kernels_match_plain(dev, kernel, n, integer):
+    """K2b (one warp per row, N <= 256) and K2c (one CTA per row, any N up
+    to 14 336): the picks equal the plain version's exactly, on integer
+    planes (many exact ties) and on normal ones."""
+    rng = np.random.default_rng(4)
+    rows, npoint = 37, 32
+    mk = ((lambda: rng.integers(-6, 7, (rows, n)).astype(np.float32))
+          if integer else (lambda: rng.normal(size=(rows, n)).astype(np.float32)))
+    planes = [torch.as_tensor(mk(), device=dev) for _ in range(3)]
+    fn = fps.fps_picks_warp if kernel == "warp" else fps.fps_picks_block
+    before = fps.launches_warp + fps.launches_block
+    got = fn(*planes, npoint)
+    want = fps.fps_plain(*planes, (), npoint)[0]
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert fps.launches_warp + fps.launches_block == before + 1
+    # the entry point chooses by N
+    assert torch.equal(fps.fps_picks(*planes, npoint), want)
+
+
+def _qk_args(dev, dtype, num_heads, nq, nw=37):
+    a, _ = _attn_args(dev, dtype, False, False, num_heads, nq)
+    g = torch.Generator().manual_seed(5)
+    nk_tot, d = a["key_bias"].shape[1], a["win1_fea"].shape[2]
+    return dict(
+        query=torch.randn(nw, nq, d, generator=g).to(dev, dtype),
+        keys=torch.randn(nw, nk_tot, d, generator=g).to(dev, dtype),
+        proj=a["proj"], key_bias=a["key_bias"], num_heads=num_heads,
+        scale=a["scale"], compute_dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_heads,nq", [((2, 2), 32), ((4,), 32),
+                                          ((2, 2), 8), ((2, 2), 20)])
+def test_attention_qk_kernel_matches_plain(dev, dtype, num_heads, nq):
+    """K6 against attention_qk_plain on every window (it has no live
+    prefix): bf16 on the tensor-core path, f32 on the FMA path."""
+    args = _qk_args(dev, dtype, num_heads, nq)
+    got = attention_qk.fused_window_attention(**args)
+    want = attention_qk.attention_qk_plain(**args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    _close(got, want, dtype)
+
+
+QK_BWD_NAMES = ("dq", "dk", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwp",
+                "dbp")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,num_heads,nq", [
+    (dt, *case) for dt in (torch.float32, torch.bfloat16)
+    for case in (((2, 2), 32), ((2, 2), 8), ((2, 2), 20))
+] + [(torch.bfloat16, (4,), 32)])
+def test_attention_qk_bwd_kernel_matches_plain(dev, dtype, num_heads, nq):
+    """K7 against attention_qk_bwd_plain with a random cotangent on every
+    window: tolerances as for K5 (1e-4 in f32, plus 1e-5 of the largest
+    element for the sums over windows; 2^-5 of each cotangent's largest
+    magnitude in bf16; dbk, analytically zero, against max |dbv|); the
+    projection cotangents come back in the projections' dtype; a second
+    call gives bit-identical cotangents (no float atomics)."""
+    args = _qk_args(dev, dtype, num_heads, nq)
+    args["proj"] = tuple(p.float() for p in args["proj"])  # f32 parameters
+    g = torch.Generator().manual_seed(9)
+    args["g"] = torch.randn(args["query"].shape, generator=g).to(dev, dtype)
+    got = attention_qk_bwd.fused_window_attention_bwd(**args)
+    again = attention_qk_bwd.fused_window_attention_bwd(**args)
+    want = attention_qk_bwd.attention_qk_bwd_plain(**args)
+    torch.cuda.synchronize()
+    flat = lambda r: dict(zip(QK_BWD_NAMES, (*r[:2], *r[2])))
+    got, again, want = flat(got), flat(again), flat(want)
+    for name, wt in want.items():
+        gt = got[name]
+        assert gt.dtype == wt.dtype and gt.shape == wt.shape, name
+        assert gt.dtype == (dtype if name in ("dq", "dk") else torch.float32)
+        assert torch.equal(gt, again[name]), name
+        if name == "dbk":
+            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -5
+            scale = want["dbv"].float().abs().max()
+            assert (gt.float() - wt.float()).abs().max() <= tol * scale
+        elif dtype == torch.float32 and name[:2] in ("dw", "db"):
+            torch.testing.assert_close(
+                gt, wt, rtol=1e-4, atol=1e-4 + 1e-5 * wt.abs().max().item())
+        else:
+            _close(gt, wt, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_function_gradients(dev, dtype):
+    """The autograd Function pairing K6 and K7 hands K7's cotangents to
+    query, keys and the eight projection tensors."""
+    args = _qk_args(dev, dtype, (2, 2), 8)
+    leaves = [args["query"], args["keys"], *(p.float() for p in args["proj"])]
+    for t in leaves:
+        t.requires_grad_(True)
+    static = (args["num_heads"], args["scale"], dtype)
+    out = attention_qk_bwd.FusedAttention.apply(static, *leaves,
+                                                args["key_bias"])
+    g = torch.randn(out.shape, device=dev).to(dtype)
+    out.backward(g)
+    want = attention_qk_bwd.fused_window_attention_bwd(
+        args["query"].detach(), args["keys"].detach(),
+        tuple(p.detach() for p in leaves[2:]), args["key_bias"], g,
+        args["num_heads"], args["scale"], dtype)
+    for leaf, w in zip(leaves, (*want[:2], *want[2])):
+        assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ffn_kernel_matches_plain(dev, dtype):
     g = torch.Generator().manual_seed(3)
@@ -206,3 +329,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         ffn.fused_residual_ffn(torch.zeros(4, 32, device=dev, dtype=torch.half),
                                *([torch.zeros(32, device=dev)] * 6))
+    wide = torch.zeros(2, 300, device=dev)
+    with pytest.raises(ValueError):
+        fps.fps_picks_warp(wide, wide, wide, 4)
+    huge = torch.zeros(1, fps.MAX_N_BLOCK + 1, device=dev)
+    with pytest.raises(ValueError):
+        fps.fps_picks_block(huge, huge, huge, 4)
+    q = torch.zeros(3, 8, 64, device=dev)
+    proj = tuple(t for _ in range(4) for t in (torch.eye(64, device=dev),
+                                               torch.zeros(64, device=dev)))
+    with pytest.raises(TypeError):  # mixed dtypes
+        attention_qk.fused_window_attention(
+            q, q.bfloat16(), proj, torch.zeros(3, 8, device=dev), (1, 1), 0.2)

@@ -79,15 +79,73 @@ def test_unported_names_raise_pointing_at_roadmap():
     ctx = BuildCtx(3, ("a", "b", "c"), (8, 8, 8), (1, 1, 1), (0,) * 6, 1, 8, 5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_backbone_3d({"NAME": "VoxelBackBone8x"}, ctx)
-    # training where JAX would run its plain fused attention K6/K7: query
-    # path with nq >= 8, or the assembled path without ref-compat keys
-    attn = MixedScaleAttention(32, (1, 1)).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # attention dropout > 0 in training: JAX leaves its kernels for the
+    # per-group einsum with nn.Dropout there, and the message says so
+    attn = MixedScaleAttention(32, (1, 1), dropout=0.1).train()
+    with pytest.raises(NotImplementedError, match="einsum.*ROADMAP.md"):
         attn(query=torch.randn(3, 8, 32), keys=torch.randn(3, 8, 32),
              key_masks=torch.zeros(3, 8, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attn(key_masks=torch.zeros(3, 8, dtype=torch.bool),
-             assembled={"nq": 8, "num_valid": torch.tensor(3)})
+    attn.eval()(query=torch.randn(3, 8, 32), keys=torch.randn(3, 8, 32),
+                key_masks=torch.zeros(3, 8, dtype=torch.bool))
+
+
+def _einsum_route(attn, **kw):
+    """The same call through the per-group einsum path (as for nq < 8)."""
+    from mssvt_tpu_torch.models.model_utils import attention as mod
+
+    saved = mod.MIN_KERNEL_QUERIES
+    mod.MIN_KERNEL_QUERIES = 10 ** 9
+    try:
+        return attn(**kw)
+    finally:
+        mod.MIN_KERNEL_QUERIES = saved
+
+
+@pytest.mark.parametrize("call", ["query_keys", "assembled_no_pad_inputs"])
+def test_training_routes_that_used_to_raise_match_the_einsum_path(call):
+    """Training where JAX runs its plain fused attention (K6 forward, K7
+    backward): the query path with nq >= 8, and the assembled path without
+    ref-compat keys. Both calls raised before K6/K7 were ported; now they
+    run (the kernels' plain versions on CPU tensors) and agree with the
+    per-group einsum path on the same inputs, output and parameter
+    gradients, to 1e-5 in f32 (the same math in another order)."""
+    from mssvt_tpu_torch.models.model_utils.attention import MixedScaleAttention
+
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g)
+    nw, nq, nk, d = 3, 8, 8, 32
+    km = torch.rand(nw, nk, generator=g) < 0.2
+    if call == "query_keys":
+        kw = dict(query=r(nw, nq, d), keys=r(nw, nk, d), key_masks=km)
+    else:
+        kw = dict(key_masks=km, query_mask=torch.rand(nw, nq, generator=g) < 0.2,
+                  assembled=dict(
+                      win1_fea=r(nw, 12, d), k2_fea=r(nw, nk // 2, d),
+                      fps1=torch.randint(0, 12, (nw, nk // 2), generator=g,
+                                         dtype=torch.int32),
+                      k_mask1=km[:, :nk // 2], q_ext=None,
+                      q_keep=torch.ones(nw, nq),
+                      q_rel=tuple(r(nw, nq) for _ in range(3)),
+                      k_rel=tuple(r(nw, nk) for _ in range(3)),
+                      pos_base=r(nw, d), pos_w=r(3, d), nq=nq,
+                      num_valid=torch.tensor(nw)))
+    attn = MixedScaleAttention(d, (1, 1)).train()
+    for p in attn.parameters():
+        torch.nn.init.normal_(p, std=0.2, generator=g)
+    gout = r(nw, nq, d)
+    res = []
+    for route in (attn, lambda **k: _einsum_route(attn, **k)):
+        attn.zero_grad()
+        out = route(**kw)
+        (out * gout).sum().backward()
+        res.append((out.detach(), {n: p.grad.clone()
+                                   for n, p in attn.named_parameters()}))
+    (out_k, g_k), (out_e, g_e) = res
+    torch.testing.assert_close(out_k, out_e, rtol=1e-5, atol=1e-5)
+    for n in g_e:
+        # the key-bias gradient is analytically zero: absolute tolerance only
+        torch.testing.assert_close(g_k[n], g_e[n], rtol=1e-5, atol=1e-5,
+                                   msg=n)
 
 
 def test_wrappers_take_plain_versions_on_cpu(monkeypatch):
@@ -97,6 +155,8 @@ def test_wrappers_take_plain_versions_on_cpu(monkeypatch):
         _lib,
         attention,
         attention_bwd,
+        attention_qk,
+        attention_qk_bwd,
         ffn,
         fill,
         fps,
@@ -118,6 +178,8 @@ def test_wrappers_take_plain_versions_on_cpu(monkeypatch):
               for _ in range(3)]
     gi, _ = fps.fps_select(*planes, (), 5)
     assert torch.equal(gi, fps.fps_plain(*planes, (), 5)[0])
+    for fn in (fps.fps_picks_warp, fps.fps_picks_block, fps.fps_picks):
+        assert torch.equal(fn(*planes, 5), gi)
     x = torch.randn(10, 32)
     p = [torch.ones(32), torch.zeros(32), torch.randn(32, 64), torch.zeros(64),
          torch.randn(64, 32), torch.zeros(32)]
@@ -140,14 +202,27 @@ def test_wrappers_take_plain_versions_on_cpu(monkeypatch):
     for a, b in zip(got[:2] + got[3:6] + got[6], want[:2] + want[3:6] + want[6]):
         assert torch.equal(a, b)
     assert got[2] is None and want[2] is None
+    qk = (torch.randn(nw, 4, d), torch.randn(nw, 8, d), proj,
+          torch.zeros(nw, 8))
+    kw = dict(num_heads=(1, 1), scale=0.25)
+    assert torch.equal(attention_qk.fused_window_attention(*qk, **kw),
+                       attention_qk.attention_qk_plain(*qk, **kw))
+    got = attention_qk_bwd.fused_window_attention_bwd(*qk, g, **kw)
+    want = attention_qk_bwd.attention_qk_bwd_plain(*qk, g, **kw)
+    for a, b in zip(got[:2] + got[2], want[:2] + want[2]):
+        assert torch.equal(a, b)
+    assert len(kernels.KERNELS) == 9
     assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}
 
 
 def test_kernel_sources_are_present():
     names = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert names == {"fill.cu", "fps.cu", "attention.cu", "attention_bwd.cu",
-                     "ffn.cu"}
+                     "attention_qk.cu", "attention_qk_bwd.cu", "ffn.cu"}
+    headers = {p.name for p in (PORT / "csrc").glob("*.cuh")}
+    assert headers == {"attention_common.cuh", "attention_bwd_common.cuh"}
     mods = {m.name for m in pkgutil.iter_modules([str(PORT / "kernels")])}
-    assert {"fill", "fps", "attention", "attention_bwd", "ffn", "_lib"} <= mods
+    assert {"fill", "fps", "attention", "attention_bwd", "attention_qk",
+            "attention_qk_bwd", "ffn", "_lib"} <= mods
     assert importlib.import_module("mssvt_tpu_torch.kernels._lib").BUILD_DIR \
         == ROOT / "build" / "kernels"

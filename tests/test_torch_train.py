@@ -213,7 +213,9 @@ def test_batchnorm_train_matches_flax(momentum, eps):
 TINY_YAML = "tools/cfgs/synthetic_models/mssvt_tiny.yaml"
 
 
-def _tiny_cfgs():
+def _tiny_cfgs(ref_compat_keys=True):
+    """``mssvt_tiny.yaml`` through both loaders, with ``ref_compat_keys``
+    set on the MsSVT blocks of both."""
     from pathlib import Path
 
     from mssvt_tpu.config import cfg_from_yaml_file as j_cfg
@@ -222,7 +224,12 @@ def _tiny_cfgs():
     from mssvt_tpu_torch.utils.edict import EasyDict as TDict
 
     path = str(Path(__file__).resolve().parent.parent / TINY_YAML)
-    return j_cfg(path, JDict()), t_cfg(path, TDict())
+    cfgs = j_cfg(path, JDict()), t_cfg(path, TDict())
+    for cfg in cfgs:
+        for p in cfg.MODEL.BACKBONE_3D.PARAMS:
+            if p["name"] == "MixedScaleSparseTransformerBlock":
+                p["ref_compat_keys"] = ref_compat_keys
+    return cfgs
 
 
 def _tiny_geometry(cfg):
@@ -413,14 +420,16 @@ def _j_stages(jm, variables, jb):
     return sp, out, grads, new_stats
 
 
-@pytest.fixture(scope="module")
-def tiny_pair():
+def make_tiny_pair(ref_compat_keys=True):
     """``mssvt_tiny.yaml`` in f32 on both sides, the port's weights carried
     from the flax init by ``bridge.py`` (BatchNorm statistics randomised so
     the running update is visible). JAX: value_and_grad of the train-mode
     loss, its four stages chained by ``jax.vjp``, and three optax steps.
     Everything is deterministic: ``dpr`` gives DropPath 0.0 in the config's
-    two MsSVT blocks."""
+    two MsSVT blocks. ``ref_compat_keys=False`` sets that flag on both
+    sides' MsSVT blocks (the port then trains through the plain versions of
+    its K6/K7 kernels where nq >= 8). A generator: yields ``(want, port
+    model, batch)`` and restores the environment afterwards."""
     import copy
 
     import optax
@@ -432,7 +441,7 @@ def tiny_pair():
 
     mp = pytest.MonkeyPatch()
     mp.setenv("MSSVT_PALLAS", "xla_fill")
-    cfg_j, cfg_t = _tiny_cfgs()
+    cfg_j, cfg_t = _tiny_cfgs(ref_compat_keys)
     pcr, vs, grid, n_feat = _tiny_geometry(cfg_t)
     rng = np.random.default_rng(7)
     batch = _tiny_scene(rng, grid, n_feat)
@@ -477,6 +486,11 @@ def tiny_pair():
     mp.undo()
 
 
+@pytest.fixture(scope="module")
+def tiny_pair():
+    yield from make_tiny_pair()
+
+
 def _leaves(tree):
     return {jax.tree_util.keystr(p): np.asarray(x) for p, x in
             jax.tree_util.tree_leaves_with_path(tree)}
@@ -496,7 +510,7 @@ def _near(got, want, name):
     assert err <= 1e-4 * np.abs(want).max(), (name, err, np.abs(want).max())
 
 
-def test_tiny_model_loss_grads_and_stats_match_jax(tiny_pair):
+def check_loss_grads_and_stats(pair):
     """One train-mode forward/backward of the tiny model against JAX's
     value_and_grad.
 
@@ -521,7 +535,7 @@ def test_tiny_model_loss_grads_and_stats_match_jax(tiny_pair):
     )
     from mssvt_tpu_torch.runtime.train_utils import forward_backward
 
-    want, tm, batch = tiny_pair
+    want, tm, batch = pair
     init = copy.deepcopy(tm.state_dict())
     tm.zero_grad()
     loss, tb = forward_backward(tm, batch, torch.Generator())
@@ -584,6 +598,11 @@ def test_tiny_model_loss_grads_and_stats_match_jax(tiny_pair):
     assert sum(np.abs(w).sum() > 0 for w in want_g.values()) > 0.9 * len(want_g)
     tm.load_state_dict(init)
     tm.zero_grad()
+
+
+def test_tiny_model_loss_grads_and_stats_match_jax(tiny_pair):
+    """See :func:`check_loss_grads_and_stats` for what is held and why."""
+    check_loss_grads_and_stats(tiny_pair)
 
 
 def test_tiny_model_train_steps_match_jax_optax(tiny_pair):
