@@ -25,7 +25,7 @@ Phases (any failed check raises and the script exits non-zero):
 6b. K5, the attention backward, at ``mssvt.yaml`` block-0 shapes on the
    inputs of a full-width training forward and backward: the CUDA kernel
    against its plain version (each cotangent within the bf16 tolerance),
-   both timed with CUDA events;
+   twice with bit-identical results, both timed with CUDA events;
 6c. the training path: 3 ``train_step``s of ``mssvt.yaml`` at full width,
    bf16, batch 4 on 3 scenes with seeded GT boxes, ``adam_onecycle`` with
    ``GRAD_NORM_CLIP: 10``: finite loss and gradient norm, a finite gradient
@@ -39,7 +39,9 @@ Phases (any failed check raises and the script exits non-zero):
 7b. K6 and K7 at ``mssvt.yaml`` block-0 shapes on the inputs of a full-width
    flag-off training forward and backward: each kernel against its plain
    version on every window (K7 per cotangent), K7 twice with bit-identical
-   results, all timed with CUDA events.
+   results, all timed with CUDA events; the number of windows K7's
+   per-window kernel walked (those whose ``g`` has a nonzero element) is
+   printed beside the total.
 7c. the flag-off training path: 3 ``train_step``s of ``mssvt.yaml`` with
    ``ref_compat_keys: False`` set on the loaded config, checked as 6c.
 7d. the selection-free FPS entry point
@@ -51,7 +53,9 @@ Phases (any failed check raises and the script exits non-zero):
 With ``--profile`` one more request and one more training step run under
 ``torch.profiler`` and the device time per kernel name is printed (top
 entries, and their sum as a share of the mean unprofiled request or step
-time).
+time), and phases 6b and 7b print the device time of each launch inside one
+K5 and one K7 call (per-window kernel, weight product, final sums, K7's
+pre-pass).
 
 Its last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -575,6 +579,33 @@ def small_train_reference(torch, ref_compat_keys=True):
 
 
 # -------------------------------------------------------------- phase 6b
+BWD_PARTS = (("pre-pass", "live_"), ("per-window", "attn_"),
+             ("weight product", "wgrad_"), ("final sums", "finalize_"))
+
+
+def profile_bwd_call(torch, name, call):
+    """Device time of each launch inside one K5 or K7 call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    ms = {label: 0.0 for label, _ in BWD_PARTS}
+    other = 0.0
+    for e in prof.key_averages():
+        t = e.self_device_time_total / 1e3
+        for label, key in BWD_PARTS:
+            if key in e.key:
+                ms[label] += t
+                break
+        else:
+            other += t
+    parts = ", ".join(f"{label} {t:.3f} ms" for label, t in ms.items() if t)
+    log(f"# profile: one {name} call on the card: {parts}; other device "
+        f"work of the wrapper {other:.3f} ms")
+
+
 def capture_block0_backward(torch, model, batch, gen):
     """One training forward and backward, recording K5's call with the
     most windows (block 0)."""
@@ -631,7 +662,7 @@ def bwd_bound(a, k):
     return max(t_by, t_op) * 1e3, "bytes" if t_by >= t_op else "operations"
 
 
-def bwd_kernel_phase(torch, a, k):
+def bwd_kernel_phase(torch, a, k, profiled=False):
     from mssvt_tpu_torch.kernels import attention, attention_bwd
 
     kern = attention_bwd.fused_window_attention_assembled_bwd
@@ -642,11 +673,15 @@ def bwd_kernel_phase(torch, a, k):
         (*r[:6], *r[6])) if t is not None]
     with torch.no_grad():
         got = flat(kern(*a, **k))
+        again = flat(kern(*a, **k))
         want = flat(plain(*a, **k))
         torch.cuda.synchronize()
         err = worst = 0.0
         dbv = dict(want)["dbv"].float().abs().max().item()
-        for (name, g), (_, w) in zip(got, want):
+        for (name, g), (_, ag), (_, w) in zip(got, again, want):
+            if not torch.equal(g, ag):
+                raise AssertionError(f"attention_bwd: {name} differs on a "
+                                     "repeated call")
             g, w = g.float(), w.float()
             if not torch.isfinite(g).all():
                 raise AssertionError(f"attention_bwd: non-finite {name}")
@@ -661,10 +696,20 @@ def bwd_kernel_phase(torch, a, k):
                                      f"{e} > {BF16_TOL} x max |plain| {scale}")
         log(f"# attention_bwd: max abs error {err:.4g}; worst cotangent "
             f"error relative to its max |plain|: {worst:.4g} (limit "
-            f"{BF16_TOL:.4g}); {len(got)} cotangents")
-        del got, want
+            f"{BF16_TOL:.4g}); {len(got)} cotangents, bit-identical on a "
+            "repeated call")
+        del got, again, want
         ms = time_ms(torch, lambda: kern(*a, **k), reps=5, warm=1)
+        if profiled:
+            profile_bwd_call(torch, "attention_bwd", lambda: kern(*a, **k))
         plain_ms = time_ms(torch, lambda: plain(*a, **k), reps=1, warm=1)
+    win1, k2, fps1 = a[0], a[1], a[2]
+    nq = int(k["nq"]) if k["q_prefix"] else a[4].shape[1]
+    smem, ctas = attention_bwd.kernel_plan(
+        win1.shape[1], fps1.shape[1], k2.shape[1], nq, win1.shape[2],
+        k["num_heads"])
+    log(f"# attention_bwd: per-window kernel {smem} bytes of shared memory a "
+        f"CTA, {ctas} CTAs an SM (occupancy API)")
     bound_ms, bound_by = bwd_bound(a, k)
     shapes = [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)]
     log(f"# kernel attention_bwd: ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -699,11 +744,14 @@ def capture_block0_qk_backward(torch, model, batch, gen):
     return box["a"], box["k"]
 
 
-def qk_bounds(a, k):
+def qk_bounds(a, k, live):
     """((bound_ms, bound_by) of K6, the same of K7) for one call: every
-    window's tokens (and g) read once, the outputs written once, vs the
-    block-diagonal products at the bf16 tensor-core peak (K7: the forward
-    recompute, the backward and the full (D, D) weight products)."""
+    window's tokens read once and the outputs written once, vs the
+    block-diagonal products at the bf16 tensor-core peak. K7 needs g of
+    every window but the tokens and the products (the forward recompute,
+    the backward and the full (D, D) weight products) only of the ``live``
+    windows whose g has a nonzero element: the others' cotangents are
+    zeros whatever their tokens."""
     query, keys = a[0], a[1]
     nw, nq, d = query.shape
     nkt = keys.shape[1]
@@ -721,21 +769,23 @@ def qk_bounds(a, k):
     weights = (4 * d * d + 4 * d) * es
     tokens = nw * (nq + nkt) * d * es + nw * nkt * 4
     fwd_by = tokens + weights + nw * nq * d * es
-    bwd_by = (tokens + weights + nw * nq * d * es          # + g
+    bwd_by = (tokens * live // nw + weights + nw * nq * d * es     # + g
               + nw * (nq + nkt) * d * es + (4 * d * d + 4 * d) * 4)
     out = []
-    for by, macs in ((fwd_by, fwd_macs), (bwd_by, bwd_macs)):
-        t_by, t_op = by / MEM_BPS, 2 * macs * nw / BF16_FLOPS
+    for by, macs, n in ((fwd_by, fwd_macs, nw), (bwd_by, bwd_macs, live)):
+        t_by, t_op = by / MEM_BPS, 2 * macs * n / BF16_FLOPS
         out.append((max(t_by, t_op) * 1e3,
                     "bytes" if t_by >= t_op else "operations"))
     return out
 
 
-def qk_kernel_phase(torch, a, k):
+def qk_kernel_phase(torch, a, k, profiled=False):
     """K6 and K7 against their plain versions on block 0's inputs."""
     from mssvt_tpu_torch.kernels import attention_qk, attention_qk_bwd
 
     query, keys, proj, key_bias, g = a
+    nw = g.shape[0]
+    live = int((g.reshape(nw, -1) != 0).any(dim=1).sum())
     fkw = dict(num_heads=k["num_heads"], scale=k["scale"],
                compute_dtype=k["compute_dtype"])
     fwd = lambda fn: fn(query, keys, proj, key_bias, **fkw)
@@ -744,7 +794,7 @@ def qk_kernel_phase(torch, a, k):
         ("dq", "dk", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwp", "dbp"),
         (*r[:2], *r[2])))
     rows = {}
-    (fb_ms, fb_by), (bb_ms, bb_by) = qk_bounds(a, k)
+    (fb_ms, fb_by), (bb_ms, bb_by) = qk_bounds(a, k, live)
     with torch.no_grad():
         got = fwd(attention_qk.fused_window_attention)
         want = fwd(attention_qk.attention_qk_plain)
@@ -765,6 +815,12 @@ def qk_kernel_phase(torch, a, k):
         again = flat(bwd(attention_qk_bwd.fused_window_attention_bwd))
         want = flat(bwd(attention_qk_bwd.attention_qk_bwd_plain))
         torch.cuda.synchronize()
+        walked = int(attention_qk_bwd.last_list[-1])
+        if walked != live:
+            raise AssertionError(f"attention_qk_bwd: walked {walked} windows, "
+                                 f"{live} have a nonzero g")
+        log(f"# attention_qk_bwd: the per-window kernel walked {walked} of "
+            f"{nw} windows (those whose g has a nonzero element)")
         err = worst = 0.0
         dbv = dict(want)["dbv"].float().abs().max().item()
         for (name, gt), (_, ag), (_, wt) in zip(got, again, want):
@@ -790,9 +846,17 @@ def qk_kernel_phase(torch, a, k):
         ms = time_ms(torch,
                      lambda: bwd(attention_qk_bwd.fused_window_attention_bwd),
                      reps=5, warm=1)
+        if profiled:
+            profile_bwd_call(
+                torch, "attention_qk_bwd",
+                lambda: bwd(attention_qk_bwd.fused_window_attention_bwd))
         plain_ms = time_ms(torch,
                            lambda: bwd(attention_qk_bwd.attention_qk_bwd_plain),
                            reps=1, warm=1)
+    smem, ctas = attention_qk_bwd.kernel_plan(
+        query.shape[1], keys.shape[1], query.shape[2], k["num_heads"])
+    log(f"# attention_qk_bwd: per-window kernel {smem} bytes of shared memory "
+        f"a CTA, {ctas} CTAs an SM (occupancy API)")
     rows["attention_qk_bwd"] = kernel_row("attention_qk_bwd", err, ms,
                                           plain_ms, bb_ms, bb_by)
     log(f"# kernel attention_qk_bwd: ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -975,7 +1039,8 @@ def main(argv):
             add_synth_gt({}, BATCH, seed=i)["gt_boxes"], device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     a, k = capture_block0_backward(torch, model, scenes[0], gen)
-    rows["attention_bwd"] = bwd_kernel_phase(torch, a, k)
+    rows["attention_bwd"] = bwd_kernel_phase(torch, a, k,
+                                             "--profile" in argv)
     del a, k
     torch.cuda.empty_cache()
 
@@ -1006,7 +1071,7 @@ def main(argv):
                           seed=0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     a, k = capture_block0_qk_backward(torch, model, scenes[0], gen)
-    rows.update(qk_kernel_phase(torch, a, k))
+    rows.update(qk_kernel_phase(torch, a, k, "--profile" in argv))
     del a, k
     torch.cuda.empty_cache()
     optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model.named_parameters(),

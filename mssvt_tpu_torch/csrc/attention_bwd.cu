@@ -6,158 +6,287 @@
 // _asm_attn_train. Three launches:
 //
 // 1. attn_bwd_kernel: a fixed grid of CTAs; CTA b walks windows
-//    w = b, b + grid, ... in order. Per live window it recomputes K3's
-//    assembly, projections and softmax in shared memory (attention_common.cuh,
-//    the same code and bf16 rounding points), then runs the chain rule back:
+//    w = b, b + grid, ... in order. Per live window it stages the window's
+//    rel planes, picks, masks and q_keep in shared memory, recomputes K3's
+//    assembly from them (the same bf16 rounding points as
+//    attention_common.cuh's, eight channels and 16 bytes a thread, keeping
+//    one relu bit per token and channel), recomputes the projections and
+//    softmax and runs the chain rule back (attention_bwd_common.cuh):
 //      dO = round(g Wp^T); per head dA = dO V^T, dV = A^T dO,
 //      dS = round(A * (dA - rowsum(dA * A)) * scale), dQ = dS K, dK = dS^T Q;
 //      dQ3 = round(round(dQ) Wq^T), dK3 = round(round(dK) Wk^T + round(dV) Wv^T)
 //    (block-diagonal products: only each head group's diagonal block), and
-//    splits dQ3/dK3 through the assembly: relu masks from the recomputed
-//    pre-activations -> dpos_base and the window's dpos_w rows; the FPS picks'
-//    one-hot transpose -> dwin1 (repeated picks of a slot sum, in key order);
-//    pad picks -> dpad_row; q_prefix rows -> dwin1, else dq_ext; the k2 rows
-//    -> dk2. The per-window bias and dpos_w sums are added, in window order,
-//    to the CTA's own partial in shared memory, written once at the end.
-//    For the weight cotangents it writes each live window's product operands
+//    splits dQ3/dK3 through the assembly from shared memory alone: the relu
+//    bits -> dpos_base and the window's dpos_w rows (a thread sums two
+//    channels over a run of tokens, the runs are joined in order); the FPS
+//    picks' one-hot transpose -> dwin1 (each slot gathers its picks in key
+//    order); pad picks -> dpad_row; q_prefix rows -> dwin1, else dq_ext; the
+//    k2 rows -> dk2. The per-window bias and dpos_w sums are added, in window order, to
+//    the CTA's own partial in shared memory, written once at the end. For
+//    the weight cotangents it writes each live window's product operands
 //    (its q/k tokens, round(dQ), round(dK), round(dV), round(O)) to scratch.
-// (The per-window backward, the weight product and the final sums are shared
-// with K7 through attention_bwd_common.cuh.)
-// 2. wgrad_kernel: dW_m = X_m^T Y_m over all live tokens (a split-K product:
-//    each CTA owns a 64x64 output tile of one matrix and a fixed token range,
-//    and writes its f32 partial).
+// 2. the weight product dW_m = X_m^T Y_m over all live tokens (split-K over
+//    whole windows; each CTA owns the whole D x D tile of one matrix and
+//    writes its f32 partial).
 // 3. finalize_kernel: sums the partials of (2) and the CTA partials of (1)
 //    in a fixed order.
 // No float atomics anywhere: a repeated call gives bit-identical results. A
-// 4 x D x D f32 weight partial (256 KB at D = 128) does not fit a CTA's
-// shared memory, hence the operand write-out and the separate product; it
-// costs ~72 KB of extra writes and reads per window at block 0 of mssvt.yaml.
+// 4 x D x D f32 weight partial (256 KB at D = 128) is the whole register
+// file of an SM, hence the operand write-out and the separate product: once
+// every operand byte is read once it costs ~170 KB of extra traffic per
+// window at block 0 of mssvt.yaml, a few milliseconds a call.
 //
-// In bf16 the products run as 16x16x16 WMMA tiles with f32 accumulation
-// (query rows padded to 16); the f32 path runs FMA loops. The bias
-// cotangents sum the unrounded f32 products: in the WMMA path each warp owns
-// whole 16-column strips, so every column is summed by one warp, in row
-// order. Windows at or past num_valid get zero cotangents and add nothing.
+// Windows at or past num_valid get zero cotangents and add nothing.
 //
 // Bound: device memory at the card's peaks (as K3: per window the raw inputs
 // and g are read once and the cotangents written once; ~2.5x K3's products).
+// What holds it in fact, and the design's answers, are in
+// attention_bwd_common.cuh.
 #include "attention_bwd_common.cuh"
 
 namespace {
 
 struct BwdArgs : AsmIn {
+  const void* wt[3];  // q, k, v projections transposed (mma path)
   const void* g;
   void *dwin1, *dk2, *dqext, *dpad, *dbase;
   void *xq, *xk, *dqs, *dks, *dvs, *os;  // weight-product operands
   float* cpart;                          // (grid, 7, d) CTA partials
 };
 
+// A window's staged planes (Plan::stage): krel (3, nk_tot), qrel (3, nq),
+// q_keep (nq) in f32; fps1 (nk1) in int32; kmask (nk1) and the relu bits
+// (nq + nk_tot rows, d / 8 bytes each).
+struct Stage {
+  float *krel, *qrel, *qkeep;
+  int* fps;
+  uint8_t *kmask, *relu;
+  __host__ __device__ static size_t bytes(int nq, int nk1, int nk_tot, int d) {
+    return (size_t)(3 * nk_tot + 4 * nq + nk1) * 4 +
+           (size_t)((nk1 + 15) / 16 * 16) + (size_t)(nq + nk_tot) * (d / 8);
+  }
+  __device__ Stage(unsigned char* p, int nq, int nk1, int nk_tot, int d) {
+    krel = (float*)p;
+    qrel = krel + 3 * nk_tot;
+    qkeep = qrel + 3 * nq;
+    fps = (int*)(qkeep + nq);
+    kmask = (uint8_t*)(fps + nk1);
+    relu = kmask + (nk1 + 15) / 16 * 16;
+  }
+};
+
+// Assembles window w's tokens into shared memory as attention_common.cuh's
+// assemble does (row stride ld), from the staged planes, eight channels a
+// thread; keeps the relu bit of every (token, channel).
 template <typename T>
-__global__ void __launch_bounds__(NT) attn_bwd_kernel(BwdArgs a, Layout L) {
+__device__ void assemble_staged(const BwdArgs& a, const Layout& L, int w,
+                                const Stage& st, T* tokq, T* tokk, int ld) {
   using E = Elem<T>;
+  const int d = a.d, nq = a.nq, nk1 = a.nk1, nqp = L.nqp, nk_tot = L.nk_tot;
+  const int c8 = d / 8;
+  for (int e = threadIdx.x; e < 3 * nk_tot; e += NT)
+    st.krel[e] = a.krel[e / nk_tot][(size_t)w * nk_tot + e % nk_tot];
+  for (int e = threadIdx.x; e < 3 * nq; e += NT)
+    st.qrel[e] = a.qrel[e / nq][(size_t)w * nq + e % nq];
+  for (int e = threadIdx.x; e < nq; e += NT) st.qkeep[e] = a.q_keep[(size_t)w * nq + e];
+  for (int e = threadIdx.x; e < nk1; e += NT) {
+    st.fps[e] = a.fps1[(size_t)w * nk1 + e];
+    st.kmask[e] = a.kmask[(size_t)w * nk1 + e];
+  }
+  __syncthreads();
+  const T* win1 = (const T*)a.win1 + (size_t)w * a.n1cap * d;
+  const T* k2 = (const T*)a.k2 + (size_t)w * a.nk2 * d;
+  const T* posw = (const T*)a.posw;
+  const T* base = (const T*)a.base + (size_t)w * d;
+  // a thread keeps one chunk of eight channels and walks the token rows
+  const int rstep = NT / c8, ch = (threadIdx.x % c8) * 8;
+  float w0[8], w1[8], w2[8], bs[8];
+  Vec8<T>::load(posw + ch, w0);
+  Vec8<T>::load(posw + d + ch, w1);
+  Vec8<T>::load(posw + 2 * d + ch, w2);
+  Vec8<T>::load(base + ch, bs);
+  for (int r = threadIdx.x / c8; r < (threadIdx.x < rstep * c8 ? nqp + nk_tot : 0);
+       r += rstep) {
+    T* dst = (r < nqp ? tokq + (size_t)r * ld : tokk + (size_t)(r - nqp) * ld) + ch;
+    float raw[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r >= nq && r < nqp) { Vec8<T>::store(dst, raw); continue; }
+    float rx, ry, rz;
+    int tok;  // row of the relu bits
+    const T* src = nullptr;
+    float keep = 1.f;
+    if (r < nq) {
+      tok = r;
+      rx = st.qrel[r]; ry = st.qrel[nq + r]; rz = st.qrel[2 * nq + r];
+      src = a.q_prefix ? win1 + (size_t)r * d + ch
+                       : (const T*)a.q_ext + ((size_t)w * nq + r) * d + ch;
+      keep = E::round(st.qkeep[r]);
+    } else {
+      const int j = r - nqp;
+      tok = nq + j;
+      rx = st.krel[j]; ry = st.krel[nk_tot + j]; rz = st.krel[2 * nk_tot + j];
+      if (j < nk1) {
+        const int f = st.fps[j];
+        if (st.kmask[j]) {
+          if (a.pad_row) src = (const T*)a.pad_row + (size_t)w * d + ch;
+        } else if (f >= 0 && f < a.n1cap) {
+          src = win1 + (size_t)f * d + ch;
+        }
+      } else {
+        src = k2 + (size_t)(j - nk1) * d + ch;
+      }
+    }
+    if (src) Vec8<T>::load(src, raw);
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float pre = pos_pre<T>(rx, ry, rz, w0[i], w1[i], w2[i], bs[i]);
+      if (pre > 0.f) bits |= 1u << i;
+      const float x = r < nq ? E::round(raw[i] * keep) : raw[i];
+      raw[i] = x + fmaxf(pre, 0.f);
+    }
+    Vec8<T>::store(dst, raw);
+    st.relu[(size_t)tok * c8 + ch / 8] = (uint8_t)bits;
+  }
+}
+
+// Bytes of the tail's partial sums (at most NT / (d / 2) runs x 5 x d floats).
+constexpr size_t TAIL_BYTES = (size_t)10 * NT * 4;
+
+// Splits dQ3/dK3 (shared, row stride ld) through the assembly, reading shared
+// memory only. dwin1: a thread owns eight channels of a slot and gathers the
+// slot's picks in key order, then its q_prefix row. The sums over tokens
+// (dpos_base, dpad_row, the window's dpos_w rows): a thread owns two channels
+// and a run of tokens (keys, then queries); the runs' partials go through
+// `red` and are joined in order by one thread a channel.
+template <typename T>
+__device__ void assembly_tail(const BwdArgs& a, const Layout& L, int w,
+                              const Stage& st, const T* dQ3, const T* dK3,
+                              int ld, float* red, float* part) {
+  using E = Elem<T>;
+  const int d = a.d, nq = a.nq, nk1 = a.nk1, nk2 = a.nk2, n1cap = a.n1cap;
+  const int nk_tot = L.nk_tot, c8 = d / 8;
+  store_rows<T>((T*)a.dk2 + (size_t)w * nk2 * d, nk2, d, ld, dK3 + (size_t)nk1 * ld);
+  if (!a.q_prefix) {
+    T* dqext = (T*)a.dqext + (size_t)w * nq * d;
+    for (int e = threadIdx.x; e < nq * c8; e += NT) {
+      const int q = e / c8, ch = (e % c8) * 8;
+      const float keep = E::round(st.qkeep[q]);
+      float v[8];
+      Vec8<T>::load(dQ3 + (size_t)q * ld + ch, v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] *= keep;
+      Vec8<T>::store(dqext + (size_t)q * d + ch, v);
+    }
+  }
+  T* dwin1 = (T*)a.dwin1 + (size_t)w * n1cap * d;
+  for (int e = threadIdx.x; e < n1cap * c8; e += NT) {
+    const int s = e / c8, ch = (e % c8) * 8;
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < nk1; ++j) {
+      if (st.fps[j] == s && !st.kmask[j]) {
+        float v[8];
+        Vec8<T>::load(dK3 + (size_t)j * ld + ch, v);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i] += v[i];
+      }
+    }
+    if (a.q_prefix && s < nq) {
+      const float keep = E::round(st.qkeep[s]);
+      float v[8];
+      Vec8<T>::load(dQ3 + (size_t)s * ld + ch, v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i] += E::round(v[i] * keep);
+    }
+    Vec8<T>::store(dwin1 + (size_t)s * d + ch, acc);
+  }
+  const int np = d / 2, ng = NT / np, ntok = nk_tot + nq;
+  const int per = (ntok + ng - 1) / ng;
+  const int tg = threadIdx.x / np, c = 2 * (threadIdx.x % np);
+  if (tg < ng) {
+    float sz[2] = {0.f, 0.f}, dp[2] = {0.f, 0.f};
+    float pw[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+    const int t1 = (tg + 1) * per < ntok ? (tg + 1) * per : ntok;
+    for (int t = tg * per; t < t1; ++t) {
+      const bool key = t < nk_tot;
+      const int j = key ? t : t - nk_tot;
+      const T* row = (key ? dK3 : dQ3) + (size_t)j * ld + c;
+      const float g0 = E::load(row), g1 = E::load(row + 1);
+      const uint32_t bits = st.relu[(size_t)(key ? nq + j : j) * c8 + c / 8] >> (c & 7);
+      const float z0 = bits & 1u ? g0 : 0.f, z1 = bits & 2u ? g1 : 0.f;
+      sz[0] += z0;
+      sz[1] += z1;
+      for (int k = 0; k < 3; ++k) {
+        const float r = E::round(key ? st.krel[k * nk_tot + j] : st.qrel[k * nq + j]);
+        pw[k][0] += r * z0;
+        pw[k][1] += r * z1;
+      }
+      if (key && j < nk1 && st.kmask[j]) { dp[0] += g0; dp[1] += g1; }
+    }
+    float* rd = red + (size_t)tg * 5 * d + c;
+    rd[0] = sz[0]; rd[1] = sz[1];
+    rd[d] = dp[0]; rd[d + 1] = dp[1];
+    for (int k = 0; k < 3; ++k) { rd[(2 + k) * d] = pw[k][0]; rd[(2 + k) * d + 1] = pw[k][1]; }
+  }
+  __syncthreads();
+  for (int cc = threadIdx.x; cc < d; cc += NT) {
+    float v[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int g = 0; g < ng; ++g)
+      for (int k = 0; k < 5; ++k) v[k] += red[((size_t)g * 5 + k) * d + cc];
+    E::store((T*)a.dbase + (size_t)w * d + cc, v[0]);
+    E::store((T*)a.dpad + (size_t)w * d + cc, v[1]);
+    for (int k = 0; k < 3; ++k) part[(4 + k) * d + cc] += v[2 + k];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 2) attn_bwd_kernel(BwdArgs a, Layout L) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int d = a.d, nq = a.nq, nk1 = a.nk1, nk2 = a.nk2, n1cap = a.n1cap;
   const int nk_tot = L.nk_tot;
-  const Plan P(L, d, n1cap, sizeof(T));
-  const BwdSmem<T> sm(smem_raw, P, L, d);
-  T* tokq = sm.tokq;
-  T* tokk = sm.tokk;
-  float* acc1 = (float*)(smem_raw + P.tok);  // dwin1 sums, in the tail
-  T* dQ3 = sm.dQ3;
-  T* dK3 = sm.dK3;
-  float* cs = sm.cs;      // dbq, dbk, dbv, dbp of a window
-  float* part = sm.part;  // the CTA's 7 x d partial
+  const Plan P(L, d, TAIL_BYTES, Stage::bytes(nq, nk1, nk_tot, d), sizeof(T));
+  const BwdSmem<T> sm(smem_raw, P);
+  const Stage st(sm.stage, nq, nk1, nk_tot, d);
+  const int ld = sm.ld;
   int nv = __ldg(a.num_valid);
   nv = nv < 0 ? 0 : (nv > a.nw ? a.nw : nv);
-  const T* posw = (const T*)a.posw;
-  for (int e = threadIdx.x; e < 7 * d; e += NT) part[e] = 0.f;
+  for (int e = threadIdx.x; e < 7 * d; e += NT) sm.part[e] = 0.f;
 
   for (int w = blockIdx.x; w < a.nw; w += gridDim.x) {
-    T* dwin1 = (T*)a.dwin1 + (size_t)w * n1cap * d;
-    T* dk2 = (T*)a.dk2 + (size_t)w * nk2 * d;
-    T* dqext = a.q_prefix ? nullptr : (T*)a.dqext + (size_t)w * nq * d;
-    T* dpad = (T*)a.dpad + (size_t)w * d;
-    T* dbase = (T*)a.dbase + (size_t)w * d;
     if (w >= nv) {
-      for (int e = threadIdx.x; e < n1cap * d; e += NT) E::store(dwin1 + e, 0.f);
-      for (int e = threadIdx.x; e < nk2 * d; e += NT) E::store(dk2 + e, 0.f);
-      if (dqext)
-        for (int e = threadIdx.x; e < nq * d; e += NT) E::store(dqext + e, 0.f);
-      for (int e = threadIdx.x; e < d; e += NT) { E::store(dpad + e, 0.f); E::store(dbase + e, 0.f); }
+      zero_rows<T>((T*)a.dwin1 + (size_t)w * n1cap * d, (size_t)n1cap * d);
+      zero_rows<T>((T*)a.dk2 + (size_t)w * nk2 * d, (size_t)nk2 * d);
+      if (!a.q_prefix) zero_rows<T>((T*)a.dqext + (size_t)w * nq * d, (size_t)nq * d);
+      zero_rows<T>((T*)a.dpad + (size_t)w * d, (size_t)d);
+      zero_rows<T>((T*)a.dbase + (size_t)w * d, (size_t)d);
       continue;
     }
-    T* xq = (T*)a.xq + (size_t)w * nq * d;
-    T* xk = (T*)a.xk + (size_t)w * nk_tot * d;
-
     // 1. recompute K3's forward: tokens (also the weight-product operands),
     //    projections, scores and softmax, the attention output O; then the
     //    chain rule back to dQ3/dK3 (attention_bwd_common.cuh)
-    assemble<T>(a, L, w, tokq);
+    assemble_staged<T>(a, L, w, st, sm.tokq, sm.tokk, ld);
+    load_rows<T>((const T*)a.g + (size_t)w * nq * d, nq, L.nqp, d, ld, sm.Gs);
     __syncthreads();
-    for (int e = threadIdx.x; e < nq * d; e += NT) xq[e] = tokq[e];
-    for (int e = threadIdx.x; e < nk_tot * d; e += NT) xk[e] = tokk[e];
-    window_backward<T>(a, L, sm, (const T*)a.g + (size_t)w * nq * d,
-                       a.key_bias + (size_t)w * nk_tot,
+    store_rows<T>((T*)a.xq + (size_t)w * nq * d, nq, d, ld, sm.tokq);
+    store_rows<T>((T*)a.xk + (size_t)w * nk_tot * d, nk_tot, d, ld, sm.tokk);
+    window_backward<T>(a, L, sm, a.key_bias + (size_t)w * nk_tot,
                        (T*)a.dqs + (size_t)w * nq * d,
                        (T*)a.dks + (size_t)w * nk_tot * d,
                        (T*)a.dvs + (size_t)w * nk_tot * d,
                        (T*)a.os + (size_t)w * nq * d);
-
-    // 2. through the assembly, one thread per channel: relu masks from the
-    //    recomputed pre-activations, the picks' one-hot transpose, pad picks,
-    //    query rows; the window's sums go to the CTA partial
-    for (int c = threadIdx.x; c < d; c += NT) {
-      const float w0 = E::load(posw + c), w1 = E::load(posw + d + c),
-                  w2 = E::load(posw + 2 * d + c),
-                  bs = E::load((const T*)a.base + (size_t)w * d + c);
-      for (int s = 0; s < n1cap; ++s) acc1[s * d + c] = 0.f;
-      float dp = 0.f, sk = 0.f, sq = 0.f;
-      float pk[3] = {0.f, 0.f, 0.f}, pq[3] = {0.f, 0.f, 0.f};
-      for (int j = 0; j < nk_tot; ++j) {
-        const size_t pi = (size_t)w * nk_tot + j;
-        const float r[3] = {a.krel[0][pi], a.krel[1][pi], a.krel[2][pi]};
-        const float gv = E::load(dK3 + j * d + c);
-        const float dz = pos_pre<T>(r[0], r[1], r[2], w0, w1, w2, bs) > 0.f ? gv : 0.f;
-        sk += dz;
-        for (int k = 0; k < 3; ++k) pk[k] += E::round(r[k]) * dz;
-        if (j < nk1) {
-          const size_t mi = (size_t)w * nk1 + j;
-          const int f = a.fps1[mi];
-          if (a.kmask[mi]) dp += gv;
-          else if (f >= 0 && f < n1cap) acc1[f * d + c] += gv;
-        } else {
-          E::store(dk2 + (size_t)(j - nk1) * d + c, gv);
-        }
-      }
-      for (int q = 0; q < nq; ++q) {
-        const size_t pi = (size_t)w * nq + q;
-        const float r[3] = {a.qrel[0][pi], a.qrel[1][pi], a.qrel[2][pi]};
-        const float gv = E::load(dQ3 + q * d + c);
-        const float dz = pos_pre<T>(r[0], r[1], r[2], w0, w1, w2, bs) > 0.f ? gv : 0.f;
-        sq += dz;
-        for (int k = 0; k < 3; ++k) pq[k] += E::round(r[k]) * dz;
-        const float raw = E::round(gv * E::round(a.q_keep[pi]));
-        if (a.q_prefix) acc1[q * d + c] += raw;
-        else E::store(dqext + (size_t)q * d + c, raw);
-      }
-      for (int s = 0; s < n1cap; ++s) E::store(dwin1 + (size_t)s * d + c, acc1[s * d + c]);
-      E::store(dpad + c, dp);
-      E::store(dbase + c, sk + sq);
-      for (int k = 0; k < 4; ++k) part[k * d + c] += cs[k * d + c];
-      for (int k = 0; k < 3; ++k) part[(4 + k) * d + c] += pk[k] + pq[k];
-    }
+    // 2. through the assembly
+    assembly_tail<T>(a, L, w, st, sm.dQ3, sm.dK3, ld, sm.tail, sm.part);
     __syncthreads();
   }
   for (int e = threadIdx.x; e < 7 * d; e += NT)
-    a.cpart[(size_t)blockIdx.x * 7 * d + e] = part[e];
+    a.cpart[(size_t)blockIdx.x * 7 * d + e] = sm.part[e];
 }
 
 template <typename T>
 int launch_bwd(BwdArgs& a, Layout L, WArgs& wa, int ncta, float* dw, float* db,
                float* dposw, cudaStream_t stream) {
-  set_mma<T>(a.d, a.nq, L);
+  set_bwd_mma<T>(a.d, a.nq, L);
   if (ncta > 0) {
-    const Plan P(L, a.d, a.n1cap, sizeof(T));
+    const Plan P(L, a.d, TAIL_BYTES, Stage::bytes(a.nq, a.nk1, L.nk_tot, a.d), sizeof(T));
     if (P.total > 227 * 1024) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -174,7 +303,7 @@ int launch_bwd(BwdArgs& a, Layout L, WArgs& wa, int ncta, float* dw, float* db,
 // ptrs: the 25 inputs of mssvt_attention (num_valid required), then
 //       g; dwin1, dk2, dq_ext, dpad, dbase; the scratch xq, xk, dqs, dks,
 //       dvs, os, wpart, cpart; the f32 outputs dw (4, d, d), db (4, d),
-//       dposw (3, d)
+//       dposw (3, d); wq, wk, wv transposed
 // dims: nw, n1cap, nk1, nk2, nq, d, groups, q_prefix, heads[4], nsplit, ncta
 MSSVT_API int mssvt_attention_bwd(const void* const* p, const int* dims,
                                   float scale, int is_bf16,
@@ -191,6 +320,7 @@ MSSVT_API int mssvt_attention_bwd(const void* const* p, const int* dims,
   a.xq = (void*)p[31]; a.xk = (void*)p[32]; a.dqs = (void*)p[33];
   a.dks = (void*)p[34]; a.dvs = (void*)p[35]; a.os = (void*)p[36];
   a.cpart = (float*)p[38];
+  for (int i = 0; i < 3; ++i) a.wt[i] = p[42 + i];
   const int nsplit = dims[12], ncta = dims[13];
   if (nsplit < 1 || ncta < 0 || (ncta == 0 && a.nw > 0) ||
       (!a.q_prefix && a.dqext == nullptr))
@@ -201,7 +331,8 @@ MSSVT_API int mssvt_attention_bwd(const void* const* p, const int* dims,
   const void* ys[4] = {a.dqs, a.dks, a.dvs, a.g};
   const int nt[4] = {a.nq, nk_tot, nk_tot, a.nq};
   for (int m = 0; m < 4; ++m) { wa.x[m] = xs[m]; wa.y[m] = ys[m]; wa.ntok[m] = nt[m]; }
-  wa.num_valid = a.num_valid;
+  wa.list = nullptr;  // the live windows are the prefix 0 .. num_valid - 1
+  wa.count = a.num_valid;
   wa.nw = a.nw; wa.d = a.d; wa.nsplit = nsplit;
   wa.wpart = (float*)p[37];
   float* dw = (float*)p[39];
@@ -210,4 +341,21 @@ MSSVT_API int mssvt_attention_bwd(const void* const* p, const int* dims,
   return is_bf16
       ? launch_bwd<__nv_bfloat16>(a, L, wa, ncta, dw, db, dposw, stream)
       : launch_bwd<float>(a, L, wa, ncta, dw, db, dposw, stream);
+}
+
+// dims: nw, n1cap, nk1, nk2, nq, d, groups, q_prefix, heads[4] -> out: the
+// per-window kernel's shared-memory bytes and its CTAs per SM
+MSSVT_API int mssvt_attention_bwd_plan(const int* dims, int is_bf16, int* out) {
+  Layout L{};
+  const int nk1 = dims[2], nk_tot = dims[2] + dims[3];
+  const int nq = dims[4], d = dims[5];
+  const int err = derive_layout(d, nq, nk_tot, dims[6], dims + 8, L);
+  if (err) return err;
+  const size_t stage = Stage::bytes(nq, nk1, nk_tot, d);
+  if (is_bf16) {
+    set_bwd_mma<__nv_bfloat16>(d, nq, L);
+    return plan_occupancy(attn_bwd_kernel<__nv_bfloat16>, Plan(L, d, TAIL_BYTES, stage, 2), out);
+  }
+  set_bwd_mma<float>(d, nq, L);
+  return plan_occupancy(attn_bwd_kernel<float>, Plan(L, d, TAIL_BYTES, stage, 4), out);
 }

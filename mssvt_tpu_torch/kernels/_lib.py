@@ -44,6 +44,8 @@ _SIGNATURES = {
     "mssvt_attention_bwd": [VP, VP, CF, CI, VP],
     "mssvt_attention_qk": [VP, VP, CF, CI, VP],
     "mssvt_attention_qk_bwd": [VP, VP, CF, CI, VP],
+    "mssvt_attention_bwd_plan": [VP, CI, VP],
+    "mssvt_attention_qk_bwd_plan": [VP, CI, VP],
     "mssvt_ffn": [VP, VP, VP, VP, VP, VP, VP, VP, CI, CI, CI, CF, CI, VP],
 }
 
@@ -142,6 +144,14 @@ def require(t: torch.Tensor, name: str, dtype=None, shape=None, device=None):
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     return t
+
+
+def kernel_plan(entry: str, dims, bf16: bool):
+    """(shared-memory bytes of one CTA, CTAs an SM holds) of a per-window
+    backward kernel at the layout ``dims``, from the CUDA occupancy API."""
+    out = (CI * 2)()
+    check(getattr(lib(), entry)((CI * len(dims))(*dims), int(bf16), out), entry)
+    return out[0], out[1]
 
 
 def ptr_array(tensors):

@@ -36,6 +36,14 @@ NCTA = 1024
 NSPLIT = 32
 
 
+def kernel_plan(n1cap, nk1, nk2, nq, d, num_heads, bf16=True):
+    """(shared-memory bytes, CTAs per SM) of K5's per-window kernel."""
+    heads = list(num_heads) + [0] * (attention.MAX_GROUPS - len(num_heads))
+    return _lib.kernel_plan(
+        "mssvt_attention_bwd_plan",
+        [0, n1cap, nk1, nk2, nq, d, len(num_heads), 1, *heads], bf16)
+
+
 def fused_window_attention_assembled_bwd(
         win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
         pos_base, pos_w, proj, key_bias, g, num_heads, scale, q_prefix, nq=0,
@@ -79,9 +87,10 @@ def fused_window_attention_assembled_bwd(
     dw = empty(4, d, d, dtype=torch.float32)
     db = empty(4, d, dtype=torch.float32)
     dposw = empty(3, d, dtype=torch.float32)
+    wts = [w.t().contiguous() for w in tensors[14:17]]
     ptrs = _lib.ptr_array(tensors + [
         g, dwin1, dk2, dqext, dpad, dbase,
-        xq, xk, dqs, dks, dvs, os_, wpart, cpart, dw, db, dposw])
+        xq, xk, dqs, dks, dvs, os_, wpart, cpart, dw, db, dposw, *wts])
     dims = (ctypes.c_int * (len(dims) + 2))(*dims, NSPLIT, ncta)
     err = _lib.lib().mssvt_attention_bwd(ptrs, dims, float(scale),
                                          int(t == torch.bfloat16),

@@ -8,10 +8,13 @@ from the saved inputs and returns ``dq`` (query's dtype), ``dk`` (keys'
 dtype) and the eight projection cotangents, summed in f32; ``key_bias`` (a
 mask) gets none.
 
-CUDA tensors go to ``csrc/attention_qk_bwd.cu`` (three launches that count
-as one: the per-window backward, a split-K weight-gradient product, a fixed
-order sum of the partials, as K5); CPU tensors to
-:func:`attention_qk_bwd_plain`. The sums over windows (dW, db) take no float
+CUDA tensors go to ``csrc/attention_qk_bwd.cu`` (launches that count as
+one: a pre-pass that lists the windows whose ``g`` has a nonzero element and
+zeroes ``dq``/``dk`` of the others, the per-window backward over the listed
+windows, a split-K weight-gradient product over their rows, a fixed order
+sum of the partials); CPU tensors to :func:`attention_qk_bwd_plain`. A
+window with ``g = 0`` contributes exact zeros to every cotangent, so the
+list changes no result. The sums over windows (dW, db) take no float
 atomics, so a repeated call gives bit-identical results.
 """
 
@@ -28,6 +31,9 @@ from .attention import attention_core_bwd_plain
 from .attention_bwd import NCTA, NSPLIT
 
 launches = 0
+# the last call's window list on the card: its last element is the number
+# of windows the per-window kernel walked
+last_list = None
 
 
 def attention_qk_bwd_plain(query, keys, proj, key_bias, g, num_heads, scale,
@@ -46,12 +52,19 @@ def attention_qk_bwd_plain(query, keys, proj, key_bias, g, num_heads, scale,
     return dq3.to(query.dtype), dk3.to(keys.dtype), dproj
 
 
+def kernel_plan(nq, nk_tot, d, num_heads, bf16=True):
+    """(shared-memory bytes, CTAs per SM) of K7's per-window kernel."""
+    heads = list(num_heads) + [0] * (attention_qk.MAX_GROUPS - len(num_heads))
+    return _lib.kernel_plan("mssvt_attention_qk_bwd_plan",
+                            [0, nq, nk_tot, d, len(num_heads), *heads], bf16)
+
+
 def fused_window_attention_bwd(query, keys, proj, key_bias, g, num_heads,
                                scale, compute_dtype=None):
     """Cotangents ``(dq, dk, dproj)`` of
     :func:`attention_qk.fused_window_attention` for the output cotangent
     ``g`` (same contract as :func:`attention_qk_bwd_plain`)."""
-    global launches
+    global launches, last_list
     if query.device.type == "cpu":
         return attention_qk_bwd_plain(query, keys, proj, key_bias, g,
                                       num_heads, scale, compute_dtype)
@@ -67,8 +80,9 @@ def fused_window_attention_bwd(query, keys, proj, key_bias, g, num_heads,
         return torch.empty(shape, dtype=dtype, device=dev)
 
     dq, dk = empty(nw, nq, d), empty(nw, nk_tot, d)
-    # weight-product operands: per window the rounded projected cotangents
-    # and the rounded attention output (the raw tokens are the inputs)
+    # weight-product operands: per listed window the rounded projected
+    # cotangents and the rounded attention output (the raw tokens and g are
+    # the inputs)
     dqs, dks, dvs, os_ = (empty(nw, nq, d), empty(nw, nk_tot, d),
                           empty(nw, nk_tot, d), empty(nw, nq, d))
     ncta = min(nw, NCTA)
@@ -76,8 +90,11 @@ def fused_window_attention_bwd(query, keys, proj, key_bias, g, num_heads,
     cpart = empty(max(ncta, 1), 4, d, dtype=torch.float32)
     dw = empty(4, d, d, dtype=torch.float32)
     db = empty(4, d, dtype=torch.float32)
+    wts = [w.t().contiguous() for w in tensors[2:5]]
+    flags = empty(nw, dtype=torch.int32)
+    last_list = empty(nw + 1, dtype=torch.int32)
     ptrs = _lib.ptr_array(tensors + [g, dq, dk, dqs, dks, dvs, os_, wpart,
-                                     cpart, dw, db])
+                                     cpart, dw, db, *wts, flags, last_list])
     dims = (ctypes.c_int * (len(dims) + 2))(*dims, NSPLIT, ncta)
     err = _lib.lib().mssvt_attention_qk_bwd(ptrs, dims, float(scale),
                                             int(t == torch.bfloat16),

@@ -112,9 +112,12 @@ def test_k7_plain_matches_jax_vjp(num_heads, nq, dtype):
     order one in another order). ``dbk`` is analytically zero (softmax rows
     are shift-invariant): rounding noise on both sides, held against the
     size of ``dbv``, a sum over the same tokens."""
+    _check_k7_plain_vs_jax_vjp(_qk_inputs(num_heads, nq), num_heads, dtype)
+
+
+def _check_k7_plain_vs_jax_vjp(a, num_heads, dtype):
     from mssvt_tpu.ops.pallas_attention import fused_window_attention
 
-    a = _qk_inputs(num_heads, nq)
     jdt, tdt = _dtypes(dtype)
 
     def fwd(q, k, proj):
@@ -141,6 +144,50 @@ def test_k7_plain_matches_jax_vjp(num_heads, nq, dtype):
         top = dbv if name == "dbk" else np.abs(w_).max()
         _hold(g_, w_, dtype, name, scale=top)
     assert attention_qk_bwd.launches == 0
+
+
+ZERO_G = [1, 3]  # scattered windows of the 5, not a prefix
+
+
+@pytest.mark.parametrize("num_heads", [(2, 2), (4,)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k7_plain_matches_jax_vjp_with_zero_g_windows(num_heads, dtype):
+    """As above with ``g`` zeroed on a scattered subset of the windows (what
+    masked queries and rows the loss never reaches give in training): the
+    Pallas backward in interpret mode and the plain version agree at the
+    same tolerances. The CUDA kernel skips such windows."""
+    a = _qk_inputs(num_heads, 8)
+    a["g"][ZERO_G] = 0.0
+    _check_k7_plain_vs_jax_vjp(a, num_heads, dtype)
+
+
+@pytest.mark.parametrize("num_heads", [(2, 2), (4,)])
+@pytest.mark.parametrize("nq", [8, 32])
+def test_k7_plain_zero_g_windows_contribute_exact_zeros(num_heads, nq):
+    """What the CUDA kernel's live-window list relies on: a window whose
+    ``g`` is all zero gets exactly zero ``dq`` and ``dk``, and the weight
+    and bias cotangents equal those of the other windows alone (f32, to
+    1e-6 of each cotangent's largest magnitude: the sums run over fewer
+    terms in another order)."""
+    a = _qk_inputs(num_heads, nq)
+    a["g"][ZERO_G] = 0.0
+    live = [w for w in range(a["g"].shape[0]) if w not in ZERO_G]
+    proj = tuple(map(_T, a["proj"]))
+
+    def bwd(sel):
+        return attention_qk_bwd.attention_qk_bwd_plain(
+            _T(a["query"][sel]), _T(a["keys"][sel]), proj, _T(a["bias"][sel]),
+            _T(a["g"][sel]), num_heads, a["scale"])
+
+    dq, dk, dproj = bwd(slice(None))
+    assert not dq[ZERO_G].any() and not dk[ZERO_G].any()
+    assert dq[live].any() and dk[live].any()
+    dq_l, dk_l, dproj_l = bwd(live)
+    assert torch.equal(dq[live], dq_l) and torch.equal(dk[live], dk_l)
+    for name, got, want in zip(PROJ_NAMES, dproj, dproj_l):
+        top = max(want.abs().max().item(), dproj_l[5].abs().max().item()
+                  if name == "bk" else 0.0)
+        assert (got - want).abs().max().item() <= 1e-6 * top, name
 
 
 # ------------------------------------------------- MixedScaleAttention routes

@@ -242,6 +242,22 @@ QK_BWD_NAMES = ("dq", "dk", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwp",
                 "dbp")
 
 
+def _hold_qk_bwd(got, want, dtype):
+    """K7's cotangents against the plain version's, tolerances as above."""
+    for name, wt in want.items():
+        gt = got[name]
+        assert gt.dtype == wt.dtype and gt.shape == wt.shape, name
+        if name == "dbk":
+            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -5
+            scale = want["dbv"].float().abs().max()
+            assert (gt.float() - wt.float()).abs().max() <= tol * scale, name
+        elif dtype == torch.float32 and name[:2] in ("dw", "db"):
+            torch.testing.assert_close(
+                gt, wt, rtol=1e-4, atol=1e-4 + 1e-5 * wt.abs().max().item())
+        else:
+            _close(gt, wt, dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,num_heads,nq", [
     (dt, *case) for dt in (torch.float32, torch.bfloat16)
@@ -264,20 +280,107 @@ def test_attention_qk_bwd_kernel_matches_plain(dev, dtype, num_heads, nq):
     torch.cuda.synchronize()
     flat = lambda r: dict(zip(QK_BWD_NAMES, (*r[:2], *r[2])))
     got, again, want = flat(got), flat(again), flat(want)
-    for name, wt in want.items():
-        gt = got[name]
-        assert gt.dtype == wt.dtype and gt.shape == wt.shape, name
+    for name, gt in got.items():
         assert gt.dtype == (dtype if name in ("dq", "dk") else torch.float32)
         assert torch.equal(gt, again[name]), name
+    _hold_qk_bwd(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero,nw,nq,nk,num_heads,d,dtype", [
+    ("none", 37, 32, 32, (2, 2), 128, torch.bfloat16),
+    ("prefix", 37, 32, 32, (2, 2), 128, torch.bfloat16),
+    ("scattered", 37, 32, 32, (2, 2), 128, torch.bfloat16),
+    ("all", 37, 32, 32, (2, 2), 128, torch.bfloat16),
+    ("none", 1, 32, 32, (2, 2), 128, torch.bfloat16),
+    ("scattered", 7, 18, 32, (2, 2), 128, torch.bfloat16),
+    ("scattered", 1025, 18, 16, (2, 2), 128, torch.bfloat16),
+    ("prefix", 1025, 32, 32, (4,), 128, torch.bfloat16),
+    ("scattered", 37, 32, 16, (4,), 64, torch.bfloat16),
+    ("scattered", 37, 18, 16, (2, 2), 64, torch.bfloat16),
+    ("scattered", 37, 32, 32, (2, 2), 128, torch.float32),
+    ("prefix", 7, 18, 16, (4,), 64, torch.float32),
+])
+def test_attention_qk_bwd_live_window_list(dev, zero, nw, nq, nk, num_heads, d,
+                                           dtype):
+    """K7 walks only the windows whose g has a nonzero element: against the
+    plain version (which computes every window) with g zeroed on no window,
+    on the trailing ~44%, on a scattered half and on all of them; window
+    counts that no grid or split divides; 18 queries (padded to 32 on the
+    tensor-core path) and 32; 32 and 16 keys a head group; one and two head
+    groups; D = 128 (the weight product on wgmma in bf16) and 64 (FMA). The
+    skipped windows get exactly zero dq and dk; a second call repeats bit for
+    bit."""
+    rng = torch.Generator().manual_seed(11)
+    r = lambda *s: torch.randn(*s, generator=rng)
+    nk_tot = nk * len(num_heads)
+    sd = [d // sum(num_heads) * h for h in num_heads]
+    proj = []
+    for _ in range(4):
+        w = torch.zeros(d, d)
+        s0 = 0
+        for n in sd:
+            w[s0:s0 + n, s0:s0 + n] = r(n, n) * 0.15
+            s0 += n
+        proj += [w.to(dev), (r(d) * 0.1).to(dev)]
+    g = r(nw, nq, d)
+    dead = {"none": torch.zeros(nw, dtype=torch.bool),
+            "prefix": torch.arange(nw) >= int(0.56 * nw),
+            "scattered": torch.rand(nw, generator=rng) < 0.5,
+            "all": torch.ones(nw, dtype=torch.bool)}[zero]
+    g[dead] = 0.0
+    args = dict(
+        query=r(nw, nq, d).to(dev, dtype), keys=r(nw, nk_tot, d).to(dev, dtype),
+        proj=tuple(proj),
+        key_bias=torch.where(torch.rand(nw, nk_tot, generator=rng) < 0.2,
+                             -100.0, 0.0).to(dev),
+        g=g.to(dev, dtype), num_heads=num_heads,
+        scale=(d // sum(num_heads)) ** -0.5, compute_dtype=dtype)
+    got = attention_qk_bwd.fused_window_attention_bwd(**args)
+    walked = int(attention_qk_bwd.last_list[-1])
+    again = attention_qk_bwd.fused_window_attention_bwd(**args)
+    want = attention_qk_bwd.attention_qk_bwd_plain(**args)
+    torch.cuda.synchronize()
+    assert walked == nw - int(dead.sum())
+    flat = lambda res: dict(zip(QK_BWD_NAMES, (*res[:2], *res[2])))
+    got, again, want = flat(got), flat(again), flat(want)
+    for name in QK_BWD_NAMES:
+        assert torch.equal(got[name], again[name]), name
+    assert not got["dq"][dead.to(dev)].any() and not got["dk"][dead.to(dev)].any()
+    _hold_qk_bwd(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [0, 17, 37])
+@pytest.mark.parametrize("nq", [32, 18])
+def test_attention_bwd_kernel_num_valid(dev, nv, nq):
+    """K5 with no live window, some and all of the 37: against the plain
+    version in bf16, windows at or past num_valid zero, and a second call
+    bit-identical."""
+    dtype = torch.bfloat16
+    args, _ = _attn_args(dev, dtype, True, True, (2, 2), nq)
+    args["num_valid"] = torch.tensor(nv, device=dev)
+    nw, d = args["win1_fea"].shape[0], args["win1_fea"].shape[2]
+    g = torch.Generator().manual_seed(9)
+    args["g"] = torch.randn(nw, nq, d, generator=g).to(dev, dtype)
+    got = attention_bwd.fused_window_attention_assembled_bwd(**args)
+    again = attention_bwd.fused_window_attention_assembled_bwd(**args)
+    want = attention.attention_bwd_plain(**args)
+    torch.cuda.synchronize()
+    flat = lambda res: dict(zip(BWD_NAMES, (*res[:6], *res[6])))
+    got, again, want = flat(got), flat(again), flat(want)
+    for name, wt in want.items():
+        if wt is None:
+            continue
+        gt = got[name]
+        assert torch.equal(gt, again[name]), name
         if name == "dbk":
-            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -5
             scale = want["dbv"].float().abs().max()
-            assert (gt.float() - wt.float()).abs().max() <= tol * scale
-        elif dtype == torch.float32 and name[:2] in ("dw", "db"):
-            torch.testing.assert_close(
-                gt, wt, rtol=1e-4, atol=1e-4 + 1e-5 * wt.abs().max().item())
+            assert (gt.float() - wt.float()).abs().max() <= 2.0 ** -5 * scale
         else:
             _close(gt, wt, dtype)
+    for name in ("dwin1", "dk2", "dpad_row", "dpos_base"):
+        assert (got[name][nv:] == 0).all()
 
 
 @pytest.mark.cuda
