@@ -15,7 +15,10 @@ Phases (any failed check raises and the script exits non-zero):
 4. per kernel, at ``mssvt.yaml`` block-0 shapes on inputs the port itself
    produced from a synthetic Waymo-scale scene: the CUDA kernel against its
    plain version on the card (fill and FPS exactly, attention and FFN within
-   the bf16 tolerance below), both timed with CUDA events;
+   the bf16 tolerance below), both timed with CUDA events; K3 is also
+   timed at the shapes of the other two MsSVT blocks of that forward and
+   with a fixed grid of CTAs that walk the windows, and its shared memory,
+   CTAs an SM and registers are printed;
 5. the main path: ``mssvt.yaml`` CenterPoint, full width, bf16, seeded
    random weights, answering 3 requests (3 distinct scenes of batch 4),
    with the kernel launch counts of every request checked;
@@ -41,7 +44,8 @@ Phases (any failed check raises and the script exits non-zero):
    version on every window (K7 per cotangent), K7 twice with bit-identical
    results, all timed with CUDA events; the number of windows K7's
    per-window kernel walked (those whose ``g`` has a nonzero element) is
-   printed beside the total.
+   printed beside the total; K6 is also timed at the other two MsSVT
+   blocks' shapes and with a fixed grid.
 7c. the flag-off training path: 3 ``train_step``s of ``mssvt.yaml`` with
    ``ref_compat_keys: False`` set on the loaded config, checked as 6c.
 7d. the selection-free FPS entry point
@@ -53,9 +57,10 @@ Phases (any failed check raises and the script exits non-zero):
 With ``--profile`` one more request and one more training step run under
 ``torch.profiler`` and the device time per kernel name is printed (top
 entries, and their sum as a share of the mean unprofiled request or step
-time), and phases 6b and 7b print the device time of each launch inside one
-K5 and one K7 call (per-window kernel, weight product, final sums, K7's
-pre-pass).
+time) with the device time of each K3 launch inside the request and the
+pad-key step and of each K6 launch inside the flag-off step, and phases 6b
+and 7b print the device time of each launch inside one K5 and one K7 call
+(per-window kernel, weight product, final sums, K7's pre-pass).
 
 Its last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -268,7 +273,8 @@ def kernel_row(name, err, ms, plain_ms, bound_ms, bound_by):
 
 def capture_first_calls(torch, model, batch):
     """Run one forward, recording each inference kernel wrapper's first call
-    (block 0 for all four)."""
+    (block 0 for all four) and, under "attention_all", every K3 call (the
+    three MsSVT blocks in order)."""
     from mssvt_tpu_torch import kernels
 
     captured, saved = {}, {}
@@ -280,6 +286,8 @@ def capture_first_calls(torch, model, batch):
 
         def rec(*a, _n=name, _f=orig, **k):
             captured.setdefault(_n, (a, k))
+            if _n == "attention":
+                captured.setdefault("attention_all", []).append((a, k))
             return _f(*a, **k)
 
         setattr(mod, fname, rec)
@@ -374,6 +382,20 @@ def compare(name, got, want, a, k, torch):
     return err
 
 
+def log_plan(name, plan, what="kernel"):
+    smem, ctas, regs = plan
+    log(f"# {name}: {what} {smem} bytes of shared memory a CTA, {ctas} CTAs "
+        f"an SM (occupancy API), {regs} registers a thread")
+
+
+def asm_layout(a, k):
+    """(n1cap, nk1, nk2, nq, d, num_heads) of one K3/K5 call."""
+    win1, k2, fps1 = a[0], a[1], a[2]
+    nq = int(k["nq"]) if k["q_prefix"] else a[4].shape[1]
+    return (win1.shape[1], fps1.shape[1], k2.shape[1], nq, win1.shape[2],
+            k["num_heads"])
+
+
 def kernel_phase(torch, captured):
     from mssvt_tpu_torch import kernels
 
@@ -397,6 +419,22 @@ def kernel_phase(torch, captured):
             f"bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={err:.3g} "
             f"inputs={shapes}")
         del got, want
+    attention = kernels.KERNELS["attention"]
+    a, k = captured["attention"]
+    log_plan("attention", attention.kernel_plan(*asm_layout(a, k)))
+    with torch.no_grad():
+        # the later blocks' calls (fewer windows, query tiles padded from
+        # nq = 8) are held against the plain version too
+        for a, k in captured["attention_all"][1:]:
+            compare("attention",
+                    attention.fused_window_attention_assembled(*a, **k),
+                    attention.attention_plain(*a, **k), a, k, torch)
+            ms = time_ms(
+                torch, lambda: attention.fused_window_attention_assembled(
+                    *a, **k), reps=10, warm=2)
+            log(f"# kernel attention at a later block: ms={ms:.4f} windows="
+                f"{a[0].shape[0]} num_valid={int(k['num_valid'])} layout "
+                f"(n1cap, nk1, nk2, nq, d, heads)={asm_layout(a, k)}")
     return rows
 
 
@@ -504,6 +542,16 @@ def main_path(torch, model, scenes):
     return counts, sum(times) / len(times)
 
 
+def log_launch_times(prof, label, key):
+    """Device time of each launch whose kernel name holds ``key``, in order."""
+    evs = sorted((e for e in prof.events()
+                  if "CUDA" in str(getattr(e, "device_type", "")) and key in e.name),
+                 key=lambda e: e.time_range.start)
+    ms = [e.self_device_time_total / 1e3 for e in evs]
+    log(f"# profile: {label} launches in order: "
+        + ", ".join(f"{t:.3f}" for t in ms) + f" ms (sum {sum(ms):.3f})")
+
+
 def profile_request(torch, model, scene, request_ms):
     """Device time by kernel name for one request (after the main path);
     the busy share divides it by the mean unprofiled request time, since the
@@ -527,6 +575,7 @@ def profile_request(torch, model, scene, request_ms):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"#   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
+    log_launch_times(prof, "attention (K3) in one request", "attention_kernel")
 
 
 # -------------------------------------------------------------- phase 6a
@@ -703,13 +752,8 @@ def bwd_kernel_phase(torch, a, k, profiled=False):
         if profiled:
             profile_bwd_call(torch, "attention_bwd", lambda: kern(*a, **k))
         plain_ms = time_ms(torch, lambda: plain(*a, **k), reps=1, warm=1)
-    win1, k2, fps1 = a[0], a[1], a[2]
-    nq = int(k["nq"]) if k["q_prefix"] else a[4].shape[1]
-    smem, ctas = attention_bwd.kernel_plan(
-        win1.shape[1], fps1.shape[1], k2.shape[1], nq, win1.shape[2],
-        k["num_heads"])
-    log(f"# attention_bwd: per-window kernel {smem} bytes of shared memory a "
-        f"CTA, {ctas} CTAs an SM (occupancy API)")
+    log_plan("attention_bwd", attention_bwd.kernel_plan(*asm_layout(a, k)),
+             "per-window kernel")
     bound_ms, bound_by = bwd_bound(a, k)
     shapes = [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)]
     log(f"# kernel attention_bwd: ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -719,9 +763,10 @@ def bwd_kernel_phase(torch, a, k, profiled=False):
 
 
 # -------------------------------------------------------------- phase 7b
-def capture_block0_qk_backward(torch, model, batch, gen):
+def capture_block0_qk_backward(torch, model, batch, gen, others=None):
     """One flag-off training forward and backward, recording K7's call with
-    the most windows (block 0); its inputs are K6's too."""
+    the most windows (block 0); its inputs are K6's too. Every call's inputs
+    are appended to the list ``others``, if given."""
     from mssvt_tpu_torch.kernels import attention_qk_bwd
     from mssvt_tpu_torch.runtime.train_utils import forward_backward
 
@@ -731,6 +776,8 @@ def capture_block0_qk_backward(torch, model, batch, gen):
     def rec(*a, **k):
         if "a" not in box or a[0].shape[0] > box["a"][0].shape[0]:
             box["a"], box["k"] = a, k
+        if others is not None:
+            others.append((a, k))
         return orig(*a, **k)
 
     attention_qk_bwd.fused_window_attention_bwd = rec
@@ -779,8 +826,10 @@ def qk_bounds(a, k, live):
     return out
 
 
-def qk_kernel_phase(torch, a, k, profiled=False):
-    """K6 and K7 against their plain versions on block 0's inputs."""
+def qk_kernel_phase(torch, a, k, profiled=False, others=()):
+    """K6 and K7 against their plain versions on block 0's inputs; K6 is
+    also held against its plain version, and timed, on the inputs of the
+    calls in ``others`` with fewer windows (the later blocks)."""
     from mssvt_tpu_torch.kernels import attention_qk, attention_qk_bwd
 
     query, keys, proj, key_bias, g = a
@@ -810,6 +859,22 @@ def qk_kernel_phase(torch, a, k, profiled=False):
         log(f"# kernel attention_qk: ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={fb_ms:.4f} ({fb_by}) max_abs_err={err:.3g} "
             f"query={tuple(query.shape)} keys={tuple(keys.shape)}")
+        log_plan("attention_qk", attention_qk.kernel_plan(
+            query.shape[1], keys.shape[1], query.shape[2], k["num_heads"]))
+        for (q2, keys2, proj2, kb2, _), kw2 in sorted(
+                others, key=lambda c: -c[0][0].shape[0]):
+            if q2.shape[0] < nw:
+                fwd2 = lambda fn: fn(
+                    q2, keys2, proj2, kb2, num_heads=kw2["num_heads"],
+                    scale=kw2["scale"], compute_dtype=kw2["compute_dtype"])
+                compare("attention_qk",
+                        fwd2(attention_qk.fused_window_attention),
+                        fwd2(attention_qk.attention_qk_plain), a, k, torch)
+                ms2 = time_ms(
+                    torch, lambda: fwd2(attention_qk.fused_window_attention),
+                    reps=10, warm=2)
+                log(f"# kernel attention_qk at a later block: ms={ms2:.4f} "
+                    f"query={tuple(q2.shape)} keys={tuple(keys2.shape)}")
 
         got = flat(bwd(attention_qk_bwd.fused_window_attention_bwd))
         again = flat(bwd(attention_qk_bwd.fused_window_attention_bwd))
@@ -853,10 +918,9 @@ def qk_kernel_phase(torch, a, k, profiled=False):
         plain_ms = time_ms(torch,
                            lambda: bwd(attention_qk_bwd.attention_qk_bwd_plain),
                            reps=1, warm=1)
-    smem, ctas = attention_qk_bwd.kernel_plan(
-        query.shape[1], keys.shape[1], query.shape[2], k["num_heads"])
-    log(f"# attention_qk_bwd: per-window kernel {smem} bytes of shared memory "
-        f"a CTA, {ctas} CTAs an SM (occupancy API)")
+    log_plan("attention_qk_bwd", attention_qk_bwd.kernel_plan(
+        query.shape[1], keys.shape[1], query.shape[2], k["num_heads"]),
+        "per-window kernel")
     rows["attention_qk_bwd"] = kernel_row("attention_qk_bwd", err, ms,
                                           plain_ms, bb_ms, bb_by)
     log(f"# kernel attention_qk_bwd: ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -941,8 +1005,10 @@ def train_path(torch, model, optimizer, scenes, gen, expected, label="train"):
     return counts, sum(times) / len(times)
 
 
-def profile_train_step(torch, model, optimizer, scene, gen, step_ms):
-    """Device-busy share of one more train step."""
+def profile_train_step(torch, model, optimizer, scene, gen, step_ms,
+                       forward_kernel):
+    """Device-busy share of one more train step, and the device time of each
+    launch of its attention forward (``forward_kernel``: label, name)."""
     from torch.profiler import ProfilerActivity, profile
 
     from mssvt_tpu_torch.runtime.train_utils import train_step
@@ -960,6 +1026,8 @@ def profile_train_step(torch, model, optimizer, scene, gen, step_ms):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"#   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
+    log_launch_times(prof, f"{forward_kernel[0]} in one train step",
+                     forward_kernel[1])
 
 
 def main(argv):
@@ -1059,7 +1127,8 @@ def main(argv):
                                  "training path")
     rows["attention_bwd"]["launches"] = train_counts["attention_bwd"]
     if "--profile" in argv:
-        profile_train_step(torch, model, optimizer, scenes[1], gen, step_ms)
+        profile_train_step(torch, model, optimizer, scenes[1], gen, step_ms,
+                           ("attention (K3)", "attention_kernel"))
     del model, optimizer
     torch.cuda.empty_cache()
 
@@ -1070,9 +1139,10 @@ def main(argv):
                           max_voxels, 5, num_point_features=5, device="cuda",
                           seed=0)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    a, k = capture_block0_qk_backward(torch, model, scenes[0], gen)
-    rows.update(qk_kernel_phase(torch, a, k, "--profile" in argv))
-    del a, k
+    qk_calls = []
+    a, k = capture_block0_qk_backward(torch, model, scenes[0], gen, qk_calls)
+    rows.update(qk_kernel_phase(torch, a, k, "--profile" in argv, qk_calls))
+    del a, k, qk_calls
     torch.cuda.empty_cache()
     optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model.named_parameters(),
                                    total_steps=TRAIN_STEPS, steps_per_epoch=1)
@@ -1085,7 +1155,8 @@ def main(argv):
         f"{TRAIN_STEPS} steps; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if "--profile" in argv:
-        profile_train_step(torch, model, optimizer, scenes[1], gen, off_ms)
+        profile_train_step(torch, model, optimizer, scenes[1], gen, off_ms,
+                           ("attention_qk (K6)", "attention_qk_kernel"))
     sampling_counts = sampling_path(torch, fps_planes)
     for name, counts_ in (("attention_qk", off_counts),
                           ("attention_qk_bwd", off_counts),

@@ -8,10 +8,10 @@
 // 1. attn_bwd_kernel: a fixed grid of CTAs; CTA b walks windows
 //    w = b, b + grid, ... in order. Per live window it stages the window's
 //    rel planes, picks, masks and q_keep in shared memory, recomputes K3's
-//    assembly from them (the same bf16 rounding points as
-//    attention_common.cuh's, eight channels and 16 bytes a thread, keeping
-//    one relu bit per token and channel), recomputes the projections and
-//    softmax and runs the chain rule back (attention_bwd_common.cuh):
+//    assembly from them (attention_common.cuh's assemble_staged, the function
+//    K3 itself runs, here keeping one relu bit per token and channel),
+//    recomputes the projections and softmax and runs the chain rule back
+//    (attention_bwd_common.cuh):
 //      dO = round(g Wp^T); per head dA = dO V^T, dV = A^T dO,
 //      dS = round(A * (dA - rowsum(dA * A)) * scale), dQ = dS K, dK = dS^T Q;
 //      dQ3 = round(round(dQ) Wq^T), dK3 = round(round(dK) Wk^T + round(dV) Wv^T)
@@ -53,101 +53,6 @@ struct BwdArgs : AsmIn {
   void *xq, *xk, *dqs, *dks, *dvs, *os;  // weight-product operands
   float* cpart;                          // (grid, 7, d) CTA partials
 };
-
-// A window's staged planes (Plan::stage): krel (3, nk_tot), qrel (3, nq),
-// q_keep (nq) in f32; fps1 (nk1) in int32; kmask (nk1) and the relu bits
-// (nq + nk_tot rows, d / 8 bytes each).
-struct Stage {
-  float *krel, *qrel, *qkeep;
-  int* fps;
-  uint8_t *kmask, *relu;
-  __host__ __device__ static size_t bytes(int nq, int nk1, int nk_tot, int d) {
-    return (size_t)(3 * nk_tot + 4 * nq + nk1) * 4 +
-           (size_t)((nk1 + 15) / 16 * 16) + (size_t)(nq + nk_tot) * (d / 8);
-  }
-  __device__ Stage(unsigned char* p, int nq, int nk1, int nk_tot, int d) {
-    krel = (float*)p;
-    qrel = krel + 3 * nk_tot;
-    qkeep = qrel + 3 * nq;
-    fps = (int*)(qkeep + nq);
-    kmask = (uint8_t*)(fps + nk1);
-    relu = kmask + (nk1 + 15) / 16 * 16;
-  }
-};
-
-// Assembles window w's tokens into shared memory as attention_common.cuh's
-// assemble does (row stride ld), from the staged planes, eight channels a
-// thread; keeps the relu bit of every (token, channel).
-template <typename T>
-__device__ void assemble_staged(const BwdArgs& a, const Layout& L, int w,
-                                const Stage& st, T* tokq, T* tokk, int ld) {
-  using E = Elem<T>;
-  const int d = a.d, nq = a.nq, nk1 = a.nk1, nqp = L.nqp, nk_tot = L.nk_tot;
-  const int c8 = d / 8;
-  for (int e = threadIdx.x; e < 3 * nk_tot; e += NT)
-    st.krel[e] = a.krel[e / nk_tot][(size_t)w * nk_tot + e % nk_tot];
-  for (int e = threadIdx.x; e < 3 * nq; e += NT)
-    st.qrel[e] = a.qrel[e / nq][(size_t)w * nq + e % nq];
-  for (int e = threadIdx.x; e < nq; e += NT) st.qkeep[e] = a.q_keep[(size_t)w * nq + e];
-  for (int e = threadIdx.x; e < nk1; e += NT) {
-    st.fps[e] = a.fps1[(size_t)w * nk1 + e];
-    st.kmask[e] = a.kmask[(size_t)w * nk1 + e];
-  }
-  __syncthreads();
-  const T* win1 = (const T*)a.win1 + (size_t)w * a.n1cap * d;
-  const T* k2 = (const T*)a.k2 + (size_t)w * a.nk2 * d;
-  const T* posw = (const T*)a.posw;
-  const T* base = (const T*)a.base + (size_t)w * d;
-  // a thread keeps one chunk of eight channels and walks the token rows
-  const int rstep = NT / c8, ch = (threadIdx.x % c8) * 8;
-  float w0[8], w1[8], w2[8], bs[8];
-  Vec8<T>::load(posw + ch, w0);
-  Vec8<T>::load(posw + d + ch, w1);
-  Vec8<T>::load(posw + 2 * d + ch, w2);
-  Vec8<T>::load(base + ch, bs);
-  for (int r = threadIdx.x / c8; r < (threadIdx.x < rstep * c8 ? nqp + nk_tot : 0);
-       r += rstep) {
-    T* dst = (r < nqp ? tokq + (size_t)r * ld : tokk + (size_t)(r - nqp) * ld) + ch;
-    float raw[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r >= nq && r < nqp) { Vec8<T>::store(dst, raw); continue; }
-    float rx, ry, rz;
-    int tok;  // row of the relu bits
-    const T* src = nullptr;
-    float keep = 1.f;
-    if (r < nq) {
-      tok = r;
-      rx = st.qrel[r]; ry = st.qrel[nq + r]; rz = st.qrel[2 * nq + r];
-      src = a.q_prefix ? win1 + (size_t)r * d + ch
-                       : (const T*)a.q_ext + ((size_t)w * nq + r) * d + ch;
-      keep = E::round(st.qkeep[r]);
-    } else {
-      const int j = r - nqp;
-      tok = nq + j;
-      rx = st.krel[j]; ry = st.krel[nk_tot + j]; rz = st.krel[2 * nk_tot + j];
-      if (j < nk1) {
-        const int f = st.fps[j];
-        if (st.kmask[j]) {
-          if (a.pad_row) src = (const T*)a.pad_row + (size_t)w * d + ch;
-        } else if (f >= 0 && f < a.n1cap) {
-          src = win1 + (size_t)f * d + ch;
-        }
-      } else {
-        src = k2 + (size_t)(j - nk1) * d + ch;
-      }
-    }
-    if (src) Vec8<T>::load(src, raw);
-    uint32_t bits = 0u;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float pre = pos_pre<T>(rx, ry, rz, w0[i], w1[i], w2[i], bs[i]);
-      if (pre > 0.f) bits |= 1u << i;
-      const float x = r < nq ? E::round(raw[i] * keep) : raw[i];
-      raw[i] = x + fmaxf(pre, 0.f);
-    }
-    Vec8<T>::store(dst, raw);
-    st.relu[(size_t)tok * c8 + ch / 8] = (uint8_t)bits;
-  }
-}
 
 // Bytes of the tail's partial sums (at most NT / (d / 2) runs x 5 x d floats).
 constexpr size_t TAIL_BYTES = (size_t)10 * NT * 4;
@@ -243,7 +148,7 @@ __global__ void __launch_bounds__(NT, 2) attn_bwd_kernel(BwdArgs a, Layout L) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int d = a.d, nq = a.nq, nk1 = a.nk1, nk2 = a.nk2, n1cap = a.n1cap;
   const int nk_tot = L.nk_tot;
-  const Plan P(L, d, TAIL_BYTES, Stage::bytes(nq, nk1, nk_tot, d), sizeof(T));
+  const Plan P(L, d, TAIL_BYTES, Stage::bytes(nq, nk1, nk_tot, d, true), sizeof(T));
   const BwdSmem<T> sm(smem_raw, P);
   const Stage st(sm.stage, nq, nk1, nk_tot, d);
   const int ld = sm.ld;
@@ -263,7 +168,7 @@ __global__ void __launch_bounds__(NT, 2) attn_bwd_kernel(BwdArgs a, Layout L) {
     // 1. recompute K3's forward: tokens (also the weight-product operands),
     //    projections, scores and softmax, the attention output O; then the
     //    chain rule back to dQ3/dK3 (attention_bwd_common.cuh)
-    assemble_staged<T>(a, L, w, st, sm.tokq, sm.tokk, ld);
+    assemble_staged<T, true>(a, L, w, st, sm.tokq, sm.tokk, ld);
     load_rows<T>((const T*)a.g + (size_t)w * nq * d, nq, L.nqp, d, ld, sm.Gs);
     __syncthreads();
     store_rows<T>((T*)a.xq + (size_t)w * nq * d, nq, d, ld, sm.tokq);
@@ -284,9 +189,9 @@ __global__ void __launch_bounds__(NT, 2) attn_bwd_kernel(BwdArgs a, Layout L) {
 template <typename T>
 int launch_bwd(BwdArgs& a, Layout L, WArgs& wa, int ncta, float* dw, float* db,
                float* dposw, cudaStream_t stream) {
-  set_bwd_mma<T>(a.d, a.nq, L);
+  set_mma<T>(a.d, a.nq, L);
   if (ncta > 0) {
-    const Plan P(L, a.d, TAIL_BYTES, Stage::bytes(a.nq, a.nk1, L.nk_tot, a.d), sizeof(T));
+    const Plan P(L, a.d, TAIL_BYTES, Stage::bytes(a.nq, a.nk1, L.nk_tot, a.d, true), sizeof(T));
     if (P.total > 227 * 1024) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -344,18 +249,18 @@ MSSVT_API int mssvt_attention_bwd(const void* const* p, const int* dims,
 }
 
 // dims: nw, n1cap, nk1, nk2, nq, d, groups, q_prefix, heads[4] -> out: the
-// per-window kernel's shared-memory bytes and its CTAs per SM
+// per-window kernel's shared-memory bytes, its CTAs per SM, its registers
 MSSVT_API int mssvt_attention_bwd_plan(const int* dims, int is_bf16, int* out) {
   Layout L{};
   const int nk1 = dims[2], nk_tot = dims[2] + dims[3];
   const int nq = dims[4], d = dims[5];
   const int err = derive_layout(d, nq, nk_tot, dims[6], dims + 8, L);
   if (err) return err;
-  const size_t stage = Stage::bytes(nq, nk1, nk_tot, d);
+  const size_t stage = Stage::bytes(nq, nk1, nk_tot, d, true);
   if (is_bf16) {
-    set_bwd_mma<__nv_bfloat16>(d, nq, L);
-    return plan_occupancy(attn_bwd_kernel<__nv_bfloat16>, Plan(L, d, TAIL_BYTES, stage, 2), out);
+    set_mma<__nv_bfloat16>(d, nq, L);
+    return plan_occupancy(attn_bwd_kernel<__nv_bfloat16>, Plan(L, d, TAIL_BYTES, stage, 2).total, out);
   }
-  set_bwd_mma<float>(d, nq, L);
-  return plan_occupancy(attn_bwd_kernel<float>, Plan(L, d, TAIL_BYTES, stage, 4), out);
+  set_mma<float>(d, nq, L);
+  return plan_occupancy(attn_bwd_kernel<float>, Plan(L, d, TAIL_BYTES, stage, 4).total, out);
 }

@@ -27,7 +27,10 @@
 //   - sums everything that crosses windows in a fixed order (per-CTA
 //     partials walked in window order, split partials summed in order): no
 //     float atomics, bit-identical on repeat, independent of the SM count.
-// The f32 path, and bf16 layouts the tiles do not fit, run FMA loops.
+// The f32 path, and bf16 layouts the tiles do not fit, run FMA loops. The
+// tensor-core primitives, the row copies, the strip projections and the
+// (head, 16 queries) unit from the scores to O are attention_common.cuh's,
+// shared with the forwards.
 #pragma once
 
 #include "attention_common.cuh"
@@ -39,115 +42,6 @@ constexpr int KC = 32;       // FMA weight-product token rows per stage
 constexpr int WG_ROWS = 64;  // wgmma weight product: token rows per stage
 constexpr int WG_STAGES = 4;
 constexpr int WG_D = 128;    // the width the wgmma weight product is built for
-constexpr int MAXNKT = 4;    // mma path: key stripe of at most 32 keys
-constexpr int MAXRT = 4;     // mma projections: row tiles held in registers
-
-// ---------------------------------------------------------------- primitives
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col). Thread
-// (g = lane / 4, t = lane % 4) holds A rows g, g + 8 (k 2t.., 2t + 8..), B
-// column g (k 2t.., 2t + 8..) and D rows g (c[0..1]), g + 8 (c[2..3]) at
-// columns 2t, 2t + 1.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// Lane addresses of the four ldmatrix operand forms (tile origin r0/k0/n0):
-// A stored [m][k] (ldsm4), A stored [k][m] (ldsm4t), B stored [n][k] over two
-// 8-column tiles (ldsm4), B stored [k][n] over two 8-column tiles (ldsm4t).
-__device__ __forceinline__ const BF* addr_a(const BF* s, int ld, int r0, int k0, int lane) {
-  return s + (size_t)(r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8;
-}
-__device__ __forceinline__ const BF* addr_at(const BF* s, int ld, int r0, int k0, int lane) {
-  return s + (size_t)(k0 + (lane & 7) + 8 * (lane >> 4)) * ld + r0 + 8 * ((lane >> 3) & 1);
-}
-__device__ __forceinline__ const BF* addr_b(const BF* s, int ld, int n0, int k0, int lane) {
-  return s + (size_t)(n0 + (lane & 7) + 8 * (lane >> 4)) * ld + k0 + 8 * ((lane >> 3) & 1);
-}
-__device__ __forceinline__ const BF* addr_bt(const BF* s, int ld, int n0, int k0, int lane) {
-  return s + (size_t)(k0 + (lane & 15)) * ld + n0 + 8 * (lane >> 4);
-}
-
-// Eight consecutive channels between memory (16-byte accesses) and floats.
-template <typename T> struct Vec8;
-template <> struct Vec8<BF> {
-  static __device__ __forceinline__ void load(const BF* p, float (&v)[8]) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ void store(BF* p, const float (&v)[8]) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
-                                              pack2(v[4], v[5]), pack2(v[6], v[7]));
-  }
-};
-template <> struct Vec8<float> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[8]) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    const float4 b = *reinterpret_cast<const float4*>(p + 4);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[8]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-  }
-};
-
-// Row copies between global memory (row stride d) and shared memory (row
-// stride ld), 16 bytes a thread; rows in [rows, rows_pad) are zeroed.
-template <typename T>
-__device__ void load_rows(const T* g, int rows, int rows_pad, int d, int ld, T* s) {
-  constexpr int V = 16 / sizeof(T);
-  const int cpr = d / V;
-  for (int e = threadIdx.x; e < rows_pad * cpr; e += NT) {
-    const int r = e / cpr, c = (e % cpr) * V;
-    *reinterpret_cast<uint4*>(s + (size_t)r * ld + c) =
-        r < rows ? __ldg(reinterpret_cast<const uint4*>(g + (size_t)r * d + c))
-                 : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-template <typename T>
-__device__ void store_rows(T* g, int rows, int d, int ld, const T* s) {
-  constexpr int V = 16 / sizeof(T);
-  const int cpr = d / V;
-  for (int e = threadIdx.x; e < rows * cpr; e += NT) {
-    const int r = e / cpr, c = (e % cpr) * V;
-    *reinterpret_cast<uint4*>(g + (size_t)r * d + c) =
-        *reinterpret_cast<const uint4*>(s + (size_t)r * ld + c);
-  }
-}
-template <typename T>
-__device__ void zero_rows(T* g, size_t n) {  // n elements, a multiple of 16 bytes
-  constexpr int V = 16 / sizeof(T);
-  for (size_t e = threadIdx.x; e < n / V; e += NT)
-    reinterpret_cast<uint4*>(g)[e] = make_uint4(0u, 0u, 0u, 0u);
-}
 
 // ------------------------------------------------------ shared-memory plan
 // Byte offsets (128-aligned) of the per-window backward kernels; the same
@@ -364,67 +258,6 @@ __device__ void window_backward_fma(const A& a, const Layout& L,
 }
 
 // ------------------------------------------------------------- the mma path
-// out[r][c] = round(sum_k A[r][k] Wnk[c][k] (+ sum_k A2[r][k] W2nk[c][k])
-//                   + bias[c]) over the channels k of c's head group, for
-// rows_pad (a multiple of 16) rows. A, A2 and out are shared (row stride ld);
-// Wnk is global, [output channel][contracted channel], row stride d. Each
-// warp owns 16-column strips: it reads each weight fragment once per strip
-// and MAXRT row tiles, and rounds and stores from its accumulators.
-__device__ void project_strips(const BF* A, const BF* Wnk, const BF* A2,
-                               const BF* W2nk, const BF* bias, BF* out,
-                               int rows_pad, int ld, const Layout& L, int d,
-                               int groups) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g_ = lane >> 2, t_ = lane & 3;
-  for (int cs = warp; cs < d / 16; cs += NWARP) {
-    const int c0 = cs * 16, grp = group_of(L, c0, groups);
-    const int k0 = L.gstart[grp], k1 = L.gstart[grp + 1];
-    for (int rb = 0; rb < rows_pad; rb += 16 * MAXRT) {
-      float acc[MAXRT][2][4];
-#pragma unroll
-      for (int r = 0; r < MAXRT; ++r)
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[r][n][e] = 0.f;
-      for (int pass = 0; pass < (A2 ? 2 : 1); ++pass) {
-        const BF* Ap = pass ? A2 : A;
-        const BF* Wp = pass ? W2nk : Wnk;
-#pragma unroll 2
-        for (int k = k0; k < k1; k += 16) {
-          const BF* w0 = Wp + (size_t)(c0 + g_) * d + k + 2 * t_;
-          const BF* w1 = w0 + (size_t)8 * d;
-          const uint32_t b00 = __ldg((const uint32_t*)w0), b01 = __ldg((const uint32_t*)(w0 + 8));
-          const uint32_t b10 = __ldg((const uint32_t*)w1), b11 = __ldg((const uint32_t*)(w1 + 8));
-#pragma unroll
-          for (int r = 0; r < MAXRT; ++r) {
-            if (rb + 16 * r < rows_pad) {
-              uint32_t af[4];
-              ldsm4(af, addr_a(Ap, ld, rb + 16 * r, k, lane));
-              mma16816(acc[r][0], af, b00, b01);
-              mma16816(acc[r][1], af, b10, b11);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < MAXRT; ++r) {
-        if (rb + 16 * r < rows_pad) {
-#pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            const int c = c0 + 8 * n + 2 * t_;
-            const float bl = bias ? __bfloat162float(bias[c]) : 0.f;
-            const float bh = bias ? __bfloat162float(bias[c + 1]) : 0.f;
-            BF* o = out + (size_t)(rb + 16 * r + g_) * ld + c;
-            *(uint32_t*)o = pack2(acc[r][n][0] + bl, acc[r][n][1] + bh);
-            *(uint32_t*)(o + (size_t)8 * ld) = pack2(acc[r][n][2] + bl, acc[r][n][3] + bh);
-          }
-        }
-      }
-    }
-  }
-}
-
 // Sum of a 16-row accumulator tile's columns: rows g then g + 8 in the
 // thread, then the eight row lanes by xor shuffles (a fixed tree). Lanes
 // 0-3 end with the sums of columns 2t (lo) and 2t + 1 (hi).
@@ -436,14 +269,6 @@ __device__ __forceinline__ void column_sums(const float (&c)[4], float& lo, floa
     lo += __shfl_xor_sync(0xffffffffu, lo, m);
     hi += __shfl_xor_sync(0xffffffffu, hi, m);
   }
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 // One window's backward on the tensor cores (bf16, L.use_mma). `wt` are the
@@ -479,84 +304,18 @@ __device__ void window_backward_mma(const A& a, const Layout& L,
     const int h = u / tq, q0 = (u % tq) * 16;
     const int key0 = L.head_group[h] * nk, ch0 = h * ph;
     float p[MAXNKT][4];
-#pragma unroll
-    for (int j = 0; j < MAXNKT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
-    for (int c = 0; c < ph; c += 16) {  // S = Q_h K_h^T
-      uint32_t af[4];
-      ldsm4(af, addr_a(s.Qp, ld, q0, ch0 + c, lane));
-#pragma unroll
-      for (int jp = 0; jp < MAXNKT / 2; ++jp) {
-        if (jp * 16 < nk) {
-          uint32_t bf[4];
-          ldsm4(bf, addr_b(s.Kp, ld, key0 + jp * 16, ch0 + c, lane));
-          mma16816(p[2 * jp], af, bf[0], bf[1]);
-          mma16816(p[2 * jp + 1], af, bf[2], bf[3]);
-        }
-      }
-    }
-    // softmax over the quad's two rows (g: e 0-1, g + 8: e 2-3), f32
-    float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < MAXNKT; ++j) {
-      if (j * 8 < nk) {
-        const float k0v = kb[key0 + j * 8 + 2 * t_], k1v = kb[key0 + j * 8 + 2 * t_ + 1];
-        p[j][0] = p[j][0] * a.scale + k0v;
-        p[j][1] = p[j][1] * a.scale + k1v;
-        p[j][2] = p[j][2] * a.scale + k0v;
-        p[j][3] = p[j][3] * a.scale + k1v;
-        m0 = fmaxf(m0, fmaxf(p[j][0], p[j][1]));
-        m1 = fmaxf(m1, fmaxf(p[j][2], p[j][3]));
-      }
-    }
-    m0 = quad_max(m0);
-    m1 = quad_max(m1);
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAXNKT; ++j) {
-      if (j * 8 < nk) {
-        p[j][0] = expf(p[j][0] - m0);
-        p[j][1] = expf(p[j][1] - m0);
-        p[j][2] = expf(p[j][2] - m1);
-        p[j][3] = expf(p[j][3] - m1);
-        s0 += p[j][0] + p[j][1];
-        s1 += p[j][2] + p[j][3];
-      }
-    }
-    const float den0 = quad_sum(s0) + 1e-30f, den1 = quad_sum(s1) + 1e-30f;
     uint32_t pa[MAXNKT / 2][4];  // round(P) as A fragments (k = keys)
+    unit_softmax(s.Qp, s.Kp, ld, q0, ch0, key0, nk, ph, kb, a.scale, lane, p);
+    unit_pack(p, nk, pa);
     BF* abr = s.Ab + (size_t)(h * nqp + q0 + g_) * lda + 2 * t_;
 #pragma unroll
     for (int j = 0; j < MAXNKT; ++j) {
       if (j * 8 < nk) {
-        p[j][0] /= den0; p[j][1] /= den0;
-        p[j][2] /= den1; p[j][3] /= den1;
-        const uint32_t lo = pack2(p[j][0], p[j][1]), hi = pack2(p[j][2], p[j][3]);
-        pa[j / 2][(j & 1) * 2] = lo;
-        pa[j / 2][(j & 1) * 2 + 1] = hi;
-        *(uint32_t*)(abr + j * 8) = lo;
-        *(uint32_t*)(abr + (size_t)8 * lda + j * 8) = hi;
+        *(uint32_t*)(abr + j * 8) = pa[j / 2][(j & 1) * 2];
+        *(uint32_t*)(abr + (size_t)8 * lda + j * 8) = pa[j / 2][(j & 1) * 2 + 1];
       }
     }
-    for (int c = 0; c < ph; c += 16) {  // O = round(P) V_h, rounded, staged
-      float o[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int jp = 0; jp < MAXNKT / 2; ++jp) {
-        if (jp * 16 < nk) {
-          uint32_t bf[4];
-          ldsm4t(bf, addr_bt(s.Vp, ld, ch0 + c, key0 + jp * 16, lane));
-          mma16816(o[0], pa[jp], bf[0], bf[1]);
-          mma16816(o[1], pa[jp], bf[2], bf[3]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        BF* op = s.Os + (size_t)(q0 + g_) * ld + ch0 + c + 8 * n + 2 * t_;
-        *(uint32_t*)op = pack2(o[n][0], o[n][1]);
-        *(uint32_t*)(op + (size_t)8 * ld) = pack2(o[n][2], o[n][3]);
-      }
-    }
+    unit_value(pa, s.Vp, s.Os, ld, q0, ch0, key0, nk, ph, lane);
     float da[MAXNKT][4];  // dA = dO_h V_h^T
 #pragma unroll
     for (int j = 0; j < MAXNKT; ++j)
@@ -723,31 +482,6 @@ __device__ __forceinline__ void window_backward(const A& a, const Layout& L,
     }
   }
   window_backward_fma<T>(a, L, s, kb, dqs, dks, dvs, os);
-}
-
-// Tensor cores for bf16 when every tile lies inside one head and one stripe
-// of at most 8 * MAXNKT keys; query rows are padded to 16 then.
-template <typename T>
-inline void set_bwd_mma(int d, int nq, Layout& L) {
-  set_mma<T>(d, nq, L);
-  if (L.use_mma && L.nk > 8 * MAXNKT) {
-    L.use_mma = 0;
-    L.nqp = nq;
-  }
-}
-
-// Shared memory of one per-window CTA and the CTAs an SM holds of `kernel`
-// at that size (the occupancy API's answer) into out[0], out[1].
-template <typename K>
-int plan_occupancy(K kernel, const Plan& P, int* out) {
-  out[0] = (int)P.total;
-  out[1] = 0;
-  if (P.total > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.total);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, NT,
-                                                            P.total);
 }
 
 // ------------------------------------------------------- the weight product

@@ -3,14 +3,37 @@
 // pre-assembled tokens (attention_qk.cu), and K7, its backward
 // (attention_qk_bwd.cu; the backward's own shared pieces are in
 // attention_bwd_common.cuh). Here: the head/group layout, the assembled
-// input layout and its host-side parsing, the token assembly with the JAX
-// kernel's bf16 rounding points (K3, K5), the token load (K6, K7), the
-// block-diagonal projections (FMA loops and 16x16x16 WMMA tiles), and the
-// per-window forward core from the tokens in shared memory to the output
-// projection (K3, K6).
+// input layout and its host-side parsing, the tensor-core primitives
+// (ldmatrix, mma.sync m16n8k16), the 16-byte row copies, the token assembly
+// from staged planes with the JAX kernel's bf16 rounding points (K3, K5),
+// the block-diagonal projections (strips of mma tiles, or FMA loops), the
+// (head, 16 queries) unit from the scores to O that the forwards and the
+// backwards' recompute run with the same code, and the per-window
+// forward from the tokens in shared memory to the output rows (K3, K6).
+//
+// What bounds the forwards on an H100: on paper device memory (a window's
+// tokens read once, its output rows written once; its products are ~170
+// FLOP a byte, below the bf16 ridge); in fact the latency of a chain of
+// small dependent phases, since one window's products are far too small to
+// fill an SM. The design therefore
+//   - runs the bf16 products as mma.sync m16n8k16 tiles whose documented
+//     register layout lets bias, rounding and stores happen from the
+//     accumulators; rows in shared memory are padded by 16 bytes so ldmatrix
+//     reads meet no bank conflict;
+//   - gives a warp a 16-column strip of a projection (each weight fragment
+//     two 4-byte global loads a k-step, reused over MAXRT row tiles) and a
+//     whole (head, 16 queries) unit from the scores through the softmax to O
+//     (row maxima and sums by two quad shuffles, round(P) kept in registers
+//     as the A fragments of the value product): no score matrix, no
+//     probabilities and no scratch in shared memory, three block barriers
+//     inside a window;
+//   - keeps a window at ~70 KB of shared memory (O over Qp, the staged
+//     output over the dead query tokens) and <= 80 registers a thread, so
+//     that three CTAs share an SM and one's global loads overlap the
+//     others' arithmetic;
+//   - moves every token, plane and output byte 16 bytes a thread.
+// The f32 path, and bf16 layouts the tiles do not fit, run FMA loops.
 #pragma once
-
-#include <mma.h>
 
 #include <type_traits>
 
@@ -22,9 +45,10 @@ constexpr int NT = 256;  // threads per CTA
 constexpr int MAX_GROUPS = 4;
 constexpr int RB = 8;    // tokens per thread in the FMA projection loops
 constexpr int NWARP = NT / 32;
-namespace wm = nvcuda::wmma;
+constexpr int MAXNKT = 4;  // mma path: key stripe of at most 32 keys
+constexpr int MAXRT = 4;   // mma projections: row tiles held in registers
+constexpr int FWD_CTAS = 3;  // CTAs an SM the bf16 forward kernels are built for
 using BF = __nv_bfloat16;
-using Frag = wm::fragment<wm::accumulator, 16, 16, 16, float>;
 
 // The assembled inputs of one call (the contract of
 // fused_window_attention_assembled).
@@ -43,7 +67,7 @@ struct AsmIn {
 
 struct Layout {
   int nk_tot, nk, ph, tot_heads;
-  int nqp;      // query rows in shared memory (nq, padded to 16 for WMMA)
+  int nqp;      // query rows in shared memory (nq, padded to 16 for the tiles)
   int use_mma;  // bf16 with head width and key stripe multiples of 16
   int gstart[MAX_GROUPS + 1];  // channel start of each head group
   int head_group[64];
@@ -96,12 +120,12 @@ inline int parse_inputs(const void* const* p, const int* dims, float scale,
   return derive_layout(a.d, a.nq, a.nk1 + a.nk2, a.groups, a.heads, L);
 }
 
-// Tensor cores for bf16 when every tile lies inside one head and one stripe;
-// query rows padded to 16 then.
+// Tensor cores for bf16 when every tile lies inside one head and one stripe
+// of at most 8 * MAXNKT keys; query rows are padded to 16 then.
 template <typename T>
 inline void set_mma(int d, int nq, Layout& L) {
   L.use_mma = std::is_same<T, BF>::value && d % 16 == 0 && L.ph % 16 == 0 &&
-              L.nk % 16 == 0;
+              L.nk % 16 == 0 && L.nk <= 8 * MAXNKT;
   L.nqp = L.use_mma ? (nq + 15) / 16 * 16 : nq;
 }
 
@@ -111,6 +135,140 @@ __device__ __forceinline__ int group_of(const Layout& L, int c, int groups) {
   return g;
 }
 
+// Shared memory of one CTA of `kernel`, the CTAs an SM holds of it at that
+// size (the occupancy API's answer) and its registers a thread into out[0],
+// out[1], out[2].
+template <typename K>
+int plan_occupancy(K kernel, size_t smem, int* out) {
+  out[0] = (int)smem;
+  out[1] = out[2] = 0;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[2] = attr.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, NT, smem);
+}
+
+// ---------------------------------------------------------------- primitives
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col). Thread
+// (g = lane / 4, t = lane % 4) holds A rows g, g + 8 (k 2t.., 2t + 8..), B
+// column g (k 2t.., 2t + 8..) and D rows g (c[0..1]), g + 8 (c[2..3]) at
+// columns 2t, 2t + 1.
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// Lane addresses of the four ldmatrix operand forms (tile origin r0/k0/n0):
+// A stored [m][k] (ldsm4), A stored [k][m] (ldsm4t), B stored [n][k] over two
+// 8-column tiles (ldsm4), B stored [k][n] over two 8-column tiles (ldsm4t).
+__device__ __forceinline__ const BF* addr_a(const BF* s, int ld, int r0, int k0, int lane) {
+  return s + (size_t)(r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8;
+}
+__device__ __forceinline__ const BF* addr_at(const BF* s, int ld, int r0, int k0, int lane) {
+  return s + (size_t)(k0 + (lane & 7) + 8 * (lane >> 4)) * ld + r0 + 8 * ((lane >> 3) & 1);
+}
+__device__ __forceinline__ const BF* addr_b(const BF* s, int ld, int n0, int k0, int lane) {
+  return s + (size_t)(n0 + (lane & 7) + 8 * (lane >> 4)) * ld + k0 + 8 * ((lane >> 3) & 1);
+}
+__device__ __forceinline__ const BF* addr_bt(const BF* s, int ld, int n0, int k0, int lane) {
+  return s + (size_t)(k0 + (lane & 15)) * ld + n0 + 8 * (lane >> 4);
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// Eight consecutive channels between memory (16-byte accesses) and floats.
+template <typename T> struct Vec8;
+template <> struct Vec8<BF> {
+  static __device__ __forceinline__ void load(const BF* p, float (&v)[8]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(BF* p, const float (&v)[8]) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
+                                              pack2(v[4], v[5]), pack2(v[6], v[7]));
+  }
+};
+template <> struct Vec8<float> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[8]) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[8]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  }
+};
+
+// Row copies between global memory (row stride d) and shared memory (row
+// stride ld), 16 bytes a thread; rows in [rows, rows_pad) are zeroed.
+template <typename T>
+__device__ void load_rows(const T* g, int rows, int rows_pad, int d, int ld, T* s) {
+  constexpr int V = 16 / sizeof(T);
+  const int cpr = d / V;
+  for (int e = threadIdx.x; e < rows_pad * cpr; e += NT) {
+    const int r = e / cpr, c = (e % cpr) * V;
+    *reinterpret_cast<uint4*>(s + (size_t)r * ld + c) =
+        r < rows ? __ldg(reinterpret_cast<const uint4*>(g + (size_t)r * d + c))
+                 : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+template <typename T>
+__device__ void store_rows(T* g, int rows, int d, int ld, const T* s) {
+  constexpr int V = 16 / sizeof(T);
+  const int cpr = d / V;
+  for (int e = threadIdx.x; e < rows * cpr; e += NT) {
+    const int r = e / cpr, c = (e % cpr) * V;
+    *reinterpret_cast<uint4*>(g + (size_t)r * d + c) =
+        *reinterpret_cast<const uint4*>(s + (size_t)r * ld + c);
+  }
+}
+template <typename T>
+__device__ void zero_rows(T* g, size_t n) {  // n elements, a multiple of 16 bytes
+  constexpr int V = 16 / sizeof(T);
+  for (size_t e = threadIdx.x; e < n / V; e += NT)
+    reinterpret_cast<uint4*>(g)[e] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// ------------------------------------------------------------- the assembly
 // Pre-relu position activation rx*w0 + ry*w1 + rz*w2 + base, rounded to the
 // compute type after every op as the JAX kernel's bf16 ops are.
 template <typename T>
@@ -123,57 +281,114 @@ __device__ __forceinline__ float pos_pre(float rx, float ry, float rz, float w0,
   return E::round(pre + bs);
 }
 
-// Assembles window w's tokens into shared memory: nq query rows (then zero
-// rows up to nqp) followed by nk_tot key rows, each (row stride d)
+// A window's staged planes: krel (3, nk_tot), qrel (3, nq), q_keep (nq) in
+// f32; fps1 (nk1) in int32; kmask (nk1); with `relu` (K5) one relu bit per
+// token and channel (nq + nk_tot rows, d / 8 bytes each).
+struct Stage {
+  float *krel, *qrel, *qkeep;
+  int* fps;
+  uint8_t *kmask, *relu;
+  __host__ __device__ static size_t bytes(int nq, int nk1, int nk_tot, int d,
+                                          bool relu) {
+    return (size_t)(3 * nk_tot + 4 * nq + nk1) * 4 +
+           (size_t)((nk1 + 15) / 16 * 16) +
+           (relu ? (size_t)(nq + nk_tot) * (d / 8) : 0);
+  }
+  __device__ Stage(unsigned char* p, int nq, int nk1, int nk_tot, int d) {
+    krel = (float*)p;
+    qrel = krel + 3 * nk_tot;
+    qkeep = qrel + 3 * nq;
+    fps = (int*)(qkeep + nq);
+    kmask = (uint8_t*)(fps + nk1);
+    relu = kmask + (nk1 + 15) / 16 * 16;
+  }
+};
+
+// Assembles window w's tokens into shared memory: nqp query rows at tokq
+// (rows past nq zero) and nk_tot key rows at tokk, row stride ld, each
 //   q = raw * keep + relu(pos(q_rel)),  raw = win1[:nq] or q_ext
 //   k = [pick of win1 (zero if masked/out of range; pad_row if masked and
 //        pad_row is given) | k2] + relu(pos(k_rel))
-template <typename T>
-__device__ void assemble(const AsmIn& a, const Layout& L, int w, T* tokq) {
+// The window's rel planes, q_keep, picks and masks go to shared memory once;
+// a thread keeps its eight channels of pos_w and pos_base in registers and
+// walks the token rows with 16-byte loads and stores. With RELU it keeps the
+// relu bit of every (token, channel) for K5's way back through the assembly.
+// Starts with a block barrier of its own (after staging); the caller
+// synchronises before the tokens are read.
+template <typename T, bool RELU>
+__device__ void assemble_staged(const AsmIn& a, const Layout& L, int w,
+                                const Stage& st, T* tokq, T* tokk, int ld) {
   using E = Elem<T>;
   const int d = a.d, nq = a.nq, nk1 = a.nk1, nqp = L.nqp, nk_tot = L.nk_tot;
+  const int c8 = d / 8;
+  for (int e = threadIdx.x; e < 3 * nk_tot; e += NT)
+    st.krel[e] = a.krel[e / nk_tot][(size_t)w * nk_tot + e % nk_tot];
+  for (int e = threadIdx.x; e < 3 * nq; e += NT)
+    st.qrel[e] = a.qrel[e / nq][(size_t)w * nq + e % nq];
+  for (int e = threadIdx.x; e < nq; e += NT) st.qkeep[e] = a.q_keep[(size_t)w * nq + e];
+  for (int e = threadIdx.x; e < nk1; e += NT) {
+    st.fps[e] = a.fps1[(size_t)w * nk1 + e];
+    st.kmask[e] = a.kmask[(size_t)w * nk1 + e];
+  }
+  __syncthreads();
   const T* win1 = (const T*)a.win1 + (size_t)w * a.n1cap * d;
   const T* k2 = (const T*)a.k2 + (size_t)w * a.nk2 * d;
   const T* posw = (const T*)a.posw;
   const T* base = (const T*)a.base + (size_t)w * d;
-  for (int e = threadIdx.x; e < (nqp + nk_tot) * d; e += NT) {
-    const int r = e / d, c = e % d;
-    if (r >= nq && r < nqp) { E::store(tokq + e, 0.f); continue; }
-    const float w0 = E::load(posw + c), w1 = E::load(posw + d + c),
-                w2 = E::load(posw + 2 * d + c), bs = E::load(base + c);
-    float rx, ry, rz, raw;
+  // a thread keeps one chunk of eight channels and walks the token rows
+  const int rstep = NT / c8, ch = (threadIdx.x % c8) * 8;
+  float w0[8], w1[8], w2[8], bs[8];
+  Vec8<T>::load(posw + ch, w0);
+  Vec8<T>::load(posw + d + ch, w1);
+  Vec8<T>::load(posw + 2 * d + ch, w2);
+  Vec8<T>::load(base + ch, bs);
+  for (int r = threadIdx.x / c8; r < (threadIdx.x < rstep * c8 ? nqp + nk_tot : 0);
+       r += rstep) {
+    T* dst = (r < nqp ? tokq + (size_t)r * ld : tokk + (size_t)(r - nqp) * ld) + ch;
+    float raw[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r >= nq && r < nqp) { Vec8<T>::store(dst, raw); continue; }
+    float rx, ry, rz;
+    int tok;  // row of the relu bits
+    const T* src = nullptr;
+    float keep = 1.f;
     if (r < nq) {
-      const size_t pi = (size_t)w * nq + r;
-      rx = a.qrel[0][pi]; ry = a.qrel[1][pi]; rz = a.qrel[2][pi];
-      const float q0 = a.q_prefix
-          ? E::load(win1 + (size_t)r * d + c)
-          : E::load((const T*)a.q_ext + ((size_t)w * nq + r) * d + c);
-      raw = E::round(q0 * E::round(a.q_keep[pi]));
+      tok = r;
+      rx = st.qrel[r]; ry = st.qrel[nq + r]; rz = st.qrel[2 * nq + r];
+      src = a.q_prefix ? win1 + (size_t)r * d + ch
+                       : (const T*)a.q_ext + ((size_t)w * nq + r) * d + ch;
+      keep = E::round(st.qkeep[r]);
     } else {
       const int j = r - nqp;
-      const size_t pi = (size_t)w * nk_tot + j;
-      rx = a.krel[0][pi]; ry = a.krel[1][pi]; rz = a.krel[2][pi];
+      tok = nq + j;
+      rx = st.krel[j]; ry = st.krel[nk_tot + j]; rz = st.krel[2 * nk_tot + j];
       if (j < nk1) {
-        const size_t mi = (size_t)w * nk1 + j;
-        const int f = a.fps1[mi];
-        const bool masked = a.kmask[mi] != 0;
-        raw = 0.f;
-        if (masked) {
-          if (a.pad_row) raw = E::load((const T*)a.pad_row + (size_t)w * d + c);
+        const int f = st.fps[j];
+        if (st.kmask[j]) {
+          if (a.pad_row) src = (const T*)a.pad_row + (size_t)w * d + ch;
         } else if (f >= 0 && f < a.n1cap) {
-          raw = E::load(win1 + (size_t)f * d + c);
+          src = win1 + (size_t)f * d + ch;
         }
       } else {
-        raw = E::load(k2 + (size_t)(j - nk1) * d + c);
+        src = k2 + (size_t)(j - nk1) * d + ch;
       }
     }
-    const float pre = pos_pre<T>(rx, ry, rz, w0, w1, w2, bs);
-    E::store(tokq + e, raw + fmaxf(pre, 0.f));
+    if (src) Vec8<T>::load(src, raw);
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float pre = pos_pre<T>(rx, ry, rz, w0[i], w1[i], w2[i], bs[i]);
+      if (pre > 0.f) bits |= 1u << i;
+      const float x = r < nq ? E::round(raw[i] * keep) : raw[i];
+      raw[i] = x + fmaxf(pre, 0.f);
+    }
+    Vec8<T>::store(dst, raw);
+    if (RELU) st.relu[(size_t)tok * c8 + ch / 8] = (uint8_t)bits;
   }
 }
 
+// ---------------------------------------------------------- the projections
 // out[r][c] = round(sum_{i in group(c)} tok[r][i] * W[i][c] + b[c]) for
-// r < ntok; tok and out live in shared memory (row stride d).
+// r < ntok as FMA loops; tok and out live in shared memory (row stride d).
 template <typename T>
 __device__ void project(const T* tok, int ntok, const T* __restrict__ W,
                         const T* __restrict__ bvec, T* out, const Layout& L,
@@ -206,195 +421,278 @@ __device__ void project(const T* tok, int ntok, const T* __restrict__ W,
   }
 }
 
-// WMMA helpers (bf16 inputs, f32 accumulation). Each warp owns whole 16x16
-// output tiles; its accumulator goes through a private 16x16 f32 scratch so
-// that bias and rounding are applied per element.
-__device__ void tile_epilogue(const Frag& acc, float* scratch, BF* out, int ld,
-                              int r0, int c0, int rows, const BF* bvec) {
-  const int lane = threadIdx.x & 31;
-  wm::store_matrix_sync(scratch, acc, 16, wm::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 256; e += 32) {
-    const int r = r0 + e / 16, c = c0 + e % 16;
-    const float b = bvec ? __bfloat162float(bvec[c]) : 0.f;
-    if (r < rows) out[(size_t)r * ld + c] = __float2bfloat16_rn(scratch[e] + b);
-  }
-  __syncwarp();
-}
-
-// out[r][c] = round(tok[r][group(c)] . W[group(c)][c] + b[c]) for r < rows,
-// over ntok_pad (multiple of 16) token rows; only diagonal blocks multiply.
-__device__ void project_mma(const BF* tok, int ntok_pad, const BF* W,
-                            const BF* bvec, BF* out, int rows, const Layout& L,
-                            int d, int groups, float* scratch) {
-  const int warp = threadIdx.x >> 5;
-  const int tc = d / 16;
-  for (int t = warp; t < (ntok_pad / 16) * tc; t += NWARP) {
-    const int r0 = (t / tc) * 16, c0 = (t % tc) * 16;
-    const int g = group_of(L, c0, groups);
-    Frag acc;
-    wm::fill_fragment(acc, 0.f);
-    for (int k0 = L.gstart[g]; k0 < L.gstart[g + 1]; k0 += 16) {
-      wm::fragment<wm::matrix_a, 16, 16, 16, BF, wm::row_major> fa;
-      wm::fragment<wm::matrix_b, 16, 16, 16, BF, wm::row_major> fb;
-      wm::load_matrix_sync(fa, tok + r0 * d + k0, d);
-      wm::load_matrix_sync(fb, W + (size_t)k0 * d + c0, d);
-      wm::mma_sync(acc, fa, fb, acc);
+// out[r][c] = round(sum_k A[r][k] Wnk[c][k] (+ sum_k A2[r][k] W2nk[c][k])
+//                   + bias[c]) over the channels k of c's head group, for
+// rows_pad (a multiple of 16) rows. A, A2 and out are shared (row stride ld);
+// Wnk is global, [output channel][contracted channel], row stride d. Each
+// warp owns 16-column strips: it reads each weight fragment once per strip
+// and MAXRT row tiles, and rounds and stores from its accumulators.
+__device__ void project_strips(const BF* A, const BF* Wnk, const BF* A2,
+                               const BF* W2nk, const BF* bias, BF* out,
+                               int rows_pad, int ld, const Layout& L, int d,
+                               int groups) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g_ = lane >> 2, t_ = lane & 3;
+  for (int cs = warp; cs < d / 16; cs += NWARP) {
+    const int c0 = cs * 16, grp = group_of(L, c0, groups);
+    const int k0 = L.gstart[grp], k1 = L.gstart[grp + 1];
+    for (int rb = 0; rb < rows_pad; rb += 16 * MAXRT) {
+      float acc[MAXRT][2][4];
+#pragma unroll
+      for (int r = 0; r < MAXRT; ++r)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][n][e] = 0.f;
+      for (int pass = 0; pass < (A2 ? 2 : 1); ++pass) {
+        const BF* Ap = pass ? A2 : A;
+        const BF* Wp = pass ? W2nk : Wnk;
+#pragma unroll 2
+        for (int k = k0; k < k1; k += 16) {
+          const BF* w0 = Wp + (size_t)(c0 + g_) * d + k + 2 * t_;
+          const BF* w1 = w0 + (size_t)8 * d;
+          const uint32_t b00 = __ldg((const uint32_t*)w0), b01 = __ldg((const uint32_t*)(w0 + 8));
+          const uint32_t b10 = __ldg((const uint32_t*)w1), b11 = __ldg((const uint32_t*)(w1 + 8));
+#pragma unroll
+          for (int r = 0; r < MAXRT; ++r) {
+            if (rb + 16 * r < rows_pad) {
+              uint32_t af[4];
+              ldsm4(af, addr_a(Ap, ld, rb + 16 * r, k, lane));
+              mma16816(acc[r][0], af, b00, b01);
+              mma16816(acc[r][1], af, b10, b11);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < MAXRT; ++r) {
+        if (rb + 16 * r < rows_pad) {
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const int c = c0 + 8 * n + 2 * t_;
+            const float bl = bias ? __bfloat162float(bias[c]) : 0.f;
+            const float bh = bias ? __bfloat162float(bias[c + 1]) : 0.f;
+            BF* o = out + (size_t)(rb + 16 * r + g_) * ld + c;
+            *(uint32_t*)o = pack2(acc[r][n][0] + bl, acc[r][n][1] + bh);
+            *(uint32_t*)(o + (size_t)8 * ld) = pack2(acc[r][n][2] + bl, acc[r][n][3] + bh);
+          }
+        }
+      }
     }
-    tile_epilogue(acc, scratch, out, d, r0, c0, rows, bvec);
   }
 }
 
-// Copies window tokens that are already assembled (K6, K7) into shared
-// memory: nq query rows (then zero rows up to nqp) followed by nk_tot key
-// rows, 16 bytes a thread (d % 32 == 0 keeps every row a multiple of 16
-// bytes; the wrapper checks the base pointers).
-template <typename T>
-__device__ void load_tokens(const T* gq, const T* gk, int nq, int nqp,
-                            int nk_tot, int d, T* tokq) {
-  constexpr int V = 16 / sizeof(T);
-  const uint4* q4 = (const uint4*)gq;
-  const uint4* k4 = (const uint4*)gk;
-  uint4* tq4 = (uint4*)tokq;
-  uint4* tk4 = (uint4*)(tokq + (size_t)nqp * d);
-  const int nq4 = nq * d / V, nqp4 = nqp * d / V, nk4 = nk_tot * d / V;
-  for (int e = threadIdx.x; e < nqp4; e += NT)
-    tq4[e] = e < nq4 ? __ldg(q4 + e) : make_uint4(0u, 0u, 0u, 0u);
-  for (int e = threadIdx.x; e < nk4; e += NT) tk4[e] = __ldg(k4 + e);
+// ------------------------------------------- the (head, 16 queries) unit
+// One warp, from the projections in shared memory (row stride ld) to O, all
+// between registers: rows q0.. of head channels ch0.. against the ph-wide
+// key stripe at key0. The forwards and the backwards' recompute run this
+// same code, so K3's probabilities and O equal the ones K5 recomputes bit
+// for bit (and K6's equal K7's).
+//
+// p = softmax(Q_h K_h^T * scale + key_bias) over the stripe's nk keys, f32:
+// thread (g = lane / 4, t = lane % 4) holds rows g (e 0-1) and g + 8 (e 2-3)
+// at keys 8 j + 2 t, + 1. Max-subtracted; the normalisation is the plain
+// version's, a division by (sum + 1e-30), not a product with a reciprocal.
+__device__ __forceinline__ void unit_softmax(const BF* Qp, const BF* Kp, int ld,
+                                             int q0, int ch0, int key0, int nk,
+                                             int ph, const float* kb,
+                                             float scale, int lane,
+                                             float (&p)[MAXNKT][4]) {
+  const int t_ = lane & 3;
+#pragma unroll
+  for (int j = 0; j < MAXNKT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
+  for (int c = 0; c < ph; c += 16) {  // S = Q_h K_h^T
+    uint32_t af[4];
+    ldsm4(af, addr_a(Qp, ld, q0, ch0 + c, lane));
+#pragma unroll
+    for (int jp = 0; jp < MAXNKT / 2; ++jp) {
+      if (jp * 16 < nk) {
+        uint32_t bf[4];
+        ldsm4(bf, addr_b(Kp, ld, key0 + jp * 16, ch0 + c, lane));
+        mma16816(p[2 * jp], af, bf[0], bf[1]);
+        mma16816(p[2 * jp + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < MAXNKT; ++j) {
+    if (j * 8 < nk) {
+      const float k0v = kb[key0 + j * 8 + 2 * t_], k1v = kb[key0 + j * 8 + 2 * t_ + 1];
+      p[j][0] = p[j][0] * scale + k0v;
+      p[j][1] = p[j][1] * scale + k1v;
+      p[j][2] = p[j][2] * scale + k0v;
+      p[j][3] = p[j][3] * scale + k1v;
+      m0 = fmaxf(m0, fmaxf(p[j][0], p[j][1]));
+      m1 = fmaxf(m1, fmaxf(p[j][2], p[j][3]));
+    }
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAXNKT; ++j) {
+    if (j * 8 < nk) {
+      p[j][0] = expf(p[j][0] - m0);
+      p[j][1] = expf(p[j][1] - m0);
+      p[j][2] = expf(p[j][2] - m1);
+      p[j][3] = expf(p[j][3] - m1);
+      s0 += p[j][0] + p[j][1];
+      s1 += p[j][2] + p[j][3];
+    }
+  }
+  const float den0 = quad_sum(s0) + 1e-30f, den1 = quad_sum(s1) + 1e-30f;
+#pragma unroll
+  for (int j = 0; j < MAXNKT; ++j) {
+    if (j * 8 < nk) {
+      p[j][0] /= den0; p[j][1] /= den0;
+      p[j][2] /= den1; p[j][3] /= den1;
+    }
+  }
 }
 
-// Shared-memory plan of the forward kernels (byte offsets, 128-aligned);
-// the same code sizes the launch on the host:
-//   [0, r0): q/k tokens (T) | later scores (f32) + softmax weights (bf16)
-//   [r0, ..): Qp (later O), Kp, Vp (T); per-warp 16x16 f32 scratch (WMMA)
+// round(p) as the A fragments of a product over the keys.
+__device__ __forceinline__ void unit_pack(const float (&p)[MAXNKT][4], int nk,
+                                          uint32_t (&pa)[MAXNKT / 2][4]) {
+#pragma unroll
+  for (int j = 0; j < MAXNKT; ++j) {
+    if (j * 8 < nk) {
+      pa[j / 2][(j & 1) * 2] = pack2(p[j][0], p[j][1]);
+      pa[j / 2][(j & 1) * 2 + 1] = pack2(p[j][2], p[j][3]);
+    }
+  }
+}
+
+// O = round(P) V_h, rounded, into rows q0.. of Os at the head's channels.
+__device__ __forceinline__ void unit_value(const uint32_t (&pa)[MAXNKT / 2][4],
+                                           const BF* Vp, BF* Os, int ld, int q0,
+                                           int ch0, int key0, int nk, int ph,
+                                           int lane) {
+  const int g_ = lane >> 2, t_ = lane & 3;
+  for (int c = 0; c < ph; c += 16) {
+    float o[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int jp = 0; jp < MAXNKT / 2; ++jp) {
+      if (jp * 16 < nk) {
+        uint32_t bf[4];
+        ldsm4t(bf, addr_bt(Vp, ld, ch0 + c, key0 + jp * 16, lane));
+        mma16816(o[0], pa[jp], bf[0], bf[1]);
+        mma16816(o[1], pa[jp], bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      BF* op = Os + (size_t)(q0 + g_) * ld + ch0 + c + 8 * n + 2 * t_;
+      *(uint32_t*)op = pack2(o[n][0], o[n][1]);
+      *(uint32_t*)(op + (size_t)8 * ld) = pack2(o[n][2], o[n][3]);
+    }
+  }
+}
+
+// ------------------------------------------------------ the forward kernels
+// Shared-memory plan of the forward kernels (byte offsets, 128-aligned); the
+// same code sizes the launch on the host. Token and projection rows have
+// stride ld (d + 8 elements on the mma path, d else). stage_bytes are K3's
+// staged planes (0 for K6). Regions are reused once dead:
+//   tokq: q tokens -> the projected output rows before they go out (mma);
+//         with tokk the f32 scores, later probabilities (FMA)
+//   qp:   Qp -> O
 struct FwdPlan {
-  size_t s_bytes, r0, total;
-  __host__ __device__ FwdPlan(const Layout& L, int d, size_t es) {
-    const size_t hq = (size_t)L.tot_heads * L.nqp * L.nk;
-    const size_t tok = (size_t)(L.nqp + L.nk_tot) * d * es;
-    s_bytes = align128(hq * sizeof(float));
-    const size_t sa = s_bytes + (L.use_mma ? hq * sizeof(BF) : 0);
-    r0 = align128(tok > sa ? tok : sa);
-    total = r0 + (size_t)(L.nqp + 2 * L.nk_tot) * d * es +
-            (L.use_mma ? NWARP * 256 * sizeof(float) : 0);
+  int ld;
+  size_t tokq, tokk, qp, kp, vp, stage, total;
+  __host__ __device__ FwdPlan(const Layout& L, int d, size_t stage_bytes, size_t es) {
+    ld = L.use_mma ? d + 8 : d;
+    const size_t qrows = align128((size_t)L.nqp * ld * es);
+    const size_t krows = align128((size_t)L.nk_tot * ld * es);
+    const size_t scores =
+        L.use_mma ? 0 : align128((size_t)L.tot_heads * L.nqp * L.nk * sizeof(float));
+    size_t o = 0;
+    tokq = o; o += qrows;
+    tokk = o; o += krows;
+    if (o < scores) o = scores;
+    qp = o; o += qrows;
+    kp = o; o += krows;
+    vp = o; o += krows;
+    stage = o; o += align128(stage_bytes);
+    total = o;
   }
 };
 
-// The per-window forward from the tokens in shared memory (at sm.tokq, as
-// assemble/load_tokens leave them; the caller has synchronised) to the
-// output rows in global memory:
-//   2. q/k/v projections with the block-diagonal weights, f32 accumulation,
-//      + bias, rounded to T;
-//   3. per head: scores against its own group's key stripe, * scale + kb,
-//      softmax in f32, weights rounded to T, value product in f32;
-//   4. output projection + bias, written in T.
-// `a` supplies w[4], b[4], scale, nq, d, groups (AsmIn or the K6 inputs).
-// Pointers into the shared memory of one forward CTA (FwdPlan). Built before
-// the tokens are assembled or loaded: the compiler then keeps fewer
-// registers live through the core (64 against 80 a thread in bf16).
+// Pointers into the shared memory of one forward CTA (FwdPlan).
 template <typename T>
 struct FwdSmem {
+  int ld;
   T *tokq, *tokk, *Qp, *Kp, *Vp;
-  float *S, *scratch;
-  BF* A_;
-  __device__ __forceinline__ FwdSmem(unsigned char* smem_raw, const Layout& L, int d) {
-    const int nqp = L.nqp, nk_tot = L.nk_tot;
-    const FwdPlan P(L, d, sizeof(T));
-    tokq = (T*)smem_raw;
-    tokk = tokq + nqp * d;
+  float* S;
+  unsigned char* stage;
+  __device__ __forceinline__ FwdSmem(unsigned char* smem_raw, const FwdPlan& P) {
+    ld = P.ld;
+    tokq = (T*)(smem_raw + P.tokq);
+    tokk = (T*)(smem_raw + P.tokk);
     S = (float*)smem_raw;
-    A_ = (BF*)(smem_raw + P.s_bytes);
-    Qp = (T*)(smem_raw + P.r0);
-    Kp = Qp + nqp * d;
-    Vp = Kp + nk_tot * d;
-    scratch = (float*)(Vp + nk_tot * d) + (threadIdx.x >> 5) * 256;
+    Qp = (T*)(smem_raw + P.qp);
+    Kp = (T*)(smem_raw + P.kp);
+    Vp = (T*)(smem_raw + P.vp);
+    stage = smem_raw + P.stage;
   }
 };
 
+// One window's forward on the tensor cores (bf16, L.use_mma); a.wt are the
+// four projection weights transposed ([output][input] channel), so that every
+// weight fragment is two 4-byte global loads.
+template <typename A>
+__device__ void window_forward_mma(const A& a, const Layout& L,
+                                   const FwdSmem<BF>& s, const float* kb,
+                                   BF* gout) {
+  const int d = a.d, nq = a.nq, groups = a.groups, ld = s.ld;
+  const int nk_tot = L.nk_tot, nk = L.nk, ph = L.ph, nqp = L.nqp;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tq = nqp / 16;
+  project_strips(s.tokq, (const BF*)a.wt[0], nullptr, nullptr, (const BF*)a.b[0], s.Qp, nqp, ld, L, d, groups);
+  project_strips(s.tokk, (const BF*)a.wt[1], nullptr, nullptr, (const BF*)a.b[1], s.Kp, nk_tot, ld, L, d, groups);
+  project_strips(s.tokk, (const BF*)a.wt[2], nullptr, nullptr, (const BF*)a.b[2], s.Vp, nk_tot, ld, L, d, groups);
+  __syncthreads();
+  // per (head, 16 queries), in one warp: scores, softmax, O. O takes the
+  // unit's own tile of Qp, which only this warp reads, and only before.
+  for (int u = warp; u < L.tot_heads * tq; u += NWARP) {
+    const int h = u / tq, q0 = (u % tq) * 16;
+    const int key0 = L.head_group[h] * nk, ch0 = h * ph;
+    float p[MAXNKT][4];
+    uint32_t pa[MAXNKT / 2][4];
+    unit_softmax(s.Qp, s.Kp, ld, q0, ch0, key0, nk, ph, kb, a.scale, lane, p);
+    unit_pack(p, nk, pa);
+    unit_value(pa, s.Vp, s.Qp, ld, q0, ch0, key0, nk, ph, lane);
+  }
+  __syncthreads();
+  // output projection over the dead query tokens, then out 16 bytes a
+  // thread; rows past nq of a padded tile stay behind
+  project_strips(s.Qp, (const BF*)a.wt[3], nullptr, nullptr, (const BF*)a.b[3], s.tokq, nqp, ld, L, d, groups);
+  __syncthreads();
+  store_rows<BF>(gout, nq, d, ld, s.tokq);
+}
+
+// The same as FMA loops (f32, or bf16 layouts the tiles do not fit);
+// nqp == nq and ld == d. The scores and probabilities live in shared memory
+// as f32 (over the dead tokens), one thread a softmax row.
 template <typename T, typename A>
-__device__ __forceinline__ void attention_core(const A& a, const Layout& L,
-                                               const FwdSmem<T>& sm,
-                                               const float* kb, T* gout) {
+__device__ void window_forward_fma(const A& a, const Layout& L,
+                                   const FwdSmem<T>& sm, const float* kb,
+                                   T* gout) {
   using E = Elem<T>;
   const int d = a.d, nq = a.nq;
   const int nk_tot = L.nk_tot, nk = L.nk, ph = L.ph, H = L.tot_heads;
-  const int nqp = L.nqp;
-  T* tokq = sm.tokq;
-  T* tokk = sm.tokk;
   float* S = sm.S;
-  BF* A_ = sm.A_;
   T* Qp = sm.Qp;
   T* Kp = sm.Kp;
   T* Vp = sm.Vp;
-  float* scratch = sm.scratch;
-
-  if constexpr (std::is_same<T, BF>::value) {
-    if (L.use_mma) {
-      // 2. projections on the tensor cores
-      project_mma(tokq, nqp, (const BF*)a.w[0], (const BF*)a.b[0], Qp, nqp, L, d, a.groups, scratch);
-      project_mma(tokk, nk_tot, (const BF*)a.w[1], (const BF*)a.b[1], Kp, nk_tot, L, d, a.groups, scratch);
-      project_mma(tokk, nk_tot, (const BF*)a.w[2], (const BF*)a.b[2], Vp, nk_tot, L, d, a.groups, scratch);
-      __syncthreads();
-      // 3. per-head scores Q_h K_h^T over the head group's key stripe
-      const int warp = threadIdx.x >> 5;
-      const int tq = nqp / 16, tk = nk / 16;
-      for (int t = warp; t < H * tq * tk; t += NWARP) {
-        const int h = t / (tq * tk), q0 = ((t / tk) % tq) * 16, k0 = (t % tk) * 16;
-        const int key0 = L.head_group[h] * nk + k0;
-        wm::fragment<wm::accumulator, 16, 16, 16, float> acc;
-        wm::fill_fragment(acc, 0.f);
-        for (int c0 = 0; c0 < ph; c0 += 16) {
-          wm::fragment<wm::matrix_a, 16, 16, 16, BF, wm::row_major> fa;
-          wm::fragment<wm::matrix_b, 16, 16, 16, BF, wm::col_major> fb;
-          wm::load_matrix_sync(fa, Qp + q0 * d + h * ph + c0, d);
-          wm::load_matrix_sync(fb, Kp + key0 * d + h * ph + c0, d);
-          wm::mma_sync(acc, fa, fb, acc);
-        }
-        wm::store_matrix_sync(S + (h * nqp + q0) * nk + k0, acc, nk, wm::mem_row_major);
-      }
-      __syncthreads();
-      for (int row = threadIdx.x; row < H * nqp; row += NT) {
-        float* sr = S + row * nk;
-        const float* kbg = kb + L.head_group[row / nqp] * nk;
-        float m = -INFINITY;
-        for (int j = 0; j < nk; ++j) { sr[j] = sr[j] * a.scale + kbg[j]; m = fmaxf(m, sr[j]); }
-        float sum = 0.f;
-        for (int j = 0; j < nk; ++j) { const float ex = expf(sr[j] - m); sr[j] = ex; sum += ex; }
-        const float inv = 1.f / (sum + 1e-30f);
-        for (int j = 0; j < nk; ++j) A_[row * nk + j] = __float2bfloat16_rn(sr[j] * inv);
-      }
-      __syncthreads();
-      // value products A_h V_h into O (aliases Qp, dead after the scores)
-      BF* O = Qp;
-      const int tc = ph / 16;
-      for (int t = warp; t < H * tq * tc; t += NWARP) {
-        const int h = t / (tq * tc), q0 = ((t / tc) % tq) * 16, c0 = (t % tc) * 16;
-        const int key0 = L.head_group[h] * nk;
-        wm::fragment<wm::accumulator, 16, 16, 16, float> acc;
-        wm::fill_fragment(acc, 0.f);
-        for (int k0 = 0; k0 < nk; k0 += 16) {
-          wm::fragment<wm::matrix_a, 16, 16, 16, BF, wm::row_major> fa;
-          wm::fragment<wm::matrix_b, 16, 16, 16, BF, wm::row_major> fb;
-          wm::load_matrix_sync(fa, A_ + (h * nqp + q0) * nk + k0, nk);
-          wm::load_matrix_sync(fb, Vp + (key0 + k0) * d + h * ph + c0, d);
-          wm::mma_sync(acc, fa, fb, acc);
-        }
-        tile_epilogue(acc, scratch, O, d, q0, h * ph + c0, nqp, nullptr);
-      }
-      __syncthreads();
-      // 4. output projection straight to global memory
-      project_mma(O, nqp, (const BF*)a.w[3], (const BF*)a.b[3], (BF*)gout, nq, L, d, a.groups, scratch);
-      return;
-    }
-  }
-
-  // FMA path: 2. projections (block-diagonal: group channels only)
-  project<T>(tokq, nq, (const T*)a.w[0], (const T*)a.b[0], Qp, L, d, a.groups, nullptr);
-  project<T>(tokk, nk_tot, (const T*)a.w[1], (const T*)a.b[1], Kp, L, d, a.groups, nullptr);
-  project<T>(tokk, nk_tot, (const T*)a.w[2], (const T*)a.b[2], Vp, L, d, a.groups, nullptr);
+  project<T>(sm.tokq, nq, (const T*)a.w[0], (const T*)a.b[0], Qp, L, d, a.groups, nullptr);
+  project<T>(sm.tokk, nk_tot, (const T*)a.w[1], (const T*)a.b[1], Kp, L, d, a.groups, nullptr);
+  project<T>(sm.tokk, nk_tot, (const T*)a.w[2], (const T*)a.b[2], Vp, L, d, a.groups, nullptr);
   __syncthreads();
 
-  // 3. scores over each head's own key stripe, then row softmax
+  // scores over each head's own key stripe, then row softmax
   for (int e = threadIdx.x; e < H * nq * nk; e += NT) {
     const int h = e / (nq * nk), qi = (e / nk) % nq, kj = e % nk;
     const int key = L.head_group[h] * nk + kj;
@@ -411,8 +709,8 @@ __device__ __forceinline__ void attention_core(const A& a, const Layout& L,
     for (int j = 0; j < nk; ++j) m = fmaxf(m, sr[j]);
     float sum = 0.f;
     for (int j = 0; j < nk; ++j) { const float ex = expf(sr[j] - m); sr[j] = ex; sum += ex; }
-    const float inv = 1.f / (sum + 1e-30f);
-    for (int j = 0; j < nk; ++j) sr[j] = E::round(sr[j] * inv);
+    const float den = sum + 1e-30f;
+    for (int j = 0; j < nk; ++j) sr[j] = E::round(sr[j] / den);
   }
   __syncthreads();
 
@@ -428,8 +726,43 @@ __device__ __forceinline__ void attention_core(const A& a, const Layout& L,
   }
   __syncthreads();
 
-  // 4. output projection straight to global memory
+  // output projection straight to global memory
   project<T>(O, nq, (const T*)a.w[3], (const T*)a.b[3], nullptr, L, d, a.groups, gout);
+}
+
+// The per-window forward from the tokens in shared memory (sm.tokq, sm.tokk,
+// as assemble_staged/load_rows leave them; the caller has synchronised) to
+// the nq output rows in global memory:
+//   q/k/v projections with the block-diagonal weights, f32 accumulation,
+//   + bias, rounded to T; per head the scores against its own group's key
+//   stripe, * scale + kb, softmax in f32, weights rounded to T, value product
+//   in f32, O rounded to T; output projection + bias, written in T.
+// `a` supplies w[4], wt[4], b[4], scale, nq, d, groups.
+template <typename T, typename A>
+__device__ __forceinline__ void window_forward(const A& a, const Layout& L,
+                                               const FwdSmem<T>& sm,
+                                               const float* kb, T* gout) {
+  if constexpr (std::is_same<T, BF>::value) {
+    if (L.use_mma) {
+      window_forward_mma(a, L, sm, kb, gout);
+      return;
+    }
+  }
+  window_forward_fma<T>(a, L, sm, kb, gout);
+}
+
+// Launches a forward kernel over nw windows, one CTA a window. (A fixed grid
+// of CTAs that walk the windows, the backwards' form, measured 5-7% slower
+// for both forwards at block 0 of mssvt.yaml on an H100: PERF.md.)
+template <typename K, typename A>
+int launch_forward(K kernel, const A& a, const Layout& L, size_t smem, int nw,
+                   cudaStream_t stream) {
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<nw, NT, smem, stream>>>(a, L);
+  return launch_status();
 }
 
 }  // namespace

@@ -154,7 +154,7 @@ __global__ void __launch_bounds__(NT, 2) attn_qk_bwd_kernel(QkBwdArgs a, Layout 
 template <typename T>
 int launch_qk_bwd(const QkBwdArgs& a, Layout L, const WArgs& wa, int ncta,
                   float* dw, float* db, cudaStream_t stream) {
-  set_bwd_mma<T>(a.d, a.nq, L);
+  set_mma<T>(a.d, a.nq, L);
   if (a.nw > 0) {
     live_flags_kernel<T><<<(a.nw + NWARP - 1) / NWARP, NT, 0, stream>>>(a);
     if (int st = launch_status()) return st;
@@ -225,16 +225,16 @@ MSSVT_API int mssvt_attention_qk_bwd(const void* const* p, const int* dims,
 }
 
 // dims: nw, nq, nk_tot, d, groups, heads[4] -> out: the per-window kernel's
-// shared-memory bytes and its CTAs per SM
+// shared-memory bytes, its CTAs per SM, its registers
 MSSVT_API int mssvt_attention_qk_bwd_plan(const int* dims, int is_bf16, int* out) {
   Layout L{};
   const int nq = dims[1], d = dims[3];
   const int err = derive_layout(d, nq, dims[2], dims[4], dims + 5, L);
   if (err) return err;
   if (is_bf16) {
-    set_bwd_mma<__nv_bfloat16>(d, nq, L);
-    return plan_occupancy(attn_qk_bwd_kernel<__nv_bfloat16>, Plan(L, d, 0, 0, 2), out);
+    set_mma<__nv_bfloat16>(d, nq, L);
+    return plan_occupancy(attn_qk_bwd_kernel<__nv_bfloat16>, Plan(L, d, 0, 0, 2).total, out);
   }
-  set_bwd_mma<float>(d, nq, L);
-  return plan_occupancy(attn_qk_bwd_kernel<float>, Plan(L, d, 0, 0, 4), out);
+  set_mma<float>(d, nq, L);
+  return plan_occupancy(attn_qk_bwd_kernel<float>, Plan(L, d, 0, 0, 4).total, out);
 }

@@ -44,6 +44,8 @@ _SIGNATURES = {
     "mssvt_attention_bwd": [VP, VP, CF, CI, VP],
     "mssvt_attention_qk": [VP, VP, CF, CI, VP],
     "mssvt_attention_qk_bwd": [VP, VP, CF, CI, VP],
+    "mssvt_attention_plan": [VP, CI, VP],
+    "mssvt_attention_qk_plan": [VP, CI, VP],
     "mssvt_attention_bwd_plan": [VP, CI, VP],
     "mssvt_attention_qk_bwd_plan": [VP, CI, VP],
     "mssvt_ffn": [VP, VP, VP, VP, VP, VP, VP, VP, CI, CI, CI, CF, CI, VP],
@@ -147,11 +149,20 @@ def require(t: torch.Tensor, name: str, dtype=None, shape=None, device=None):
 
 
 def kernel_plan(entry: str, dims, bf16: bool):
-    """(shared-memory bytes of one CTA, CTAs an SM holds) of a per-window
-    backward kernel at the layout ``dims``, from the CUDA occupancy API."""
-    out = (CI * 2)()
+    """(shared-memory bytes of one CTA, CTAs an SM holds, registers a
+    thread) of a per-window attention kernel at the layout ``dims``, from the
+    CUDA occupancy API and the kernel's attributes."""
+    out = (CI * 3)()
     check(getattr(lib(), entry)((CI * len(dims))(*dims), int(bf16), out), entry)
-    return out[0], out[1]
+    return out[0], out[1], out[2]
+
+
+def transposed(weights):
+    """Contiguous transposes ([output][input] channel) of (D, D) projection
+    weights: the tensor-core paths of the attention kernels read a weight
+    fragment as two 4-byte loads from them. The transposes are slices of
+    one buffer, made by two launches whatever the number of weights."""
+    return list(torch.stack(list(weights)).transpose(1, 2).contiguous())
 
 
 def ptr_array(tensors):

@@ -19,7 +19,9 @@ compute dtype ``T`` (bf16 for ``mssvt.yaml``, f32 for the f32 configs):
 Windows at or past ``num_valid`` return zeros. Callers apply their query
 mask afterwards, as the JAX module does.
 
-CUDA tensors go to ``csrc/attention.cu``; CPU tensors to
+CUDA tensors go to ``csrc/attention.cu`` (which also gets the four weights
+transposed: its tensor-core path reads them as [output][input] channel);
+CPU tensors to
 :func:`attention_plain`. The module also holds :func:`attention_bwd_plain`,
 the plain version of K5, the backward (``kernels/attention_bwd.py``), and
 the two per-window cores on assembled tokens that those share with the plain
@@ -285,6 +287,15 @@ def kernel_inputs(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel,
     return t, nq, tensors, dims
 
 
+def kernel_plan(n1cap, nk1, nk2, nq, d, num_heads, bf16=True,
+                entry="mssvt_attention_plan"):
+    """(shared-memory bytes, CTAs per SM, registers a thread) of K3's
+    kernel (or, by ``entry``, K5's per-window kernel) at a layout."""
+    heads = list(num_heads) + [0] * (MAX_GROUPS - len(num_heads))
+    return _lib.kernel_plan(
+        entry, [0, n1cap, nk1, nk2, nq, d, len(num_heads), 1, *heads], bf16)
+
+
 def fused_window_attention_assembled(
         win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
         pos_base, pos_w, proj, key_bias, num_heads, scale, q_prefix, nq=0,
@@ -303,8 +314,9 @@ def fused_window_attention_assembled(
     nw, _, d = win1_fea.shape
     out = torch.empty((nw, nq, d), dtype=t, device=win1_fea.device)
     err = _lib.lib().mssvt_attention(
-        _lib.ptr_array(tensors + [out]), (ctypes.c_int * len(dims))(*dims),
-        float(scale), int(t == torch.bfloat16), _lib.stream_ptr(win1_fea))
+        _lib.ptr_array(tensors + [out] + _lib.transposed(tensors[14:18])),
+        (ctypes.c_int * len(dims))(*dims), float(scale),
+        int(t == torch.bfloat16), _lib.stream_ptr(win1_fea))
     _lib.check(err, "mssvt_attention")
     launches += 1
     return out

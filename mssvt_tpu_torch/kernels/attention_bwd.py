@@ -37,11 +37,10 @@ NSPLIT = 32
 
 
 def kernel_plan(n1cap, nk1, nk2, nq, d, num_heads, bf16=True):
-    """(shared-memory bytes, CTAs per SM) of K5's per-window kernel."""
-    heads = list(num_heads) + [0] * (attention.MAX_GROUPS - len(num_heads))
-    return _lib.kernel_plan(
-        "mssvt_attention_bwd_plan",
-        [0, n1cap, nk1, nk2, nq, d, len(num_heads), 1, *heads], bf16)
+    """(shared-memory bytes, CTAs per SM, registers a thread) of K5's
+    per-window kernel."""
+    return attention.kernel_plan(n1cap, nk1, nk2, nq, d, num_heads, bf16,
+                                 "mssvt_attention_bwd_plan")
 
 
 def fused_window_attention_assembled_bwd(
@@ -51,12 +50,22 @@ def fused_window_attention_assembled_bwd(
     """Cotangents ``(dwin1, dk2, dq_ext, dpad_row, dpos_base, dpos_w,
     dproj)`` of :func:`attention.fused_window_attention_assembled` for the
     output cotangent ``g`` (same contract as ``attention_bwd_plain``)."""
-    global launches
     args = (win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
             pos_base, pos_w, proj, key_bias, g, num_heads, scale, q_prefix,
             nq, pad_row, num_valid, compute_dtype)
     if win1_fea.device.type == "cpu":
         return attention.attention_bwd_plain(*args)
+    return _launch(*args)[0]
+
+
+def _launch(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
+            pos_base, pos_w, proj, key_bias, g, num_heads, scale, q_prefix,
+            nq, pad_row, num_valid, compute_dtype):
+    """Launches K5 on CUDA tensors; returns (the cotangents, ``os``). ``os``
+    (NW, nq, D) is the rounded attention output that the backward recomputed,
+    the operand of the out-projection's weight product (rows of windows at or
+    past ``num_valid`` are not written)."""
+    global launches
     if pad_row is None or num_valid is None:
         raise ValueError("attention_bwd kernel: needs pad_row and num_valid "
                          "(the MsSVT block's training inputs)")
@@ -87,7 +96,7 @@ def fused_window_attention_assembled_bwd(
     dw = empty(4, d, d, dtype=torch.float32)
     db = empty(4, d, dtype=torch.float32)
     dposw = empty(3, d, dtype=torch.float32)
-    wts = [w.t().contiguous() for w in tensors[14:17]]
+    wts = _lib.transposed(tensors[14:17])
     ptrs = _lib.ptr_array(tensors + [
         g, dwin1, dk2, dqext, dpad, dbase,
         xq, xk, dqs, dks, dvs, os_, wpart, cpart, dw, db, dposw, *wts])
@@ -99,7 +108,7 @@ def fused_window_attention_assembled_bwd(
     launches += 1
     dproj = tuple(x.to(p.dtype) for x, p in zip(
         (dw[0], db[0], dw[1], db[1], dw[2], db[2], dw[3], db[3]), proj))
-    return dwin1, dk2, dqext, dpad, dbase, dposw.to(pos_w.dtype), dproj
+    return (dwin1, dk2, dqext, dpad, dbase, dposw.to(pos_w.dtype), dproj), os_
 
 
 class AssembledAttention(torch.autograd.Function):

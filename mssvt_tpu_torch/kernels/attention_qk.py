@@ -15,8 +15,9 @@ custom VJP ``_fused_attention``. Per window, in the compute dtype ``T``:
 It has no ``num_valid``: every window is computed, as in JAX. Callers apply
 their query mask afterwards.
 
-CUDA tensors go to ``csrc/attention_qk.cu`` (K3's per-window core on tokens
-copied from device memory); CPU tensors to :func:`attention_qk_plain`. The
+CUDA tensors go to ``csrc/attention_qk.cu`` (K3's per-window forward on
+tokens copied from device memory; it also gets the four weights transposed);
+CPU tensors to :func:`attention_qk_plain`. The
 backward, K7, is ``kernels/attention_qk_bwd.py``.
 """
 
@@ -76,6 +77,15 @@ def kernel_inputs(query, keys, proj, key_bias, num_heads, compute_dtype, name):
     return t, tensors, dims
 
 
+def kernel_plan(nq, nk_tot, d, num_heads, bf16=True,
+                entry="mssvt_attention_qk_plan"):
+    """(shared-memory bytes, CTAs per SM, registers a thread) of K6's
+    kernel (or, by ``entry``, K7's per-window kernel) at a layout."""
+    heads = list(num_heads) + [0] * (MAX_GROUPS - len(num_heads))
+    return _lib.kernel_plan(entry, [0, nq, nk_tot, d, len(num_heads), *heads],
+                            bf16)
+
+
 def fused_window_attention(query, keys, proj, key_bias, num_heads, scale,
                            compute_dtype=None):
     """(NW, nq, D) window attention from assembled query and key tokens."""
@@ -87,8 +97,9 @@ def fused_window_attention(query, keys, proj, key_bias, num_heads, scale,
                                      compute_dtype, "attention_qk")
     out = torch.empty_like(query)
     err = _lib.lib().mssvt_attention_qk(
-        _lib.ptr_array(tensors + [out]), (ctypes.c_int * len(dims))(*dims),
-        float(scale), int(t == torch.bfloat16), _lib.stream_ptr(query))
+        _lib.ptr_array(tensors + [out] + _lib.transposed(tensors[2:6])),
+        (ctypes.c_int * len(dims))(*dims), float(scale),
+        int(t == torch.bfloat16), _lib.stream_ptr(query))
     _lib.check(err, "mssvt_attention_qk")
     launches += 1
     return out

@@ -53,10 +53,10 @@ def attention_qk_bwd_plain(query, keys, proj, key_bias, g, num_heads, scale,
 
 
 def kernel_plan(nq, nk_tot, d, num_heads, bf16=True):
-    """(shared-memory bytes, CTAs per SM) of K7's per-window kernel."""
-    heads = list(num_heads) + [0] * (attention_qk.MAX_GROUPS - len(num_heads))
-    return _lib.kernel_plan("mssvt_attention_qk_bwd_plan",
-                            [0, nq, nk_tot, d, len(num_heads), *heads], bf16)
+    """(shared-memory bytes, CTAs per SM, registers a thread) of K7's
+    per-window kernel."""
+    return attention_qk.kernel_plan(nq, nk_tot, d, num_heads, bf16,
+                                    "mssvt_attention_qk_bwd_plan")
 
 
 def fused_window_attention_bwd(query, keys, proj, key_bias, g, num_heads,
@@ -90,7 +90,7 @@ def fused_window_attention_bwd(query, keys, proj, key_bias, g, num_heads,
     cpart = empty(max(ncta, 1), 4, d, dtype=torch.float32)
     dw = empty(4, d, d, dtype=torch.float32)
     db = empty(4, d, dtype=torch.float32)
-    wts = [w.t().contiguous() for w in tensors[2:5]]
+    wts = _lib.transposed(tensors[2:5])
     flags = empty(nw, dtype=torch.int32)
     last_list = empty(nw + 1, dtype=torch.int32)
     ptrs = _lib.ptr_array(tensors + [g, dq, dk, dqs, dks, dvs, os_, wpart,

@@ -383,6 +383,135 @@ def test_attention_bwd_kernel_num_valid(dev, nv, nq):
         assert (got[name][nv:] == 0).all()
 
 
+def _layout_args(dev, dtype, nw, nq, nk, num_heads, d, seed=13):
+    """Assembled-attention inputs (pad keys, q_prefix) at a free layout:
+    ``nk`` keys a head group (half of them FPS picks), capacity 48."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    groups = len(num_heads)
+    nk_tot = nk * groups
+    nk1 = nk_tot // 2
+    n1cap = max(48, nq)
+    sd = [d // sum(num_heads) * h for h in num_heads]
+    proj = []
+    for _ in range(4):
+        w = torch.zeros(d, d)
+        s0 = 0
+        for n in sd:
+            w[s0:s0 + n, s0:s0 + n] = r(n, n) * 0.15
+            s0 += n
+        proj += [w.to(dev, dtype), (r(d) * 0.1).to(dev, dtype)]
+    keep = (torch.rand(nw, nq, generator=g) > 0.2).float()
+    args = dict(
+        win1_fea=r(nw, n1cap, d).to(dev, dtype),
+        k2_fea=r(nw, nk_tot - nk1, d).to(dev, dtype),
+        fps1=torch.randint(0, n1cap, (nw, nk1), generator=g,
+                           dtype=torch.int32).to(dev),
+        k_mask1=(torch.rand(nw, nk1, generator=g) < 0.3).to(dev),
+        q_ext=None, q_keep=keep.to(dev),
+        k_rel=tuple(r(nw, nk_tot).to(dev) for _ in range(3)),
+        q_rel=tuple(r(nw, nq).to(dev) for _ in range(3)),
+        pos_base=r(nw, d).to(dev, dtype), pos_w=r(3, d).to(dev, dtype),
+        proj=tuple(proj),
+        key_bias=torch.where(torch.rand(nw, nk_tot, generator=g) < 0.2,
+                             -100.0, 0.0).to(dev),
+        num_heads=num_heads, scale=(d // sum(num_heads)) ** -0.5,
+        q_prefix=True, nq=nq, pad_row=r(nw, d).to(dev, dtype),
+        num_valid=torch.tensor(nw - 3, device=dev), compute_dtype=dtype)
+    return args, keep.to(dev)[..., None]
+
+
+# (nq, keys a head group, heads, D): D = 64; more queries than keys in all
+# (the two layouts whose buffers are the tightest); then two bf16 layouts the
+# tensor-core tiles do not fit, which take the FMA path: head width 8, and a
+# key stripe of 48
+FWD_LAYOUTS = [(32, 16, (4,), 64), (18, 16, (2, 2), 64), (48, 16, (2, 2), 128),
+               (32, 16, (8, 8), 128), (32, 48, (2, 2), 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [0, 17, 37, None])
+@pytest.mark.parametrize("nq", [32, 18])
+def test_attention_kernel_num_valid(dev, nv, nq):
+    """K3 with no live window, some, all of the 37 and without num_valid:
+    against the plain version in bf16 after the query mask, zeros at and
+    past num_valid, and a second call bit-identical."""
+    dtype = torch.bfloat16
+    args, keep = _attn_args(dev, dtype, True, True, (2, 2), nq)
+    args["num_valid"] = None if nv is None else torch.tensor(nv, device=dev)
+    got = attention.fused_window_attention_assembled(**args)
+    again = attention.fused_window_attention_assembled(**args)
+    want = attention.attention_plain(**args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if nv != 0:
+        _close(got * keep, want * keep, dtype)
+    if nv is not None:
+        assert (got[nv:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nk,num_heads,d", FWD_LAYOUTS)
+def test_attention_kernel_layouts(dev, nq, nk, num_heads, d):
+    """K3 in bf16 at the layouts of FWD_LAYOUTS: against the plain version,
+    and a repeated call bit-identical."""
+    dtype = torch.bfloat16
+    args, keep = _layout_args(dev, dtype, 301, nq, nk, num_heads, d)
+    want = attention.attention_plain(**args)
+    outs = [attention.fused_window_attention_assembled(**args)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    _close(outs[0] * keep, want * keep, dtype)
+    assert (outs[0][298:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nk,num_heads,d", FWD_LAYOUTS)
+def test_attention_qk_kernel_layouts(dev, nq, nk, num_heads, d):
+    """K6 in bf16 at the same layouts: against the plain version on every
+    window; a repeated call bit-identical."""
+    dtype = torch.bfloat16
+    a, _ = _layout_args(dev, dtype, 301, nq, nk, num_heads, d)
+    g = torch.Generator().manual_seed(5)
+    nw, nk_tot = a["key_bias"].shape
+    args = dict(query=torch.randn(nw, nq, d, generator=g).to(dev, dtype),
+                keys=torch.randn(nw, nk_tot, d, generator=g).to(dev, dtype),
+                proj=a["proj"], key_bias=a["key_bias"], num_heads=num_heads,
+                scale=a["scale"], compute_dtype=dtype)
+    want = attention_qk.attention_qk_plain(**args)
+    outs = [attention_qk.fused_window_attention(**args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    _close(outs[0], want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [32, 18])
+def test_attention_forward_equals_backward_recompute(dev, nq):
+    """K3 and K5 run the same code from the planes to O (assembly,
+    projections, scores, softmax with the plain version's division, value
+    product). With an identity output projection and no output bias K3
+    returns O itself, so it must equal, bit for bit, the rounded O that K5
+    recomputes and writes as the operand of its out-projection weight
+    product, on every live window."""
+    dtype = torch.bfloat16
+    args, _ = _attn_args(dev, dtype, True, True, (2, 2), nq)
+    d = args["win1_fea"].shape[2]
+    proj = list(args["proj"])
+    proj[6] = torch.eye(d, device=dev, dtype=dtype)
+    proj[7] = torch.zeros(d, device=dev, dtype=dtype)
+    args["proj"] = tuple(proj)
+    out = attention.fused_window_attention_assembled(**args)
+    g = torch.Generator().manual_seed(9)
+    _, os_ = attention_bwd._launch(
+        **args, g=torch.randn(out.shape, generator=g).to(dev, dtype))
+    torch.cuda.synchronize()
+    nv = int(args["num_valid"])
+    assert out[:nv].abs().max() > 0
+    assert torch.equal(out[:nv], os_[:nv])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_attention_function_gradients(dev, dtype):

@@ -20,7 +20,7 @@ from mssvt_tpu.ops.pallas_fill import (
     fill_capacity_buffer_xla,
 )
 from mssvt_tpu.ops.pallas_fps import farthest_point_sample_planes_pallas_t_sel
-from mssvt_tpu_torch.kernels import attention, ffn, fill, fps
+from mssvt_tpu_torch.kernels import _lib, attention, attention_qk, ffn, fill, fps
 
 torch.set_num_threads(2)
 
@@ -125,9 +125,8 @@ def _blockdiag(blocks, d):
     return out
 
 
-def _attn_inputs(q_prefix, pad_keys, rng):
-    nw, n1cap, nk1, nk2, d = 20, 24, 8, 8, 64
-    nq = 12
+def _attn_inputs(q_prefix, pad_keys, rng, nq=12, d=64):
+    nw, n1cap, nk1, nk2 = 20, 24, 8, 8
     num_heads = (2, 2)
     sd = d // 2
     f = lambda *s: rng.normal(size=s).astype(np.float32)
@@ -185,6 +184,96 @@ def test_attention_plain_matches_pallas(q_prefix, pad_keys):
     np.testing.assert_allclose((got * keep)[:nv], (want * keep)[:nv],
                                atol=1e-4, rtol=1e-4)
     assert (got[nv:] == 0).all()
+
+
+@pytest.mark.parametrize("nq,d", [(18, 64), (18, 128)])
+def test_attention_plain_matches_pallas_at_card_test_shapes(nq, d):
+    """The plain version at the query count and widths the card tests add
+    for the CUDA forward (18 queries, which pad the 16-row tiles there; D =
+    64 and 128): f32 against the Pallas kernel in interpret mode, as above."""
+    a = _attn_inputs(True, True, np.random.default_rng(11), nq=nq, d=d)
+    qm = a.pop("qm")
+    nv = 13
+    got = attention.attention_plain(
+        **_map_arrays(a, _t), num_valid=torch.tensor(nv),
+        compute_dtype=torch.float32).numpy()
+    j_args = _map_arrays(a, jnp.asarray)
+    j_args["q_ext"] = jnp.zeros((qm.shape[0], 1, d), jnp.float32)
+    want = np.asarray(fused_window_attention_assembled(
+        **j_args, num_valid=jnp.asarray(nv, jnp.int32), window_block=8,
+        interpret=True, compute_dtype=jnp.float32))
+    keep = (~qm)[..., None]
+    np.testing.assert_allclose((got * keep)[:nv], (want * keep)[:nv],
+                               atol=1e-4, rtol=1e-4)
+    assert (got[nv:] == 0).all()
+
+
+# ------------------------------------- host-side preparation of K3 and K6
+def test_transposed_weights_are_contiguous_transposes():
+    """The forwards' and backwards' tensor-core paths read the projection
+    weights as [output][input] channel: the copies the wrappers pass."""
+    a = _attn_inputs(True, True, np.random.default_rng(3))
+    ws = [_t(w) for w in a["proj"][0::2]]
+    wts = _lib.transposed(ws)
+    assert len(wts) == 4
+    for w, wt in zip(ws, wts):
+        assert wt.is_contiguous() and torch.equal(wt, w.mT.contiguous())
+        assert not torch.equal(wt, w)  # the blocks are not symmetric
+
+
+def test_forward_wrappers_take_the_plain_version_on_the_cpu():
+    """A CPU tensor goes to the plain version and launches nothing."""
+    a = _attn_inputs(True, True, np.random.default_rng(3))
+    a.pop("qm")
+    t_args = _map_arrays(a, _t)
+    before = (attention.launches, attention_qk.launches)
+    got = attention.fused_window_attention_assembled(
+        **t_args, num_valid=torch.tensor(13), compute_dtype=torch.float32)
+    want = attention.attention_plain(
+        **t_args, num_valid=torch.tensor(13), compute_dtype=torch.float32)
+    assert torch.equal(got, want)
+    q, k = t_args["win1_fea"][:, :12], t_args["win1_fea"][:, 8:]
+    qk = dict(proj=t_args["proj"], key_bias=t_args["key_bias"],
+              num_heads=(2, 2), scale=0.25)
+    assert torch.equal(attention_qk.fused_window_attention(q, k, **qk),
+                       attention_qk.attention_qk_plain(q, k, **qk))
+    assert (attention.launches, attention_qk.launches) == before
+
+
+def test_kernel_inputs_refuse_what_the_kernels_do_not_take():
+    """The checks in front of the CUDA forwards (pure Python, so they run
+    here): the tensors come back in the order the C entries read them, with
+    the four weights where the wrappers take them for transposing; a width
+    that is no multiple of 32, mixed dtypes or a wrong shape raise."""
+    a = _attn_inputs(True, True, np.random.default_rng(3))
+    a.pop("qm")
+    t_args = _map_arrays(a, _t)
+    scale = t_args.pop("scale")
+    extra = dict(num_valid=torch.tensor(13), compute_dtype=torch.float32,
+                 name="attention")
+    t, nq, tensors, dims = attention.kernel_inputs(**t_args, **extra)
+    assert (t, nq, len(tensors)) == (torch.float32, 12, 25)
+    assert dims == [20, 24, 8, 8, 12, 64, 2, 1, 2, 2, 0, 0]
+    for w, got in zip(t_args["proj"][0::2], tensors[14:18]):
+        assert torch.equal(w, got)
+    narrow = dict(t_args, win1_fea=t_args["win1_fea"][..., :48].contiguous())
+    with pytest.raises(ValueError):
+        attention.kernel_inputs(**narrow, **extra)
+    with pytest.raises(TypeError):
+        attention.kernel_inputs(**dict(t_args, k2_fea=t_args["k2_fea"].bfloat16()),
+                                **extra)
+    q, k = t_args["win1_fea"][:, :12].contiguous(), t_args["win1_fea"]
+    t, tensors, dims = attention_qk.kernel_inputs(
+        q, k, t_args["proj"], torch.zeros(20, 24), (2, 2), None, "attention_qk")
+    assert dims == [20, 12, 24, 64, 2, 2, 2, 0, 0]
+    for w, got in zip(t_args["proj"][0::2], tensors[2:6]):
+        assert torch.equal(w, got)
+    with pytest.raises(TypeError):
+        attention_qk.kernel_inputs(q, k.bfloat16(), t_args["proj"],
+                                   torch.zeros(20, 24), (2, 2), None, "k6")
+    with pytest.raises(ValueError):  # keys do not split over 3 head groups
+        attention_qk.kernel_inputs(q, k[:, :23].contiguous(), t_args["proj"],
+                                   torch.zeros(20, 23), (2, 1, 1), None, "k6")
 
 
 # ------------------------------------------------------------------- K4 FFN
