@@ -15,13 +15,16 @@ Phases (any failed check raises and the script exits non-zero):
 4. per kernel, at ``mssvt.yaml`` block-0 shapes on inputs the port itself
    produced from a synthetic Waymo-scale scene: the CUDA kernel against its
    plain version on the card (fill and FPS exactly, attention and FFN within
-   the bf16 tolerance below), both timed with CUDA events; K3 is also
-   timed at the shapes of the other two MsSVT blocks of that forward and
-   with a fixed grid of CTAs that walk the windows, and its shared memory,
-   CTAs an SM and registers are printed;
+   the bf16 tolerance below), both timed with CUDA events; K2, K3 and K4
+   are also held against their plain versions and timed at the shapes of
+   the other two MsSVT blocks of that forward; K3's and K4's shared memory,
+   CTAs an SM and registers are printed, and the unfused bf16 chain of
+   PyTorch calls at K4's block-0 inputs is timed as K4's yardstick;
 5. the main path: ``mssvt.yaml`` CenterPoint, full width, bf16, seeded
-   random weights, answering 3 requests (3 distinct scenes of batch 4),
-   with the kernel launch counts of every request checked;
+   random weights: one warm-up request, then 10 requests cycling 3
+   distinct scenes of batch 4, with the kernel launch counts of every
+   request checked; host-clock mean, median and min-max; then the headline
+   number, the device time of one profiled request (``torch.profiler``);
 6a. small-input training reference: one f32 ``mssvt_tiny.yaml`` training
    step on the card against the CPU plain path (loss within 1e-4 relative,
    every gradient within 1e-3 of the global gradient norm);
@@ -29,13 +32,15 @@ Phases (any failed check raises and the script exits non-zero):
    inputs of a full-width training forward and backward: the CUDA kernel
    against its plain version (each cotangent within the bf16 tolerance),
    twice with bit-identical results, both timed with CUDA events;
-6c. the training path: 3 ``train_step``s of ``mssvt.yaml`` at full width,
-   bf16, batch 4 on 3 scenes with seeded GT boxes, ``adam_onecycle`` with
-   ``GRAD_NORM_CLIP: 10``: finite loss and gradient norm, a finite gradient
-   for every parameter, nonzero ones for the 3D backbone's attention,
-   position and FFN parameters and the head, the launch counts of every
-   step; then step 1's forward and backward again from the same weights,
-   batch and DropPath generator state, with bit-identical gradients.
+6c. the training path: one warm-up and 10 measured ``train_step``s of
+   ``mssvt.yaml`` at full width, bf16, batch 4 cycling 3 scenes with
+   seeded GT boxes, ``adam_onecycle`` with ``GRAD_NORM_CLIP: 10``: finite
+   loss and gradient norm, a finite gradient for every parameter, nonzero
+   ones for the 3D backbone's attention, position and FFN parameters and
+   the head, the launch counts of every step; then the first measured
+   step's forward and backward again from the same weights, batch and
+   DropPath generator state, with bit-identical gradients; host-clock
+   mean, median and min-max, and the device time of one profiled step.
 7a. as 6a with ``ref_compat_keys: False`` on the MsSVT blocks: the tiny
    model then trains through the outside assembly and K6/K7 (the window
    attention on pre-assembled tokens, forward and backward).
@@ -46,20 +51,21 @@ Phases (any failed check raises and the script exits non-zero):
    per-window kernel walked (those whose ``g`` has a nonzero element) is
    printed beside the total; K6 is also timed at the other two MsSVT
    blocks' shapes and with a fixed grid.
-7c. the flag-off training path: 3 ``train_step``s of ``mssvt.yaml`` with
-   ``ref_compat_keys: False`` set on the loaded config, checked as 6c.
+7c. the flag-off training path: ``train_step``s of ``mssvt.yaml`` with
+   ``ref_compat_keys: False`` set on the loaded config, run and checked as
+   6c.
 7d. the selection-free FPS entry point
    ``ops.sampling.farthest_point_sample_planes`` on block 0's planes (N = 96,
    K2b) and on 4 096 rows of 2 048 seeded points (K2c): picks equal to the
    plain version's, launch counts checked. (Phase 4 holds and times K2b and
    K2c beside K2.)
 
-With ``--profile`` one more request and one more training step run under
-``torch.profiler`` and the device time per kernel name is printed (top
-entries, and their sum as a share of the mean unprofiled request or step
-time) with the device time of each K3 launch inside the request and the
-pad-key step and of each K6 launch inside the flag-off step, and phases 6b
-and 7b print the device time of each launch inside one K5 and one K7 call
+The profiled request and steps print the device time per kernel name (top
+entries, and their sum as a share of the median unprofiled request or step
+time) with the device time of each K2, K3 and K4 launch inside the request,
+of each K2 and K3 launch inside the pad-key step and of each K2 and K6
+launch inside the flag-off step. With ``--profile`` phases 6b and 7b also
+print the device time of each launch inside one K5 and one K7 call
 (per-window kernel, weight product, final sums, K7's pre-pass).
 
 Its last lines are the card line, one ``{"kernels": [...]}`` JSON line and
@@ -99,7 +105,8 @@ EXPECTED_LAUNCHES = launches(fill=5, fps=3, attention=3, ffn=3)
 TRAIN_LAUNCHES = launches(fill=5, fps=3, attention=3, attention_bwd=3)
 FLAG_OFF_LAUNCHES = launches(fill=5, fps=3, attention_qk=3, attention_qk_bwd=3)
 SAMPLING_LAUNCHES = launches(fps_picks_warp=1, fps_picks_block=1)
-TRAIN_STEPS = 3
+REQUESTS = 10     # measured requests after one warm-up, cycling the scenes
+TRAIN_STEPS = 10  # measured steps of each kind after one warm-up step
 FPS_BLOCK_SHAPE = (4096, 2048, 512)  # K2c: rows, points a row, picks
 GRID = (480, 480, 32)
 VOXEL = (0.32, 0.32, 0.1875)
@@ -132,6 +139,18 @@ def time_ms(torch, fn, reps, warm=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def median(times):
+    t = sorted(times)
+    mid = len(t) // 2
+    return t[mid] if len(t) % 2 else (t[mid - 1] + t[mid]) / 2
+
+
+def stats_line(times):
+    """mean, median and min-max of host-clock times (ms)."""
+    return (f"mean {sum(times) / len(times):.1f}, median {median(times):.1f}, "
+            f"min-max {min(times):.1f}-{max(times):.1f} ms over {len(times)}")
 
 
 def to_device(torch, scene, dev):
@@ -271,10 +290,13 @@ def kernel_row(name, err, ms, plain_ms, bound_ms, bound_by):
                 bound_by=bound_by, library_ms=None)
 
 
+ALL_BLOCKS = ("fps", "attention", "ffn")  # timed at every MsSVT block
+
+
 def capture_first_calls(torch, model, batch):
     """Run one forward, recording each inference kernel wrapper's first call
-    (block 0 for all four) and, under "attention_all", every K3 call (the
-    three MsSVT blocks in order)."""
+    (block 0 for all four) and, under "<name>_all", every call of the
+    kernels in ALL_BLOCKS (the three MsSVT blocks in order)."""
     from mssvt_tpu_torch import kernels
 
     captured, saved = {}, {}
@@ -286,8 +308,8 @@ def capture_first_calls(torch, model, batch):
 
         def rec(*a, _n=name, _f=orig, **k):
             captured.setdefault(_n, (a, k))
-            if _n == "attention":
-                captured.setdefault("attention_all", []).append((a, k))
+            if _n in ALL_BLOCKS:
+                captured.setdefault(_n + "_all", []).append((a, k))
             return _f(*a, **k)
 
         setattr(mod, fname, rec)
@@ -419,23 +441,55 @@ def kernel_phase(torch, captured):
             f"bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={err:.3g} "
             f"inputs={shapes}")
         del got, want
-    attention = kernels.KERNELS["attention"]
     a, k = captured["attention"]
-    log_plan("attention", attention.kernel_plan(*asm_layout(a, k)))
+    log_plan("attention", kernels.KERNELS["attention"].kernel_plan(
+        *asm_layout(a, k)))
+    x, w1 = captured["ffn"][0][0], captured["ffn"][0][3]
+    log_plan("ffn", kernels.KERNELS["ffn"].kernel_plan(x.shape[1],
+                                                       w1.shape[1]))
+    ffn_chain(torch, *captured["ffn"])
     with torch.no_grad():
-        # the later blocks' calls (fewer windows, query tiles padded from
-        # nq = 8) are held against the plain version too
-        for a, k in captured["attention_all"][1:]:
-            compare("attention",
-                    attention.fused_window_attention_assembled(*a, **k),
-                    attention.attention_plain(*a, **k), a, k, torch)
-            ms = time_ms(
-                torch, lambda: attention.fused_window_attention_assembled(
-                    *a, **k), reps=10, warm=2)
-            log(f"# kernel attention at a later block: ms={ms:.4f} windows="
-                f"{a[0].shape[0]} num_valid={int(k['num_valid'])} layout "
-                f"(n1cap, nk1, nk2, nq, d, heads)={asm_layout(a, k)}")
+        # the later blocks' calls (fewer windows and rows; K3's query tiles
+        # padded from nq = 8) are held against the plain version too
+        for name in ALL_BLOCKS:
+            mod = kernels.KERNELS[name]
+            kern = getattr(mod, KERNEL_FUNCS[name][0])
+            plain = getattr(mod, KERNEL_FUNCS[name][1])
+            for a, k in captured[name + "_all"][1:]:
+                compare(name, kern(*a, **k), plain(*a, **k), a, k, torch)
+                ms = time_ms(torch, lambda: kern(*a, **k), reps=10, warm=2)
+                log(f"# kernel {name} at a later block: ms={ms:.4f} "
+                    f"{later_block_shape(name, a, k)}")
     return rows
+
+
+def later_block_shape(name, a, k):
+    if name == "attention":
+        return (f"windows={a[0].shape[0]} num_valid={int(k['num_valid'])} "
+                f"layout (n1cap, nk1, nk2, nq, d, heads)={asm_layout(a, k)}")
+    if name == "fps":
+        return (f"rows={a[0].shape[0]} N={a[0].shape[1]} npoint={a[4]} "
+                f"planes={3 + len(a[3])} num_valid={int(k['num_valid'])}")
+    return f"x={tuple(a[0].shape)} w1={tuple(a[3].shape)}"
+
+
+def ffn_chain(torch, a, k):
+    """K4's yardstick: the unfused bf16 chain of PyTorch calls (layer_norm,
+    linear, relu, linear, add; five calls, so no ``library_ms``) on K4's
+    block-0 inputs, timed with CUDA events. The port never calls it."""
+    import torch.nn.functional as F
+
+    x, s, b, w1, b1, w2, b2 = a
+    t = x.dtype
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()  # nn.Linear layout
+    s, b, b1, b2 = (p.to(t) for p in (s, b, b1, b2))
+    c = x.shape[1]
+    chain = lambda: x + F.linear(torch.relu(F.linear(
+        F.layer_norm(x, (c,), s, b, k["eps"]), w1t, b1)), w2t, b2)
+    with torch.no_grad():
+        ms = time_ms(torch, chain, reps=10, warm=2)
+    log(f"# ffn yardstick: the unfused {t} chain (layer_norm, linear, relu, "
+        f"linear, add) at the same inputs: chain_ms={ms:.4f}")
 
 
 def fps_picks_inputs(torch, planes):
@@ -505,16 +559,22 @@ def sampling_path(torch, planes):
 
 # --------------------------------------------------------------- phase 5
 def main_path(torch, model, scenes):
+    """One warm-up request, then REQUESTS requests cycling the scenes, each
+    with its launch counts checked. Returns (launch counts of the measured
+    requests, their host-clock times in ms)."""
     from mssvt_tpu_torch import kernels
 
-    outs, times = [], []
+    with torch.no_grad():
+        model(scenes[-1])  # warm-up
+    times, prev = [], None
     kernels.reset_launch_counts()
-    for i, scene in enumerate(scenes):
+    for i in range(REQUESTS):
+        seed = i % len(scenes)
         before = kernels.launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
-            out = model(scene)
+            out = model(scenes[seed])
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         times.append(ms)
@@ -532,14 +592,12 @@ def main_path(torch, model, scenes):
                 raise AssertionError(f"request {i}: non-finite head map {name}")
         if out["final_boxes"].shape[:2] != mask.shape or mask.shape[0] != BATCH:
             raise AssertionError(f"request {i}: unexpected output shape")
-        log(f"# request {i} (scene seed {i}, batch {BATCH}): {ms:.1f} ms, "
-            f"kept boxes per frame {mask.sum(dim=1).tolist()}, launches {per}")
-        outs.append(out)
-    counts = kernels.launch_counts()
-    for a, b in zip(outs, outs[1:]):
-        if torch.equal(a["final_scores"], b["final_scores"]):
+        if prev is not None and torch.equal(prev, out["final_scores"]):
             raise AssertionError("identical outputs for different scenes")
-    return counts, sum(times) / len(times)
+        prev = out["final_scores"]
+        log(f"# request {i} (scene seed {seed}, batch {BATCH}): {ms:.1f} ms, "
+            f"kept boxes per frame {mask.sum(dim=1).tolist()}, launches {per}")
+    return kernels.launch_counts(), times
 
 
 def log_launch_times(prof, label, key):
@@ -553,9 +611,10 @@ def log_launch_times(prof, label, key):
 
 
 def profile_request(torch, model, scene, request_ms):
-    """Device time by kernel name for one request (after the main path);
-    the busy share divides it by the mean unprofiled request time, since the
-    profiler itself slows the host."""
+    """Device time by kernel name for one request (after the main path),
+    the headline number of a request; the busy share divides it by the
+    median unprofiled request time, since the profiler itself slows the
+    host."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -569,13 +628,15 @@ def profile_request(torch, model, scene, request_ms):
               if getattr(e, "device_type", None) is not None
               and "CUDA" in str(e.device_type)]
     total = sum(e.self_device_time_total for e in events) / 1e3
-    log(f"# profile: one request, device kernels {total:.1f} ms = "
-        f"{100 * total / request_ms:.1f}% of the mean request time "
+    log(f"# headline: one request, device kernels {total:.3f} ms = "
+        f"{100 * total / request_ms:.1f}% of the median request time "
         f"{request_ms:.1f} ms (wall under the profiler {wall_ms:.1f} ms)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"#   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
-    log_launch_times(prof, "attention (K3) in one request", "attention_kernel")
+    for label, key in (("attention (K3)", "attention_kernel"),
+                       ("ffn (K4)", "ffn_mma_kernel"), ("fps (K2)", "fps_kernel")):
+        log_launch_times(prof, f"{label} in one request", key)
 
 
 # -------------------------------------------------------------- phase 6a
@@ -957,18 +1018,22 @@ def check_step_grads(torch, model, i):
 
 
 def train_path(torch, model, optimizer, scenes, gen, expected, label="train"):
-    """TRAIN_STEPS train_steps on distinct scenes, then step 1's forward
-    and backward again from the same weights, batch and generator state:
-    the gradients must repeat bit for bit. Returns (launch counts, mean
-    step ms)."""
+    """One warm-up train_step, then TRAIN_STEPS train_steps cycling the
+    scenes, then the first measured step's forward and backward again from
+    the same weights, batch and generator state: the gradients must repeat
+    bit for bit. Returns (launch counts of the measured steps, their
+    host-clock times in ms)."""
     from mssvt_tpu_torch import kernels
     from mssvt_tpu_torch.runtime.train_utils import forward_backward, train_step
 
+    train_step(model, optimizer, scenes[-1], gen)  # warm-up
     start = ({k: v.detach().clone() for k, v in model.state_dict().items()},
              gen.get_state())
     grads1, times = None, []
     kernels.reset_launch_counts()
-    for i, scene in enumerate(scenes):
+    for i in range(TRAIN_STEPS):
+        seed = i % len(scenes)
+        scene = scenes[seed]
         before = kernels.launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -986,7 +1051,7 @@ def train_path(torch, model, optimizer, scenes, gen, expected, label="train"):
         norm = check_step_grads(torch, model, i)
         if i == 0:
             grads1 = [p.grad.clone() for p in model.parameters()]
-        log(f"# {label} step {i} (scene seed {i}, batch {BATCH}): {ms:.1f} ms, "
+        log(f"# {label} step {i} (scene seed {seed}, batch {BATCH}): {ms:.1f} ms, "
             f"loss {loss.item():.4f} (hm {tb['hm_loss_head_0'].item():.4f}, "
             f"loc {tb['loc_loss_head_0'].item():.4f}), gradient norm "
             f"{norm:.4g}, launches {per}")
@@ -999,16 +1064,17 @@ def train_path(torch, model, optimizer, scenes, gen, expected, label="train"):
     same = all(torch.equal(p.grad, g) for p, g in zip(model.parameters(),
                                                       grads1))
     if not same:
-        raise AssertionError(f"{label} step 1 repeated: gradients differ")
-    log(f"# {label} step 1 repeated from the same weights, batch and generator "
+        raise AssertionError(f"{label} step 0 repeated: gradients differ")
+    log(f"# {label} step 0 repeated from the same weights, batch and generator "
         f"state: bit-identical gradients over {len(grads1)} parameters")
-    return counts, sum(times) / len(times)
+    return counts, times
 
 
-def profile_train_step(torch, model, optimizer, scene, gen, step_ms,
+def profile_train_step(torch, model, optimizer, scene, gen, step_ms, label,
                        forward_kernel):
-    """Device-busy share of one more train step, and the device time of each
-    launch of its attention forward (``forward_kernel``: label, name)."""
+    """Device time of one more train step (the headline number of a step),
+    its busy share of the median step, and the device time of each launch
+    of its attention forward and of K2 (``forward_kernel``: label, name)."""
     from torch.profiler import ProfilerActivity, profile
 
     from mssvt_tpu_torch.runtime.train_utils import train_step
@@ -1021,13 +1087,14 @@ def profile_train_step(torch, model, optimizer, scene, gen, step_ms,
               if getattr(e, "device_type", None) is not None
               and "CUDA" in str(e.device_type)]
     total = sum(e.self_device_time_total for e in events) / 1e3
-    log(f"# profile: one train step, device kernels {total:.1f} ms = "
-        f"{100 * total / step_ms:.1f}% of the mean step time {step_ms:.1f} ms")
+    log(f"# headline: one {label} step, device kernels {total:.3f} ms = "
+        f"{100 * total / step_ms:.1f}% of the median step time {step_ms:.1f} ms")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"#   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
     log_launch_times(prof, f"{forward_kernel[0]} in one train step",
                      forward_kernel[1])
+    log_launch_times(prof, "fps (K2) in one train step", "fps_kernel")
 
 
 def main(argv):
@@ -1085,15 +1152,15 @@ def main(argv):
     del captured
     torch.cuda.empty_cache()
 
-    counts, request_ms = main_path(torch, model, scenes)
+    counts, request_times = main_path(torch, model, scenes)
+    log(f"# inference: requests {stats_line(request_times)}")
     for name, n in EXPECTED_LAUNCHES.items():
         if n:
             rows[name]["launches"] = counts[name]
             if counts[name] == 0:
                 raise AssertionError(f"kernel {name} was not launched on "
                                      "the main path")
-    if "--profile" in argv:
-        profile_request(torch, model, scenes[0], request_ms)
+    profile_request(torch, model, scenes[0], median(request_times))
     log(f"# inference: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -1113,22 +1180,21 @@ def main(argv):
     torch.cuda.empty_cache()
 
     optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model.named_parameters(),
-                                   total_steps=TRAIN_STEPS, steps_per_epoch=1)
+                                   total_steps=TRAIN_STEPS + 2, steps_per_epoch=1)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    train_counts, step_ms = train_path(torch, model, optimizer, scenes, gen,
-                                       TRAIN_LAUNCHES)
-    log(f"# training: mean step {step_ms:.1f} ms over {TRAIN_STEPS} steps; "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-        f"GiB")
+    train_counts, step_times = train_path(torch, model, optimizer, scenes, gen,
+                                          TRAIN_LAUNCHES)
+    log(f"# training: steps {stats_line(step_times)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name in TRAIN_LAUNCHES:
         if TRAIN_LAUNCHES[name] and train_counts[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "training path")
     rows["attention_bwd"]["launches"] = train_counts["attention_bwd"]
-    if "--profile" in argv:
-        profile_train_step(torch, model, optimizer, scenes[1], gen, step_ms,
-                           ("attention (K3)", "attention_kernel"))
+    profile_train_step(torch, model, optimizer, scenes[1], gen,
+                       median(step_times), "pad-key",
+                       ("attention (K3)", "attention_kernel"))
     del model, optimizer
     torch.cuda.empty_cache()
 
@@ -1145,18 +1211,18 @@ def main(argv):
     del a, k, qk_calls
     torch.cuda.empty_cache()
     optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model.named_parameters(),
-                                   total_steps=TRAIN_STEPS, steps_per_epoch=1)
+                                   total_steps=TRAIN_STEPS + 2, steps_per_epoch=1)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    off_counts, off_ms = train_path(torch, model, optimizer, scenes, gen,
-                                    FLAG_OFF_LAUNCHES,
-                                    "train (ref_compat_keys off)")
-    log(f"# training, ref_compat_keys off: mean step {off_ms:.1f} ms over "
-        f"{TRAIN_STEPS} steps; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if "--profile" in argv:
-        profile_train_step(torch, model, optimizer, scenes[1], gen, off_ms,
-                           ("attention_qk (K6)", "attention_qk_kernel"))
+    off_counts, off_times = train_path(torch, model, optimizer, scenes, gen,
+                                       FLAG_OFF_LAUNCHES,
+                                       "train (ref_compat_keys off)")
+    log(f"# training, ref_compat_keys off: steps {stats_line(off_times)}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    profile_train_step(torch, model, optimizer, scenes[1], gen,
+                       median(off_times), "flag-off",
+                       ("attention_qk (K6)", "attention_qk_kernel"))
     sampling_counts = sampling_path(torch, fps_planes)
     for name, counts_ in (("attention_qk", off_counts),
                           ("attention_qk_bwd", off_counts),

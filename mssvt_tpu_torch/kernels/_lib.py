@@ -49,6 +49,7 @@ _SIGNATURES = {
     "mssvt_attention_bwd_plan": [VP, CI, VP],
     "mssvt_attention_qk_bwd_plan": [VP, CI, VP],
     "mssvt_ffn": [VP, VP, VP, VP, VP, VP, VP, VP, CI, CI, CI, CF, CI, VP],
+    "mssvt_ffn_plan": [CI, CI, VP],
 }
 
 

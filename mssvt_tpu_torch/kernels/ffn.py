@@ -10,7 +10,11 @@ the TPU kernel (it always rounds to bf16), and f32 at the f32 configs, which
 is exactly the JAX CPU path (flax LayerNorm + Dense chain). Weights keep the
 flax (in, out) layout.
 
-CUDA tensors go to ``csrc/ffn.cu``; CPU tensors to :func:`ffn_plain`.
+CUDA tensors go to ``csrc/ffn.cu``; CPU tensors to :func:`ffn_plain`. In
+bf16 the kernel is built for the repo's widths, ``BF16_WIDTHS`` ((C, F) of
+``mssvt.yaml`` and ``mssvt_tiny.yaml``): a persistent CTA keeps both weights
+in its shared memory, which holds no wider pair beside its row tiles. f32
+takes any C % 32 == 0 <= 256 and F % 32 == 0 <= 1024.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from . import _lib
 
 launches = 0
+BF16_WIDTHS = ((128, 256), (64, 128))  # (C, F) the bf16 kernel is built for
 
 
 def ffn_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6,
@@ -51,12 +56,17 @@ def fused_residual_ffn(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6,
     v, c = x.shape
     f = w1.shape[1]
     dev = x.device
+    if t == torch.bfloat16 and (c, f) not in BF16_WIDTHS:
+        raise ValueError(f"ffn kernel: bf16 widths C={c} F={f} are not "
+                         f"among {BF16_WIDTHS}")
     if c % 32 or c > 256 or f % 32 or f > 1024:
         raise ValueError(f"ffn kernel: unsupported widths C={c} F={f}")
     req = _lib.require
     req(x, "x", t, (v, c), dev)
     req(w1, "w1", t, (c, f), dev)
     req(w2, "w2", t, (f, c), dev)
+    if any(p.data_ptr() % 16 for p in (x, w1, w2)):
+        raise ValueError("ffn kernel: x, w1 and w2 must be 16-byte aligned")
     for name, p, n in (("ln_scale", ln_scale, c), ("ln_bias", ln_bias, c),
                        ("b1", b1, f), ("b2", b2, c)):
         req(p, name, torch.float32, (n,), dev)
@@ -68,3 +78,12 @@ def fused_residual_ffn(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6,
     _lib.check(err, "mssvt_ffn")
     launches += 1
     return out
+
+
+def kernel_plan(c=128, f=256):
+    """(shared-memory bytes, CTAs per SM, registers a thread) of the bf16
+    kernel at widths (C, F), from the CUDA occupancy API."""
+    out = (_lib.CI * 3)()
+    _lib.check(_lib.lib().mssvt_ffn_plan(int(c), int(f), out),
+               "mssvt_ffn_plan")
+    return out[0], out[1], out[2]

@@ -13,7 +13,7 @@ two stacked halves of ``nw_half`` rows, each with a live prefix of
 K2b (:func:`fps_picks_warp`) and K2c (:func:`fps_picks_block`) are the
 selection-free forms: the picks only, no aux planes, no dead rows. K2b
 replaces ``farthest_point_sample_planes_pallas_t`` (the transposed layout
-JAX takes on the TPU) with K2's one-warp-per-row loop, N <= 256; K2c
+JAX takes on the TPU) with K2's loop (a group of lanes a row), N <= 256; K2c
 replaces ``farthest_point_sample_planes_pallas`` (the row layout, any N)
 with one CTA per row, planes and min-distance cache in shared memory,
 N <= 14 336 (16 N bytes of a CTA's 227 KB). :func:`fps_picks` chooses by N.
@@ -32,7 +32,7 @@ from . import _lib
 launches = 0        # K2
 launches_warp = 0   # K2b
 launches_block = 0  # K2c
-MAX_N = 256            # one warp per row (K2, K2b)
+MAX_N = 256            # a group of lanes a row (K2, K2b)
 MAX_N_BLOCK = 14336    # one CTA per row (K2c)
 MAX_PLANES = 8
 

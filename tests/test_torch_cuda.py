@@ -63,21 +63,53 @@ def test_fill_kernel_matches_plain(dev, with_order, with_slab, nv):
         assert torch.equal(g, w)
 
 
+def _fps_planes(rng, kind, rows, n, count):
+    """``count`` (rows, n) f32 planes: "int" small integers (exact ties),
+    "dup" each row's points drawn from 3 distinct ones (every distance 0
+    after the first picks), "normal" floats."""
+    def mk():
+        if kind == "int":
+            return rng.integers(-6, 7, (rows, n)).astype(np.float32)
+        if kind == "dup":
+            return rng.integers(0, 3, (rows, n)).astype(np.float32)
+        return rng.normal(size=(rows, n)).astype(np.float32)
+    return [mk() for _ in range(count)]
+
+
+# (N, nw_half (0: 21 rows, no halves), planes, num_valid, npoint, kind)
+FPS_CASES = [
+    (96, 48, 4, 45, 32, "int"), (96, 48, 4, 45, 32, "normal"),
+    (33, 0, 4, 17, 32, "normal"), (256, 8, 4, 5, 32, "int"),
+    (1, 0, 3, None, 32, "normal"),   # npoint > N: the picks repeat 0
+    (7, 4, 8, 0, 16, "int"),         # every row dead
+    (7, 0, 3, 21, 12, "dup"),        # npoint > N, all rows live
+    (33, 0, 8, None, 13, "int"),     # npoint % 4 != 0: scalar row writes
+    (96, 64, 4, 30, 32, "dup"),      # all-zero distances after 3 picks
+    (97, 40, 8, 40, 32, "int"),      # N % 4 != 0, all rows live
+    (128, 24, 3, 11, 32, "normal"), (200, 16, 8, 9, 32, "int"),
+    (256, 10, 3, 10, 40, "dup"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,nw_half,integer", [(96, 48, True), (96, 48, False),
-                                               (33, 0, False), (256, 8, True)])
-def test_fps_kernel_matches_plain(dev, n, nw_half, integer):
+@pytest.mark.parametrize("n,nw_half,nplanes,nv,npoint,kind", FPS_CASES)
+def test_fps_kernel_matches_plain(dev, n, nw_half, nplanes, nv, npoint, kind):
+    """K2: picks and every selected plane exactly the plain version's
+    (ties to the lowest index), dead rows zero."""
     rng = np.random.default_rng(1)
     rows = 2 * nw_half if nw_half else 21
-    mk = ((lambda: rng.integers(-6, 7, (rows, n)).astype(np.float32))
-          if integer else (lambda: rng.normal(size=(rows, n)).astype(np.float32)))
-    planes = [torch.as_tensor(mk(), device=dev) for _ in range(4)]
-    nv = torch.tensor(max(nw_half - 3, 1) if nw_half else 17, device=dev)
-    got = fps.fps_select(*planes[:3], (planes[3],), 32, nv, nw_half)
-    want = fps.fps_plain(*planes[:3], (planes[3],), 32, nv, nw_half)
+    planes = [torch.as_tensor(p, device=dev)
+              for p in _fps_planes(rng, kind, rows, n, nplanes)]
+    nv_t = None if nv is None else torch.tensor(nv, device=dev)
+    got = fps.fps_select(*planes[:3], tuple(planes[3:]), npoint, nv_t, nw_half)
+    want = fps.fps_plain(*planes[:3], tuple(planes[3:]), npoint, nv_t, nw_half)
     assert torch.equal(got[0], want[0])
+    assert len(got[1]) == len(want[1]) == nplanes
     for g, w in zip(got[1], want[1]):
         assert torch.equal(g, w)
+    if nv is not None:
+        dead = fps._dead_rows(rows, nv, nw_half, dev)
+        assert (got[0][dead] == 0).all()
 
 
 def _attn_args(dev, dtype, q_prefix, pad_keys, num_heads=(2, 2), nq=32):
@@ -190,6 +222,8 @@ def test_attention_bwd_kernel_matches_plain(dev, dtype, q_prefix, num_heads,
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,n,integer", [
     ("warp", 96, True), ("warp", 33, False), ("warp", 256, False),
+    ("warp", 1, False), ("warp", 7, True), ("warp", 128, True),
+    ("warp", 200, False), ("warp", 256, True),
     ("block", 257, False), ("block", 2048, True), ("block", 700, False),
     ("block", 96, True)])
 def test_fps_picks_kernels_match_plain(dev, kernel, n, integer):
@@ -536,17 +570,24 @@ def test_fused_attention_function_gradients(dev, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ffn_kernel_matches_plain(dev, dtype):
+@pytest.mark.parametrize("c,f", [(128, 256), (64, 128)])
+@pytest.mark.parametrize("v", [1, 63, 65, 1000, 20_000])
+def test_ffn_kernel_matches_plain(dev, dtype, c, f, v):
+    """Ragged last tiles (V = 1, 63, 65, 1000) and, at V = 20 000 (313
+    tiles of 64 rows), more tiles than the bf16 kernel's persistent grid has
+    CTAs; a repeated call is bit-identical."""
     g = torch.Generator().manual_seed(3)
-    v, c, f = 1000, 128, 256
     r = lambda *s: torch.randn(*s, generator=g)
     args = [r(v, c).to(dev, dtype), (1 + 0.1 * r(c)).to(dev),
             (0.1 * r(c)).to(dev), (r(c, f) * 0.1).to(dev, dtype),
             (0.1 * r(f)).to(dev), (r(f, c) * 0.1).to(dev, dtype),
             (0.1 * r(c)).to(dev)]
     got = ffn.fused_residual_ffn(*args, compute_dtype=dtype)
+    again = ffn.fused_residual_ffn(*args, compute_dtype=dtype)
     want = ffn.ffn_plain(*args, compute_dtype=dtype)
     torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (v, c)
+    assert torch.equal(got, again)
     _close(got, want, dtype)
 
 
@@ -561,6 +602,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         ffn.fused_residual_ffn(torch.zeros(4, 32, device=dev, dtype=torch.half),
                                *([torch.zeros(32, device=dev)] * 6))
+    bf = torch.bfloat16
+    for c, f, offset in ((96, 192, 0), (128, 512, 0), (128, 256, 1)):
+        xb = torch.zeros(5 * c + offset, device=dev, dtype=bf)[offset:]
+        with pytest.raises(ValueError):  # widths not built, or misaligned x
+            ffn.fused_residual_ffn(
+                xb.view(5, c), torch.ones(c, device=dev),
+                torch.zeros(c, device=dev), torch.zeros(c, f, device=dev, dtype=bf),
+                torch.zeros(f, device=dev), torch.zeros(f, c, device=dev, dtype=bf),
+                torch.zeros(c, device=dev), compute_dtype=bf)
     wide = torch.zeros(2, 300, device=dev)
     with pytest.raises(ValueError):
         fps.fps_picks_warp(wide, wide, wide, 4)

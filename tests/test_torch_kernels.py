@@ -82,15 +82,22 @@ def test_fill_plain_matches_jax(case):
 
 
 # ------------------------------------------------------------------ K2 FPS
-@pytest.mark.parametrize("integer_planes", [True, False])
-def test_fps_plain_matches_pallas_select(integer_planes):
+@pytest.mark.parametrize("integer_planes,n,npoint", [
+    (True, 96, 32), (False, 96, 32), ("dup", 96, 32), (True, 20, 40)],
+    ids=["True", "False", "duplicated_points", "npoint_above_n"])
+def test_fps_plain_matches_pallas_select(integer_planes, n, npoint):
     """Exact picks and selections, with two stacked halves and a live
     prefix; integer planes (the model's offsets) produce many distance
-    ties, which must resolve to the lowest index."""
+    ties, which must resolve to the lowest index. "dup" draws each row's
+    points from 27 distinct ones, so every distance is 0 after the first
+    picks; with npoint > N every point is taken and the picks repeat."""
     rng = np.random.default_rng(5)
-    nw_half, n, npoint, nv = 160, 96, 32, 40
+    nw_half, nv = 160, 40
     b = 2 * nw_half
-    if integer_planes:
+    if integer_planes == "dup":
+        x, y, z = (rng.integers(0, 3, (b, n)).astype(np.float32)
+                   for _ in range(3))
+    elif integer_planes:
         x, y, z = (rng.integers(-4, 5, (b, n)).astype(np.float32)
                    for _ in range(3))
     else:
@@ -279,16 +286,20 @@ def test_kernel_inputs_refuse_what_the_kernels_do_not_take():
 # ------------------------------------------------------------------- K4 FFN
 def _ffn_inputs(rng, v=300, c=64, f=128):
     r = lambda *s: rng.normal(size=s).astype(np.float32)
-    return (r(v, c), 1 + 0.1 * r(c), 0.1 * r(c), r(c, f) * 0.2, 0.1 * r(f),
-            r(f, c) * 0.2, 0.1 * r(c))
+    s1, s2 = 0.2 * (64 / c) ** 0.5, 0.2 * (128 / f) ** 0.5  # fan-in scaled
+    return (r(v, c), 1 + 0.1 * r(c), 0.1 * r(c), r(c, f) * s1, 0.1 * r(f),
+            r(f, c) * s2, 0.1 * r(c))
 
 
-def test_ffn_plain_bf16_matches_pallas():
+@pytest.mark.parametrize("v,c,f", [(300, 64, 128), (1025, 128, 256)])
+def test_ffn_plain_bf16_matches_pallas(v, c, f):
     """bf16 mode is the TPU kernel's arithmetic (LN output and hidden
-    activation rounded to bf16, f32 accumulation). Tolerance 2e-2 abs /
-    1e-2 rel: the f32 sums run in another order, which can move a hidden
-    activation across a bf16 rounding boundary (one bf16 ulp is 2^-8 rel)."""
-    args = _ffn_inputs(np.random.default_rng(2))
+    activation rounded to bf16, f32 accumulation), at the widths of
+    mssvt_tiny.yaml and mssvt.yaml, with V ragged to the Pallas row block
+    (1 024). Tolerance 2e-2 abs / 1e-2 rel: the f32 sums run in another
+    order, which can move a hidden activation across a bf16 rounding
+    boundary (one bf16 ulp is 2^-8 rel)."""
+    args = _ffn_inputs(np.random.default_rng(2), v, c, f)
     got = ffn.ffn_plain(*(_t(a) for a in args),
                         compute_dtype=torch.bfloat16).numpy()
     want = np.asarray(fused_residual_ffn(*(jnp.asarray(a) for a in args),
