@@ -17,9 +17,11 @@ Phases (any failed check raises and the script exits non-zero):
    plain version on the card (fill and FPS exactly, attention and FFN within
    the bf16 tolerance below), both timed with CUDA events; K2, K3 and K4
    are also held against their plain versions and timed at the shapes of
-   the other two MsSVT blocks of that forward; K3's and K4's shared memory,
-   CTAs an SM and registers are printed, and the unfused bf16 chain of
-   PyTorch calls at K4's block-0 inputs is timed as K4's yardstick;
+   the other two MsSVT blocks of that forward, K1 at its other four calls
+   of that forward, K2c also at 4 rows of 16 384 points; K3's and K4's
+   shared memory, CTAs an SM and registers are printed, and the unfused
+   bf16 chain of PyTorch calls at K4's block-0 inputs is timed as K4's
+   yardstick;
 5. the main path: ``mssvt.yaml`` CenterPoint, full width, bf16, seeded
    random weights: one warm-up request, then 10 requests cycling 3
    distinct scenes of batch 4, with the kernel launch counts of every
@@ -56,15 +58,15 @@ Phases (any failed check raises and the script exits non-zero):
    6c.
 7d. the selection-free FPS entry point
    ``ops.sampling.farthest_point_sample_planes`` on block 0's planes (N = 96,
-   K2b) and on 4 096 rows of 2 048 seeded points (K2c): picks equal to the
-   plain version's, launch counts checked. (Phase 4 holds and times K2b and
-   K2c beside K2.)
+   K2b), on 4 096 rows of 2 048 seeded points and on 4 rows of 16 384 (K2c,
+   twice): picks equal to the plain version's, launch counts checked.
+   (Phase 4 holds and times K2b and K2c beside K2.)
 
 The profiled request and steps print the device time per kernel name (top
 entries, and their sum as a share of the median unprofiled request or step
-time) with the device time of each K2, K3 and K4 launch inside the request,
-of each K2 and K3 launch inside the pad-key step and of each K2 and K6
-launch inside the flag-off step. With ``--profile`` phases 6b and 7b also
+time) with the device time of each K1, K2, K3 and K4 launch inside the
+request, of each K1, K2 and K3 launch inside the pad-key step and of each
+K1, K2 and K6 launch inside the flag-off step. With ``--profile`` phases 6b and 7b also
 print the device time of each launch inside one K5 and one K7 call
 (per-window kernel, weight product, final sums, K7's pre-pass).
 
@@ -104,10 +106,11 @@ def launches(**counts):
 EXPECTED_LAUNCHES = launches(fill=5, fps=3, attention=3, ffn=3)
 TRAIN_LAUNCHES = launches(fill=5, fps=3, attention=3, attention_bwd=3)
 FLAG_OFF_LAUNCHES = launches(fill=5, fps=3, attention_qk=3, attention_qk_bwd=3)
-SAMPLING_LAUNCHES = launches(fps_picks_warp=1, fps_picks_block=1)
+SAMPLING_LAUNCHES = launches(fps_picks_warp=1, fps_picks_block=2)
 REQUESTS = 10     # measured requests after one warm-up, cycling the scenes
 TRAIN_STEPS = 10  # measured steps of each kind after one warm-up step
 FPS_BLOCK_SHAPE = (4096, 2048, 512)  # K2c: rows, points a row, picks
+FPS_WIDE_SHAPE = (4, 16384, 4096)    # K2c at its widest N (PointRCNN's SA1)
 GRID = (480, 480, 32)
 VOXEL = (0.32, 0.32, 0.1875)
 PCR = (-76.8, -76.8, -2.0, 76.8, 76.8, 4.0)
@@ -290,7 +293,8 @@ def kernel_row(name, err, ms, plain_ms, bound_ms, bound_by):
                 bound_by=bound_by, library_ms=None)
 
 
-ALL_BLOCKS = ("fps", "attention", "ffn")  # timed at every MsSVT block
+# timed at every call of a forward: the MsSVT blocks (and K1's two more)
+ALL_BLOCKS = ("fill", "fps", "attention", "ffn")
 
 
 def capture_first_calls(torch, model, batch):
@@ -334,7 +338,7 @@ def bound(name, a, k, torch):
     if name == "fill":
         box, offs, cap = a[0], a[1], a[2]
         nw, kk = box.shape
-        nv = int(k["num_valid"])
+        nv = nw if k.get("num_valid") is None else int(k["num_valid"])
         cv = k["own_slab"][1] if k.get("own_slab") else 0
         by = nv * kk * 4 + nw * (2 * cap + cv + 8) * 4
         ops = nv * kk * 4  # load, compare, rank, store per entry (int32)
@@ -440,6 +444,14 @@ def kernel_phase(torch, captured):
         log(f"# kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={err:.3g} "
             f"inputs={shapes}")
+        if name == "fill":
+            for kk, cap, cv in sorted({(c[0][0].shape[1], int(c[0][2]),
+                                        (c[1].get("own_slab") or (0, 0))[1])
+                                       for c in captured["fill_all"]}):
+                smem, ctas, regs, warps = mod.kernel_plan(kk, cap, cv)
+                log(f"# fill: kernel at K={kk} cap={cap} cv={cv}: {smem} bytes "
+                    f"of shared memory a CTA, {warps} warps a CTA, {ctas} CTAs "
+                    f"an SM (occupancy API), {regs} registers a thread")
         del got, want
     a, k = captured["attention"]
     log_plan("attention", kernels.KERNELS["attention"].kernel_plan(
@@ -464,6 +476,12 @@ def kernel_phase(torch, captured):
 
 
 def later_block_shape(name, a, k):
+    if name == "fill":
+        nv = k.get("num_valid")
+        return (f"rows={a[0].shape[0]} K={a[0].shape[1]} cap={a[2]} "
+                f"own_slab={k.get('own_slab')} num_valid="
+                f"{None if nv is None else int(nv)} "
+                f"bound_ms={bound(name, a, k, None)[0]:.4f}")
     if name == "attention":
         return (f"windows={a[0].shape[0]} num_valid={int(k['num_valid'])} "
                 f"layout (n1cap, nk1, nk2, nq, d, heads)={asm_layout(a, k)}")
@@ -493,13 +511,15 @@ def ffn_chain(torch, a, k):
 
 
 def fps_picks_inputs(torch, planes):
-    """(K2b inputs, K2c inputs): block 0's planes (N = 96, 32 picks) and
-    FPS_BLOCK_SHAPE rows of seeded normal points."""
-    rows, n, npoint = FPS_BLOCK_SHAPE
+    """(K2b inputs, K2c inputs, K2c's widest inputs): block 0's planes
+    (N = 96, 32 picks), FPS_BLOCK_SHAPE and FPS_WIDE_SHAPE rows of seeded
+    normal points."""
     g = torch.Generator(device="cuda").manual_seed(5)
-    wide = tuple(torch.randn(rows, n, generator=g, device="cuda")
-                 for _ in range(3))
-    return (*planes, 32), (*wide, npoint)
+    out = [(*planes, 32)]
+    for rows, n, npoint in (FPS_BLOCK_SHAPE, FPS_WIDE_SHAPE):
+        out.append((*(torch.randn(rows, n, generator=g, device="cuda")
+                      for _ in range(3)), npoint))
+    return tuple(out)
 
 
 def fps_picks_phase(torch, planes):
@@ -509,9 +529,10 @@ def fps_picks_phase(torch, planes):
     from mssvt_tpu_torch.kernels import fps
 
     rows = {}
+    inputs = fps_picks_inputs(torch, planes)
     for name, kern, a in zip(("fps_picks_warp", "fps_picks_block"),
                              (fps.fps_picks_warp, fps.fps_picks_block),
-                             fps_picks_inputs(torch, planes)):
+                             inputs[:2]):
         x, npoint = a[0], a[3]
         got = kern(*a)
         want = fps.fps_plain(*a[:3], (), npoint)[0]
@@ -531,12 +552,19 @@ def fps_picks_phase(torch, planes):
             f"bound_ms={rows[name]['bound_ms']:.4f} "
             f"({rows[name]['bound_by']}) picks equal; inputs=({b}, {n}) -> "
             f"{npoint}")
+    a = inputs[2]
+    if not torch.equal(fps.fps_picks_block(*a), fps.fps_plain(*a[:3], (), a[3])[0]):
+        raise AssertionError("fps_picks_block: kernel != plain version at "
+                             f"{FPS_WIDE_SHAPE}")
+    ms = time_ms(torch, lambda: fps.fps_picks_block(*a), reps=3, warm=1)
+    log(f"# kernel fps_picks_block at its widest N: ms={ms:.4f} picks equal; "
+        f"inputs={FPS_WIDE_SHAPE[:2]} -> {FPS_WIDE_SHAPE[2]}")
     return rows
 
 
 def sampling_path(torch, planes):
     """Phase 7d: the selection-free FPS entry point on CUDA tensors launches
-    K2b for N <= 256 and K2c above it."""
+    K2b for N <= 256 and K2c above it (at N = 2 048 and 16 384)."""
     from mssvt_tpu_torch import kernels
     from mssvt_tpu_torch.kernels import fps
     from mssvt_tpu_torch.ops.sampling import farthest_point_sample_planes
@@ -552,7 +580,8 @@ def sampling_path(torch, planes):
         raise AssertionError(f"sampling entry point: launches {counts} != "
                              f"{SAMPLING_LAUNCHES}")
     log(f"# sampling entry point: picks equal the plain version's at N = "
-        f"{planes[0].shape[1]} and N = {FPS_BLOCK_SHAPE[1]}; launches "
+        f"{planes[0].shape[1]}, {FPS_BLOCK_SHAPE[1]} and {FPS_WIDE_SHAPE[1]}; "
+        f"launches "
         f"{ {k: v for k, v in counts.items() if v} }")
     return counts
 
@@ -635,7 +664,8 @@ def profile_request(torch, model, scene, request_ms):
         log(f"#   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
     for label, key in (("attention (K3)", "attention_kernel"),
-                       ("ffn (K4)", "ffn_mma_kernel"), ("fps (K2)", "fps_kernel")):
+                       ("ffn (K4)", "ffn_mma_kernel"), ("fps (K2)", "fps_kernel"),
+                       ("fill (K1)", "::fill_kernel<")):
         log_launch_times(prof, f"{label} in one request", key)
 
 
@@ -1095,6 +1125,7 @@ def profile_train_step(torch, model, optimizer, scene, gen, step_ms, label,
     log_launch_times(prof, f"{forward_kernel[0]} in one train step",
                      forward_kernel[1])
     log_launch_times(prof, "fps (K2) in one train step", "fps_kernel")
+    log_launch_times(prof, "fill (K1) in one train step", "::fill_kernel<")
 
 
 def main(argv):

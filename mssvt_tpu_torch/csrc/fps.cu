@@ -42,14 +42,34 @@
 // output: no aux planes, no selections, no dead rows.
 //
 // K2c (fps_block_kernel) replaces farthest_point_sample_planes_pallas
-// (_fps_kernel, the row layout, any N): one CTA of 256 threads owns one row
-// and keeps its three planes and the min-distance cache in shared memory
-// (16 N bytes, so N <= 14 336 in a CTA's 227 KB); each thread strides over
-// the points, and the argmax is a warp-shuffle reduction per warp, then one
-// over the 8 warp results, both with ties to the lowest index. Two block
-// barriers an iteration bound it (latency, as K2); bytes are one read of
-// the planes and one write of the picks.
-#include <limits.h>
+// (_fps_kernel, the row layout, any N): one CTA owns one row, each thread a
+// contiguous run of PB = 16 points (so lane order and warp order are index
+// order), 32 * ceil(N / 512) threads, N <= 16 384. The loop is bound by
+// instruction issue (~10 single-rounded f32 operations a point and
+// iteration; the bytes are one read of the planes and one write of the
+// picks), so an iteration spends as little as it can beside them:
+//   - x, y, z and the min-distance of a thread's points live in registers
+//     (N <= 8 192; up to N = 2 048 the CTA has at most 128 threads and is
+//     built for 6 CTAs an SM, 80 registers). Above that x, y, z sit in
+//     shared memory, transposed so that the threads' reads are
+//     conflict-free, and the min-distances stay in registers;
+//   - a thread keeps only the maximum of its min-distances (one fmaxf a
+//     point, no index); the warp's is a max of the bits (every min-distance is a
+//     finite f32 >= +0, so its bits order as unsigned integers; padding
+//     carries +0 after every real point) in one redux.sync, and the lowest
+//     lane holding it by a ballot. Only that lane then looks for its first
+//     point holding the maximum (the thread keeps the maxima of its four
+//     groups of four points, so the search takes the first group holding it,
+//     then the point in it), reads the point's coordinates from a copy
+//     of the planes in shared memory, and writes (bits, index, x, y, z) to
+//     its warp's slot of a double-buffered array;
+//   - one __syncthreads an iteration; then every warp reduces the slots
+//     itself the same way (the lowest warp wins ties) and takes the next
+//     pick's coordinates straight from the winning slot. A fast warp cannot
+//     overwrite a slot that a slow one still reads: it passes the next
+//     barrier first;
+//   - the picks go to a list in shared memory and out once as 16-byte rows
+//     (thread 0 stores each pick directly where the list does not fit).
 #include <math.h>
 
 #include "common.h"
@@ -202,67 +222,206 @@ int launch_rows(const Planes& pl, int nplanes, int rows, int n, int npoint,
   return launch<32, 8, SEL>(pl, nplanes, rows, n, npoint, nw_half, nv, idx, sels, stream);
 }
 
-constexpr int BT = 256;            // threads of a K2c CTA
-constexpr int MAX_N_BLOCK = 14336;  // 16 N bytes of shared memory
+constexpr int PB = 16;              // points a thread of a K2c CTA
+constexpr int MAX_N_BLOCK = 16384;  // PB * 1024
+constexpr int SMEM_MAX = 227 * 1024;
 
-__global__ void __launch_bounds__(BT) fps_block_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ z, int n, int npoint, int* __restrict__ idx) {
-  extern __shared__ float fsm[];
-  __shared__ float wbest[BT / 32];
-  __shared__ int wbi[BT / 32];
-  __shared__ int s_last;
-  float* sx = fsm;
-  float* sy = sx + n;
-  float* sz = sy + n;
-  float* md = sz + n;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// K2c, one CTA a row. SMEM_XYZ: x, y, z in shared memory, transposed (plane
+// p, point tid * PB + s at sp[(p * PB + s) * MAXT + tid]); else in
+// registers, with a copy of the planes in shared memory (plane p, point j at
+// sp[p * ns + j]) from which the winning lane reads its coordinates. flags:
+// bit 0, N % 4 == 0 and the planes 16-byte aligned (float4 loads); bit 1,
+// npoint % 4 == 0 (16-byte pick rows); bit 2, the pick list fits in shared
+// memory (always so for the register form; else thread 0 stores each pick
+// as it is made).
+template <int MAXT, int MINB, bool SMEM_XYZ>
+__global__ void __launch_bounds__(MAXT, MINB)
+fps_block_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                 const float* __restrict__ z, int n, int npoint,
+                 int* __restrict__ idx, int flags) {
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ uint2 skey[2][32];    // a warp's winner: (bits, index)
+  __shared__ float4 sxyz[2][32];   // and its coordinates
+  const int nt = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = nt >> 5, ns = (n + 3) & ~3;
   const size_t off = (size_t)blockIdx.x * n;
+  const float* xr = x + off;
+  const float* yr = y + off;
+  const float* zr = z + off;
   int* irow = idx + (size_t)blockIdx.x * npoint;
-  for (int j = tid; j < n; j += BT) {
-    sx[j] = __ldg(x + off + j);
-    sy[j] = __ldg(y + off + j);
-    sz[j] = __ldg(z + off + j);
-    md[j] = 1e10f;
+  float* sp = fsm;
+  const bool list = !SMEM_XYZ || (flags & 4);
+  int* spick = (int*)(fsm + (SMEM_XYZ ? 3 * PB * MAXT : 3 * ns));
+  float px[SMEM_XYZ ? 1 : PB], py[SMEM_XYZ ? 1 : PB], pz[SMEM_XYZ ? 1 : PB], md[PB];
+  if constexpr (SMEM_XYZ) {
+    for (int e = tid; e < PB * nt; e += nt) {
+      const int q = (e % PB) * MAXT + e / PB;
+      const bool in = e < n;
+      sp[q] = in ? __ldg(xr + e) : 0.f;
+      sp[PB * MAXT + q] = in ? __ldg(yr + e) : 0.f;
+      sp[2 * PB * MAXT + q] = in ? __ldg(zr + e) : 0.f;
+    }
+  } else if (flags & 1) {
+#pragma unroll
+    for (int q = 0; q < PB / 4; ++q) {
+      const int j = tid * PB + 4 * q;
+      const bool in = j < n;
+      const float4 a = in ? __ldg(reinterpret_cast<const float4*>(xr + j)) : make_float4(0, 0, 0, 0);
+      const float4 b = in ? __ldg(reinterpret_cast<const float4*>(yr + j)) : make_float4(0, 0, 0, 0);
+      const float4 c = in ? __ldg(reinterpret_cast<const float4*>(zr + j)) : make_float4(0, 0, 0, 0);
+      px[4 * q] = a.x; px[4 * q + 1] = a.y; px[4 * q + 2] = a.z; px[4 * q + 3] = a.w;
+      py[4 * q] = b.x; py[4 * q + 1] = b.y; py[4 * q + 2] = b.z; py[4 * q + 3] = b.w;
+      pz[4 * q] = c.x; pz[4 * q + 1] = c.y; pz[4 * q + 2] = c.z; pz[4 * q + 3] = c.w;
+      if (in) {
+        *reinterpret_cast<float4*>(sp + j) = a;
+        *reinterpret_cast<float4*>(sp + ns + j) = b;
+        *reinterpret_cast<float4*>(sp + 2 * ns + j) = c;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < PB; ++s) {
+      const int j = tid * PB + s;
+      const bool in = j < n;
+      px[s] = in ? __ldg(xr + j) : 0.f;
+      py[s] = in ? __ldg(yr + j) : 0.f;
+      pz[s] = in ? __ldg(zr + j) : 0.f;
+      if (in) {
+        sp[j] = px[s];
+        sp[ns + j] = py[s];
+        sp[2 * ns + j] = pz[s];
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < PB; ++s) md[s] = tid * PB + s < n ? 1e10f : 0.f;  // padding: +0
+  if (tid == 0) {
+    if (list) spick[0] = 0;
+    else irow[0] = 0;
   }
   __syncthreads();
-  int last = 0;
-  for (int i = 0; i < npoint; ++i) {
-    if (tid == 0) irow[i] = last;
-    if (i == npoint - 1) break;
-    const float lx = sx[last], ly = sy[last], lz = sz[last];
-    float best = -INFINITY;
-    int bi = INT_MAX;
-    for (int j = tid; j < n; j += BT) {
-      const float dx = __fsub_rn(sx[j], lx);
-      const float dy = __fsub_rn(sy[j], ly);
-      const float dz = __fsub_rn(sz[j], lz);
+  float lx = __ldg(xr), ly = __ldg(yr), lz = __ldg(zr);
+  // iteration i writes slot buffer i & 1; two iterations a turn make it a
+  // constant (fewer address instructions than the loop spends otherwise)
+  auto step = [&](int i, int buf) {
+#pragma unroll
+    for (int s = 0; s < PB; ++s) {
+      float xs, ys, zs;
+      if constexpr (SMEM_XYZ) {
+        xs = sp[s * MAXT + tid];
+        ys = sp[(PB + s) * MAXT + tid];
+        zs = sp[(2 * PB + s) * MAXT + tid];
+      } else {
+        xs = px[s];
+        ys = py[s];
+        zs = pz[s];
+      }
+      const float dx = __fsub_rn(xs, lx);
+      const float dy = __fsub_rn(ys, ly);
+      const float dz = __fsub_rn(zs, lz);
       const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                                 __fmul_rn(dz, dz));
-      const float m = fminf(md[j], d);
-      md[j] = m;
-      if (m > best) { best = m; bi = j; }  // j rises: lowest wins ties
+      md[s] = fminf(md[s], d);
     }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
-    }
-    if (lane == 0) { wbest[warp] = best; wbi[warp] = bi; }
-    __syncthreads();
-    if (warp == 0) {
-      best = lane < BT / 32 ? wbest[lane] : -INFINITY;
-      bi = lane < BT / 32 ? wbi[lane] : INT_MAX;
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-        if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
+    // the thread's maximum, by groups of 4 points
+    float gm[PB / 4];
+#pragma unroll
+    for (int q = 0; q < PB / 4; ++q)
+      gm[q] = fmaxf(fmaxf(md[4 * q], md[4 * q + 1]), fmaxf(md[4 * q + 2], md[4 * q + 3]));
+    float best = gm[0];
+#pragma unroll
+    for (int q = 1; q < PB / 4; ++q) best = fmaxf(best, gm[q]);
+    // the warp's first maximum: a max of the bits, the lowest lane holding it
+    const unsigned bits = __float_as_uint(best);
+    const unsigned m = __reduce_max_sync(0xffffffffu, bits);
+    const int wl = __ffs(__ballot_sync(0xffffffffu, bits == m)) - 1;
+    if (lane == wl) {
+      // the lane's first point holding its maximum: the first group, then
+      // the first point of it (point by point at 1 024 threads, which leave
+      // 64 registers)
+      int bs = 0;
+      if constexpr (SMEM_XYZ) {
+#pragma unroll
+        for (int s = PB - 1; s >= 0; --s)
+          if (md[s] == best) bs = s;
+      } else {
+        int g = PB / 4 - 1;
+#pragma unroll
+        for (int q = PB / 4 - 2; q >= 0; --q)
+          if (gm[q] == best) g = q;
+        float v0 = md[0], v1 = md[1], v2 = md[2];
+#pragma unroll
+        for (int q = 1; q < PB / 4; ++q)
+          if (g == q) { v0 = md[4 * q]; v1 = md[4 * q + 1]; v2 = md[4 * q + 2]; }
+        bs = 4 * g + (v0 == best ? 0 : v1 == best ? 1 : v2 == best ? 2 : 3);
       }
-      if (lane == 0) s_last = bi;
+      const int j = tid * PB + bs;
+      float4 c;
+      if constexpr (SMEM_XYZ)
+        c = make_float4(sp[bs * MAXT + tid], sp[(PB + bs) * MAXT + tid],
+                        sp[(2 * PB + bs) * MAXT + tid], 0.f);
+      else
+        c = make_float4(sp[j], sp[ns + j], sp[2 * ns + j], 0.f);
+      skey[buf][warp] = make_uint2(bits, (unsigned)j);
+      sxyz[buf][warp] = c;
     }
-    __syncthreads();
-    last = s_last;
+    __syncthreads();  // the one barrier of an iteration
+    // every warp reduces the slots itself: the lowest warp wins ties
+    const uint2 kv = lane < nwarps ? skey[buf][lane] : make_uint2(0u, 0u);
+    const unsigned mm = __reduce_max_sync(0xffffffffu, kv.x);
+    const int ww = __ffs(__ballot_sync(0xffffffffu, lane < nwarps && kv.x == mm)) - 1;
+    const int last = (int)__shfl_sync(0xffffffffu, kv.y, ww);
+    const float4 c = sxyz[buf][ww];
+    lx = c.x; ly = c.y; lz = c.z;
+    if (tid == 0) {
+      if (list) spick[i] = last;
+      else irow[i] = last;
+    }
+  };
+  int i = 1;
+  for (; i + 1 < npoint; i += 2) {
+    step(i, 1);
+    step(i + 1, 0);
   }
+  if (i < npoint) step(i, 1);
+  if (list) {
+    __syncthreads();
+    if (flags & 2) {
+      for (int q = tid; q < npoint / 4; q += nt)
+        reinterpret_cast<int4*>(irow)[q] = reinterpret_cast<const int4*>(spick)[q];
+    } else {
+      for (int e = tid; e < npoint; e += nt) irow[e] = spick[e];
+    }
+  }
+}
+
+template <int MAXT, int MINB, bool SMEM_XYZ>
+int launch_block(const float* x, const float* y, const float* z, int rows,
+                 int n, int npoint, int* idx, cudaStream_t stream) {
+  const int nt = 32 * ((n + 32 * PB - 1) / (32 * PB));  // warps cover N
+  const size_t fixed = 2 * 32 * (sizeof(uint2) + sizeof(float4));  // static slots
+  size_t smem = (SMEM_XYZ ? (size_t)3 * PB * MAXT : (size_t)3 * ((n + 3) & ~3)) * sizeof(float);
+  const size_t picks = (size_t)((npoint + 3) & ~3) * sizeof(int);
+  const bool aligned = n % 4 == 0 && (((uintptr_t)x | (uintptr_t)y | (uintptr_t)z) & 15) == 0;
+  int flags = (aligned ? 1 : 0) | (npoint % 4 == 0 ? 2 : 0);
+  if (fixed + smem + picks <= (size_t)SMEM_MAX) {
+    flags |= 4;
+    smem += picks;
+  } else if (!SMEM_XYZ) {
+    return (int)cudaErrorInvalidValue;  // the caller takes the SMEM_XYZ form
+  }
+  auto kernel = fps_block_kernel<MAXT, MINB, SMEM_XYZ>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<rows, nt, smem, stream>>>(x, y, z, n, npoint, idx, flags);
+  return launch_status();
+}
+
+// Whether the register form's planes and pick list fit in a CTA.
+bool fits_registers(int n, int npoint) {
+  return 2 * 32 * (sizeof(uint2) + sizeof(float4)) + 3 * ((n + 3) & ~3) * sizeof(float) +
+             ((npoint + 3) & ~3) * sizeof(int) <= (size_t)SMEM_MAX;
 }
 
 }  // namespace
@@ -295,10 +454,12 @@ MSSVT_API int mssvt_fps_picks_block(const float* x, const float* y,
                                     int* idx, cudaStream_t stream) {
   if (n < 1 || n > MAX_N_BLOCK || npoint < 1) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return 0;
-  const size_t smem = (size_t)4 * n * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fps_block_kernel<<<rows, BT, smem, stream>>>(x, y, z, n, npoint, idx);
-  return launch_status();
+  // registers: up to 128 threads with 6 CTAs an SM (80 registers), up to
+  // 512 with one; above N = 8 192 (or where the planes' copy and the pick
+  // list do not fit) x, y, z go to shared memory
+  if (fits_registers(n, npoint)) {
+    if (n <= PB * 128) return launch_block<128, 6, false>(x, y, z, rows, n, npoint, idx, stream);
+    if (n <= PB * 512) return launch_block<512, 1, false>(x, y, z, rows, n, npoint, idx, stream);
+  }
+  return launch_block<1024, 1, true>(x, y, z, rows, n, npoint, idx, stream);
 }

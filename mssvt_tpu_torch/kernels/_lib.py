@@ -36,7 +36,8 @@ CF = ctypes.c_float
 
 # C signatures: every entry returns a cudaError_t (0 = launched)
 _SIGNATURES = {
-    "mssvt_fill": [VP, CI, CI, CI, VP, VP, VP, CI, CI, VP, VP, VP, VP, VP, VP],
+    "mssvt_fill": [VP, CI, CI, CI, VP, CI, CI, CI, VP, VP, VP, VP, VP, VP],
+    "mssvt_fill_plan": [CI, CI, CI, VP],
     "mssvt_fps": [VP, CI, CI, CI, CI, CI, VP, VP, VP, VP],
     "mssvt_fps_picks_warp": [VP, VP, VP, CI, CI, CI, VP, VP],
     "mssvt_fps_picks_block": [VP, VP, VP, CI, CI, CI, VP, VP],

@@ -10,7 +10,12 @@ returns the exclusive table-order rank of source columns [s0, s0+cv) (the
 window's own cells) and, with ``elig``, the per-buffer hit counts (NW, 8).
 Rows at or past ``num_valid`` return -1 / PACK5_ZERO / 0.
 
-CUDA tensors go to ``csrc/fill.cu``; CPU tensors to :func:`fill_plain`.
+CUDA tensors go to ``csrc/fill.cu``; CPU tensors to :func:`fill_plain`. The
+kernel's persistent CTAs copy the static per-position table (source column,
+packed offset, eligibility lane masks; :func:`kernel_table`, built once per
+table and device) into shared memory, stage each live row whole with
+16-byte ``cp.async`` into a two-row ring per warp, scan it from shared
+memory and write every output row whole, 16 bytes a lane.
 """
 
 from __future__ import annotations
@@ -79,6 +84,56 @@ def fill_plain(box, offs_packed, cap, order=None, own_slab=None, elig=None,
     return tuple(outs)
 
 
+_TABLES = {}
+
+
+def _content(values, dtype):
+    a = np.ascontiguousarray(np.asarray(values, dtype))
+    return a.shape, a.tobytes()
+
+
+def kernel_table(k, offs_packed, order, elig, device):
+    """(table, ne): the kernel's per-position constants as one int32 device
+    tensor, K source columns, K packed offsets, then per chunk of 32 table
+    positions 8 lane masks (bit l of mask e: position chunk * 32 + l is
+    eligible for buffer e), and ne, the number of eligibility columns. The
+    tables are fixed per block, so each is built and uploaded once per
+    (K, offsets, order, eligibility, device)."""
+    key = (k, _content(offs_packed, np.int32),
+           None if order is None else _content(order, np.int64),
+           None if elig is None else _content(np.asarray(elig) != 0, bool),
+           str(device))
+    hit = _TABLES.get(key)
+    if hit is not None:
+        return hit
+    src_of, offs_t, _ = _table_consts(k, offs_packed, order, None)
+    chunks = (k + 31) // 32
+    masks = np.zeros((chunks, 8), np.uint64)
+    ne = 0
+    if elig is not None:
+        e = np.asarray(elig) != 0
+        ne = e.shape[1]
+        et = np.zeros((chunks * 32, ne), np.uint64)
+        et[:k] = e[src_of]
+        lanes = np.uint64(1) << np.arange(32, dtype=np.uint64)
+        masks[:, :ne] = (et.reshape(chunks, 32, ne) * lanes[None, :, None]).sum(1)
+    tab = np.concatenate([src_of.astype(np.int32), offs_t.astype(np.int32),
+                          masks.astype(np.uint32).reshape(-1).view(np.int32)])
+    hit = (torch.as_tensor(tab).to(device), ne)
+    _TABLES[key] = hit
+    return hit
+
+
+def kernel_plan(k, cap, cv=0):
+    """(shared-memory bytes of one CTA, CTAs an SM, registers a thread,
+    warps a CTA) of the kernel for a table of K entries a row, from the CUDA
+    occupancy API and the kernel's attributes."""
+    out = (_lib.CI * 4)()
+    _lib.check(_lib.lib().mssvt_fill_plan(int(k), int(cap), int(cv), out),
+               "mssvt_fill_plan")
+    return tuple(out)
+
+
 def fill_capacity_buffer(box, offs_packed, cap, order=None, own_slab=None,
                          elig=None, num_valid=None):
     """Nearest-first capacity fill. Returns (vox (NW, cap) int32 -1 padded,
@@ -94,8 +149,7 @@ def fill_capacity_buffer(box, offs_packed, cap, order=None, own_slab=None,
         raise ValueError("offs_packed/order must have one entry per column")
     if elig is not None and np.asarray(elig).shape[1] > 8:
         raise ValueError("at most 8 eligibility columns")
-    src_of, offs_t, bits = (device_constant(a, dev, torch.int32) for a in
-                            _table_consts(k, offs_packed, order, elig))
+    tab, ne = kernel_table(k, offs_packed, order, elig, dev)
     nv = None
     if num_valid is not None:
         nv = _lib.require(torch.as_tensor(num_valid, device=dev)
@@ -112,11 +166,9 @@ def fill_capacity_buffer(box, offs_packed, cap, order=None, own_slab=None,
         rank_own = torch.empty((nw, cv), dtype=torch.int32, device=dev)
         cnt = torch.empty((nw, 8), dtype=torch.int32, device=dev)
     err = _lib.lib().mssvt_fill(
-        box.data_ptr(), nw, k, int(cap),
-        None if order is None else src_of.data_ptr(), offs_t.data_ptr(),
-        bits.data_ptr() if elig is not None else None, s0, cv, _lib.ptr(nv),
-        vox.data_ptr(), off.data_ptr(), _lib.ptr(rank_own), _lib.ptr(cnt),
-        _lib.stream_ptr(box))
+        box.data_ptr(), nw, k, int(cap), tab.data_ptr(), ne, s0, cv,
+        _lib.ptr(nv), vox.data_ptr(), off.data_ptr(), _lib.ptr(rank_own),
+        _lib.ptr(cnt), _lib.stream_ptr(box))
     _lib.check(err, "mssvt_fill")
     launches += 1
     if own_slab is None:

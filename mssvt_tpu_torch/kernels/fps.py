@@ -15,8 +15,11 @@ selection-free forms: the picks only, no aux planes, no dead rows. K2b
 replaces ``farthest_point_sample_planes_pallas_t`` (the transposed layout
 JAX takes on the TPU) with K2's loop (a group of lanes a row), N <= 256; K2c
 replaces ``farthest_point_sample_planes_pallas`` (the row layout, any N)
-with one CTA per row, planes and min-distance cache in shared memory,
-N <= 14 336 (16 N bytes of a CTA's 227 KB). :func:`fps_picks` chooses by N.
+with one CTA per row, N <= 16 384: each thread keeps a contiguous run of 16
+points and their min-distances in registers (x, y, z in shared memory above
+N = 8 192), a warp's first maximum is a max of the min-distances' bits, and
+one barrier an iteration lets every warp reduce the warps' winners itself.
+:func:`fps_picks` chooses by N.
 
 CUDA tensors go to ``csrc/fps.cu``; CPU tensors to :func:`fps_plain`. The
 distances are built from single rounded operations, so all three kernels'
@@ -33,7 +36,7 @@ launches = 0        # K2
 launches_warp = 0   # K2b
 launches_block = 0  # K2c
 MAX_N = 256            # a group of lanes a row (K2, K2b)
-MAX_N_BLOCK = 14336    # one CTA per row (K2c)
+MAX_N_BLOCK = 16384    # one CTA per row (K2c)
 MAX_PLANES = 8
 
 
@@ -126,7 +129,7 @@ def fps_picks_warp(x, y, z, npoint: int):
 
 
 def fps_picks_block(x, y, z, npoint: int):
-    """K2c: (B, N <= 14 336) f32 planes -> (B, npoint) int32 picks."""
+    """K2c: (B, N <= 16 384) f32 planes -> (B, npoint) int32 picks."""
     global launches_block
     if x.device.type == "cpu":
         return fps_plain(x, y, z, (), npoint)[0]

@@ -324,7 +324,8 @@ def test_query_keys_call_runs_k6_at_inference_and_matches_einsum():
 
 
 # ------------------------------------------------------------- K2b, K2c FPS
-@pytest.mark.parametrize("n,npoint", [(96, 32), (300, 40)])
+@pytest.mark.parametrize("n,npoint", [(96, 32), (300, 40), (2048, 64),
+                                     (1001, 40)])
 def test_selection_free_fps_matches_both_pallas_layouts(n, npoint):
     """``ops.sampling.farthest_point_sample_planes`` (the entry point that
     launches K2b for N <= 256 and K2c above it on the card; here the plain
@@ -332,7 +333,8 @@ def test_selection_free_fps_matches_both_pallas_layouts(n, npoint):
     ``farthest_point_sample_planes_pallas_t`` (K2b's TPU kernel) and
     ``farthest_point_sample_planes_pallas`` (K2c's) in interpret mode, on
     integer planes, where distances are exact and ties are common: the
-    picks agree exactly."""
+    picks agree exactly. N = 2 048 is chip_smoke's K2c width, 1 001 no
+    multiple of 4 or 32 (scalar loads, a part-padded warp on the card)."""
     from mssvt_tpu.ops.pallas_fps import (
         farthest_point_sample_planes_pallas,
         farthest_point_sample_planes_pallas_t,

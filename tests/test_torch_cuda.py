@@ -42,25 +42,46 @@ def _close(got, want, dtype):
         assert (got - want).abs().max() <= 2.0 ** -5 * want.abs().max()
 
 
+# (NW, K, cap, order, own-slab width cv (0: no slab), eligibility columns,
+# num_valid, box offset in entries from a 16-byte boundary)
+FILL_KERNEL_CASES = [
+    (40, 648, 96, True, 72, 3, 23, 0), (40, 648, 96, False, 0, 0, None, 0),
+    (40, 648, 96, True, 0, 0, 5, 0),
+    (1001, 648, 96, True, 72, 3, 777, 0),   # NW no multiple of a CTA's rows
+    (40, 648, 700, True, 72, 3, 40, 0),     # cap above every row's hits
+    (37, 163, 96, True, 53, 3, 30, 0),      # K % 4 != 0, cv % 4 != 0
+    (37, 163, 101, True, 53, 2, 37, 1),     # cap % 4 != 0, unaligned box
+    (33, 648, 96, True, 72, 3, 0, 0),       # num_valid 0
+    (33, 648, 96, True, 72, 0, 33, 3),      # num_valid NW, slab, no elig
+    (4000, 648, 96, True, 72, 3, 2250, 0),  # block-0 geometry
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("with_order,with_slab,nv", [
-    (True, True, 23), (False, False, None), (True, False, 5)])
-def test_fill_kernel_matches_plain(dev, with_order, with_slab, nv):
+@pytest.mark.parametrize("nw,k,cap,with_order,cv,ne,nv,shift",
+                         FILL_KERNEL_CASES)
+def test_fill_kernel_matches_plain(dev, nw, k, cap, with_order, cv, ne, nv,
+                                   shift):
+    """K1 equals fill_plain on every output, for live and dead rows, rows
+    staged from any 4-byte phase and output rows of any width; a second
+    call (the cached table) repeats it."""
     rng = np.random.default_rng(0)
-    nw, k, cap = 40, 648, 96
     box = np.where(rng.random((nw, k)) < 0.3,
                    rng.integers(0, 10**7, (nw, k)), -1).astype(np.int32)
     offs = rng.integers(0, 2**15, k).astype(np.int32)
     order = rng.permutation(k) if with_order else None
-    own_slab = (216, 72) if with_slab else None
-    elig = rng.integers(0, 2, (k, 3)).astype(np.float32) if with_slab else None
+    own_slab = (k // 3, cv) if cv else None
+    elig = rng.integers(0, 2, (k, ne)).astype(np.float32) if ne else None
     nv_t = None if nv is None else torch.tensor(nv, device=dev)
-    b = torch.as_tensor(box, device=dev)
+    flat = torch.empty(nw * k + shift, dtype=torch.int32, device=dev)
+    b = flat[shift:].view(nw, k)
+    b.copy_(torch.as_tensor(box))
     got = fill.fill_capacity_buffer(b, offs, cap, order, own_slab, elig, nv_t)
+    again = fill.fill_capacity_buffer(b, offs, cap, order, own_slab, elig, nv_t)
     want = fill.fill_plain(b, offs, cap, order, own_slab, elig, nv_t)
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    assert len(got) == len(want) == (4 if cv else 2)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, w)
 
 
 def _fps_planes(rng, kind, rows, n, count):
@@ -219,22 +240,37 @@ def test_attention_bwd_kernel_matches_plain(dev, dtype, q_prefix, num_heads,
         assert (got[name][29:] == 0).all()
 
 
+# (kernel, N, planes (see _fps_planes), rows, npoint)
+FPS_PICKS_CASES = [
+    (kn, n, "int" if integer else "normal", 37, 32) for kn, n, integer in (
+        ("warp", 96, True), ("warp", 33, False), ("warp", 256, False),
+        ("warp", 1, False), ("warp", 7, True), ("warp", 128, True),
+        ("warp", 200, False), ("warp", 256, True),
+        ("block", 257, False), ("block", 2048, True), ("block", 700, False),
+        ("block", 96, True))
+] + [
+    ("block", 14336, "normal", 5, 64), ("block", 16384, "int", 3, 64),
+    ("block", 16384, "normal", 2, 9000),  # pick list past shared memory
+    ("block", 4099, "int", 37, 32),       # N % 4 != 0: scalar loads
+    ("block", 8192, "normal", 4, 100),    # registers: 512 threads
+    ("block", 8193, "int", 4, 100),       # planes in shared memory
+    ("block", 2048, "dup", 37, 32),       # all-zero distances
+    ("block", 300, "normal", 37, 400),    # npoint > N
+    ("block", 2048, "normal", 1, 512),    # one row
+    ("block", 777, "int", 37, 1),         # npoint = 1
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,n,integer", [
-    ("warp", 96, True), ("warp", 33, False), ("warp", 256, False),
-    ("warp", 1, False), ("warp", 7, True), ("warp", 128, True),
-    ("warp", 200, False), ("warp", 256, True),
-    ("block", 257, False), ("block", 2048, True), ("block", 700, False),
-    ("block", 96, True)])
-def test_fps_picks_kernels_match_plain(dev, kernel, n, integer):
-    """K2b (one warp per row, N <= 256) and K2c (one CTA per row, any N up
-    to 14 336): the picks equal the plain version's exactly, on integer
-    planes (many exact ties) and on normal ones."""
+@pytest.mark.parametrize("kernel,n,kind,rows,npoint", FPS_PICKS_CASES)
+def test_fps_picks_kernels_match_plain(dev, kernel, n, kind, rows, npoint):
+    """K2b (a group of lanes a row, N <= 256) and K2c (one CTA a row, N up
+    to 16 384): the picks equal the plain version's exactly, on integer
+    planes (many exact ties), duplicated points (all-zero distances after
+    the first picks) and normal ones."""
     rng = np.random.default_rng(4)
-    rows, npoint = 37, 32
-    mk = ((lambda: rng.integers(-6, 7, (rows, n)).astype(np.float32))
-          if integer else (lambda: rng.normal(size=(rows, n)).astype(np.float32)))
-    planes = [torch.as_tensor(mk(), device=dev) for _ in range(3)]
+    planes = [torch.as_tensor(p, device=dev)
+              for p in _fps_planes(rng, kind, rows, n, 3)]
     fn = fps.fps_picks_warp if kernel == "warp" else fps.fps_picks_block
     before = fps.launches_warp + fps.launches_block
     got = fn(*planes, npoint)
@@ -614,7 +650,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     wide = torch.zeros(2, 300, device=dev)
     with pytest.raises(ValueError):
         fps.fps_picks_warp(wide, wide, wide, 4)
-    huge = torch.zeros(1, fps.MAX_N_BLOCK + 1, device=dev)
+    huge = torch.zeros(1, fps.MAX_N_BLOCK + 1, device=dev)  # 16 385
     with pytest.raises(ValueError):
         fps.fps_picks_block(huge, huge, huge, 4)
     q = torch.zeros(3, 8, 64, device=dev)

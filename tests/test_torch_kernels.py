@@ -37,6 +37,8 @@ FILL_CASES = [
     (130, 300, 48, False, False, None),
     (16, 162, 96, True, True, 9),       # block-4 table geometry
     (5, 129, 64, True, False, None),    # dense occupancy
+    (24, 648, 96, True, True, 0),       # no live row
+    (19, 163, 96, True, True, 11),      # K % 4 != 0: rows start unaligned
 ]
 
 
