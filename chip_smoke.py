@@ -8,7 +8,8 @@ Run from the repo root on a machine with an NVIDIA Hopper card:
 Phases (any failed check raises and the script exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the kernel build from ``mssvt_tpu_torch/csrc`` (nvcc, sm_90a);
+2. the kernel build from ``mssvt_tpu_torch/csrc`` (nvcc, sm_90a) and the
+   host voxelizer's (``csrc/host/voxelizer.cpp``, g++);
 3. small-input reference: ``mssvt_tiny.yaml`` in f32 on the card (CUDA
    kernels) against the same seeded weights on the CPU (the kernels' plain
    versions, which the CPU tests hold against the JAX package);
@@ -61,6 +62,20 @@ Phases (any failed check raises and the script exits non-zero):
    K2b), on 4 096 rows of 2 048 seeded points and on 4 rows of 16 384 (K2c,
    twice): picks equal to the plain version's, launch counts checked.
    (Phase 4 holds and times K2b and K2c beside K2.)
+8. the data pipeline and the entry points: ``mssvt.yaml``'s model at full
+   width on ``SyntheticDataset`` frames of ~180 000 points with
+   ``waymo_dataset.yaml``'s range, features, voxelizer (80 000 / 90 000
+   voxels a frame) and world flip/rotation/scaling (``PIPELINE_DATA``; the
+   config is written under ``output/``): ``tools/train_torch.py`` in-process
+   for one epoch (2 steps at batch 4), again for two (it resumes at epoch 1,
+   iteration 2, and takes 2 more steps), then ``tools/test_torch.py`` on
+   checkpoint 2 over the 8 test frames (2 requests); every loss and metric
+   finite, checkpoints [1, 2], ``result.pkl`` written, the launch counts of
+   every step and request, the C++ host voxelizer equal to its numpy
+   version on one frame; prints the voxels a frame, block 0's live
+   windows against its cap, the loader's host seconds a batch against the
+   synchronised step, eval ms a frame, the checkpoint's size and the peak
+   device memory (``# pipeline`` lines).
 
 The profiled request and steps print the device time per kernel name (top
 entries, and their sum as a share of the median unprofiled request or step
@@ -107,6 +122,8 @@ EXPECTED_LAUNCHES = launches(fill=5, fps=3, attention=3, ffn=3)
 TRAIN_LAUNCHES = launches(fill=5, fps=3, attention=3, attention_bwd=3)
 FLAG_OFF_LAUNCHES = launches(fill=5, fps=3, attention_qk=3, attention_qk_bwd=3)
 SAMPLING_LAUNCHES = launches(fps_picks_warp=1, fps_picks_block=2)
+PIPELINE_STEP = TRAIN_LAUNCHES       # each training step of phase 8
+PIPELINE_REQUEST = EXPECTED_LAUNCHES  # each eval request of phase 8
 REQUESTS = 10     # measured requests after one warm-up, cycling the scenes
 TRAIN_STEPS = 10  # measured steps of each kind after one warm-up step
 FPS_BLOCK_SHAPE = (4096, 2048, 512)  # K2c: rows, points a row, picks
@@ -583,6 +600,186 @@ def sampling_path(torch, planes):
         f"{planes[0].shape[1]}, {FPS_BLOCK_SHAPE[1]} and {FPS_WIDE_SHAPE[1]}; "
         f"launches "
         f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+# --------------------------------------------------------------- phase 8
+# phase 8's DATA_CONFIG: mssvt.yaml's (waymo_dataset.yaml: range, 5 point
+# features, voxelizer, world flip/rotation/scaling) with synthetic frames in
+# place of the dataset's files
+PIPELINE_DATA = {"DATASET": "SyntheticDataset", "NUM_FRAMES": 8,
+                 "POINTS_PER_FRAME": 180_000}
+
+
+def pipeline_config():
+    """mssvt.yaml with PIPELINE_DATA and gt_sampling disabled (no db-info
+    file exists), written under output/; returns its path."""
+    import yaml
+
+    cfg = json.loads(json.dumps(load_cfg("tools/cfgs/waymo_models/mssvt.yaml")))
+    cfg["DATA_CONFIG"].update(PIPELINE_DATA)
+    cfg["DATA_CONFIG"]["DATA_AUGMENTOR"]["DISABLE_AUG_LIST"] = ["gt_sampling"]
+    path = ROOT / "output" / "chip_smoke" / "cfgs" / "pipeline" / "mssvt_synthetic.yaml"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def load_tool(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def block0_windows(batch, cfg):
+    """Occupied block-0 windows of a device batch and the block's cap."""
+    from mssvt_tpu_torch.ops.window import window_partition
+
+    p0 = cfg["MODEL"]["BACKBONE_3D"]["PARAMS"][0]
+    cap = int(p0["max_num_wins"]) * BATCH
+    *_, num = window_partition(batch["voxel_coords"], batch["voxel_valid"],
+                               GRID, p0["window_size"][0], cap, BATCH)
+    return int(num), cap
+
+
+def voxelizer_check(cfg):
+    """The C++ host voxelizer against its numpy version on the first
+    synthetic frame at the eval cap: identical voxels, coords and counts."""
+    import numpy as np
+
+    from mssvt_tpu_torch.datasets import build_dataset
+    from mssvt_tpu_torch.ops.voxelize import voxelize_points
+
+    ds = build_dataset(cfg["DATA_CONFIG"], CLASSES, training=False)
+    points = ds._make_scene(0)[0]
+    args = (points, ds.voxel_size, ds.point_cloud_range,
+            ds.max_points_per_voxel, ds.max_voxels)
+    t0 = time.perf_counter()
+    got = voxelize_points(*args)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = voxelize_points(*args, use_native=False)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("host voxelizer: C++ != numpy version")
+    log(f"# pipeline voxelizer: C++ equals the numpy version on "
+        f"{len(points)} points -> {len(got[0])} voxels; host {native_ms:.1f} "
+        f"ms against {numpy_ms:.1f} ms")
+
+
+def pipeline_path(torch, card):
+    """Phase 8: train_torch.py (1 epoch, then 2 with auto-resume) and
+    test_torch.py on checkpoint 2, in-process on the card, through the
+    port's own dataset, voxelizer, loader and eval loop. Returns the launch
+    counts of the whole phase."""
+    import math
+    import shutil
+
+    import yaml
+
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.runtime import eval_utils, train_utils
+
+    cfg_path = pipeline_config()
+    cfg = yaml.safe_load(cfg_path.read_text())
+    voxelizer_check(cfg)
+    out_root = ROOT / "output" / "chip_smoke" / "runs"
+    shutil.rmtree(out_root, ignore_errors=True)
+    os.environ["MSSVT_OUTPUT_ROOT"] = str(out_root)
+    train, test = load_tool("train_torch"), load_tool("test_torch")
+
+    seen = {"step": [], "request": []}
+
+    def counted(kind, fn):
+        def call(model, *args, **kw):
+            before = kernels.launch_counts()
+            out = fn(model, *args, **kw)
+            after = kernels.launch_counts()
+            batch = args[1] if kind == "step" else args[0]
+            seen[kind].append(({n: after[n] - before[n] for n in after}, batch))
+            return out
+        return call
+
+    train_step, eval_step = train_utils.train_step, eval_utils.eval_step
+    train_utils.train_step = counted("step", train_step)
+    eval_utils.eval_step = counted("request", eval_step)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    common = ["--cfg_file", str(cfg_path), "--batch_size", str(BATCH),
+              "--workers", "1", "--extra_tag", "smoke"]
+    try:
+        runs = [train.main(common + ["--fix_random_seed", "--epochs", "1"]),
+                train.main(common + ["--fix_random_seed", "--epochs", "2"])]
+        evals = test.main(common + ["--ckpt", "2"])
+    finally:
+        train_utils.train_step, eval_utils.eval_step = train_step, eval_step
+        del os.environ["MSSVT_OUTPUT_ROOT"]
+    counts = kernels.launch_counts()
+    seconds = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    ckpt_dir = runs[0]["ckpt_dir"]
+    steps = sorted(int(p.stem.split("_")[1]) for p in ckpt_dir.glob("checkpoint_*.pt"))
+    if steps != [1, 2]:
+        raise AssertionError(f"pipeline: checkpoints {steps} != [1, 2]")
+    if (runs[1]["start_epoch"], runs[1]["start_iter"]) != (1, 2):
+        raise AssertionError("pipeline: the second run did not resume at "
+                             f"epoch 1, iteration 2: {runs[1]}")
+    history = runs[0]["history"] + runs[1]["history"]
+    if len(history) != 4 or len(seen["step"]) != 4 or len(seen["request"]) != 2:
+        raise AssertionError(f"pipeline: {len(history)} steps, "
+                             f"{len(seen['request'])} requests (4 and 2 due)")
+    for i, h in enumerate(history):
+        if not math.isfinite(h["loss"]):
+            raise AssertionError(f"pipeline step {i}: loss {h['loss']}")
+    for kind, want in (("step", PIPELINE_STEP), ("request", PIPELINE_REQUEST)):
+        for i, (per, _) in enumerate(seen[kind]):
+            if per != want:
+                raise AssertionError(f"pipeline {kind} {i}: launches {per} != "
+                                     f"{want}")
+    metrics = evals[2]
+    bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"pipeline: non-finite metrics {bad}")
+    result = runs[0]["output_dir"] / "eval" / "epoch_2" / "result.pkl"
+    if not result.exists():
+        raise AssertionError(f"pipeline: {result} was not written")
+
+    caps = {"train": int(cfg["DATA_CONFIG"]["DATA_PROCESSOR"][-1]
+                         ["MAX_NUMBER_OF_VOXELS"]["train"]),
+            "test": int(cfg["DATA_CONFIG"]["DATA_PROCESSOR"][-1]
+                        ["MAX_NUMBER_OF_VOXELS"]["test"])}
+    for kind, split in (("step", "train"), ("request", "test")):
+        vox, wins = [], []
+        for _, batch in seen[kind]:
+            v = batch["voxel_valid"].reshape(BATCH, -1).sum(1).tolist()
+            vox += v
+            wins.append(block0_windows(batch, cfg))
+        log(f"# pipeline {split}: occupied voxels a frame min {min(vox)}, "
+            f"mean {sum(vox) / len(vox):.1f}, max {max(vox)} against the cap "
+            f"{caps[split]} ({len(vox)} frames); block-0 windows a batch "
+            f"{[w for w, _ in wins]} against the cap {wins[0][1]} "
+            f"(max_num_wins {wins[0][1] // BATCH} x batch {BATCH}; the "
+            f"overflow is dropped, as the reference does) [{card}]")
+    make = runs[0]["loader_make_seconds"] + runs[1]["loader_make_seconds"]
+    log(f"# pipeline train: loader host seconds a batch (items + collate) "
+        f"{[round(x, 4) for x in make]}, mean {sum(make) / len(make):.4f}; "
+        f"the step's wait for it {[round(h['data_s'], 4) for h in history]}; "
+        f"synchronised step {[round(h['step_s'], 4) for h in history]} s; "
+        f"losses {[round(h['loss'], 4) for h in history]} [{card}]")
+    ckpt_mb = (ckpt_dir / "checkpoint_2.pt").stat().st_size / 2**20
+    log(f"# pipeline eval: {metrics['sec_per_example'] * 1e3:.2f} ms a frame "
+        f"(forward between synchronisations, batch {BATCH}); mAP "
+        f"{metrics['mAP']:.4f}, recall@0.3 {metrics['recall/rcnn_0.3']:.4f} "
+        f"(untrained: ~0, not gated) [{card}]")
+    log(f"# pipeline: checkpoint {ckpt_mb:.1f} MiB; peak device memory "
+        f"{peak:.2f} GiB; phase {seconds:.1f} s [{card}]")
+    log(f"# pipeline launches: {counts}")
     return counts
 
 
@@ -1161,6 +1358,12 @@ def main(argv):
     log(f"# kernel build: {time.time() - t0:.1f} s "
         f"(nvcc {' '.join(_lib.NVCC_FLAGS)}; fresh build: "
         f"{_lib.BUILD_SECONDS is not None})")
+    from mssvt_tpu_torch.ops import voxelize
+
+    t0 = time.time()
+    voxelize.host_library()
+    log(f"# host voxelizer build: {time.time() - t0:.1f} s "
+        f"(g++ {' '.join(voxelize.GXX_FLAGS)})")
 
     small_reference(torch)
 
@@ -1195,6 +1398,11 @@ def main(argv):
     log(f"# inference: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    # cuDNN deterministic for the training phases (6 and 7): their repeated
+    # backward must give bit-identical gradients
+    from mssvt_tpu_torch.runtime.train_utils import set_deterministic
+
+    set_deterministic()
     small_train_reference(torch)
 
     from mssvt_tpu_torch.datasets.synthetic_scene import add_synth_gt
@@ -1255,6 +1463,15 @@ def main(argv):
                        median(off_times), "flag-off",
                        ("attention_qk (K6)", "attention_qk_kernel"))
     sampling_counts = sampling_path(torch, fps_planes)
+    del model, optimizer
+    torch.cuda.empty_cache()
+
+    pipeline_counts = pipeline_path(torch, card)
+    for name in set(PIPELINE_STEP) | set(PIPELINE_REQUEST):
+        if (PIPELINE_STEP[name] or PIPELINE_REQUEST[name]) and \
+                pipeline_counts[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "pipeline path")
     for name, counts_ in (("attention_qk", off_counts),
                           ("attention_qk_bwd", off_counts),
                           ("fps_picks_warp", sampling_counts),

@@ -2,7 +2,8 @@
 ``mssvt_tpu/ops/box_ops.py``): each quad edge is clipped to the other
 quad's four half-planes as a parameter interval and the shoelace sum runs
 over the retained sub-segments. Boxes are (x, y, z, dx, dy, dz, heading).
-Leading batch dimensions broadcast.
+Leading batch dimensions broadcast. The BEV IoU serves NMS and the GT
+sampler's collision test, the 3D IoU the eval loop's recall.
 """
 
 from __future__ import annotations
@@ -55,6 +56,19 @@ def _clipped_edge_cross_sum(p0, d, h0, he, bound: float):
     return torch.where(alive, cr, 0.0).sum(dim=-1)
 
 
+def rotated_intersection_area(ca, cb):
+    """Intersection area of two batches of convex ccw quads (..., 4, 2).
+
+    Closed interior for the A pass, open for the B pass: a boundary segment
+    shared by both quads is counted exactly once.
+    """
+    da = torch.roll(ca, -1, dims=-2) - ca
+    db = torch.roll(cb, -1, dims=-2) - cb
+    total = (_clipped_edge_cross_sum(ca, da, cb, db, -EPS)
+             + _clipped_edge_cross_sum(cb, db, ca, da, EPS))
+    return 0.5 * total.abs()
+
+
 def _inter_area_pairwise(ca, cb):
     """(..., N, 4, 2) x (..., M, 4, 2) -> (..., N, M) intersection areas."""
     da = torch.roll(ca, -1, dims=-2) - ca
@@ -73,3 +87,21 @@ def pairwise_iou_bev(boxes_a, boxes_b):
     area_a = (boxes_a[..., 3] * boxes_a[..., 4])[..., :, None]
     area_b = (boxes_b[..., 3] * boxes_b[..., 4])[..., None, :]
     return inter / torch.clamp(area_a + area_b - inter, min=1e-6)
+
+
+def pairwise_iou_3d(boxes_a, boxes_b):
+    """(N, 7) x (M, 7) -> (N, M) 3D IoU: the rotated BEV intersection times
+    the z overlap, over the union of the volumes."""
+    inter_bev = _inter_area_pairwise(boxes_to_corners_bev(boxes_a),
+                                     boxes_to_corners_bev(boxes_b))
+    za0 = boxes_a[..., 2] - boxes_a[..., 5] / 2
+    za1 = boxes_a[..., 2] + boxes_a[..., 5] / 2
+    zb0 = boxes_b[..., 2] - boxes_b[..., 5] / 2
+    zb1 = boxes_b[..., 2] + boxes_b[..., 5] / 2
+    zo = torch.clamp(torch.minimum(za1[..., :, None], zb1[..., None, :])
+                     - torch.maximum(za0[..., :, None], zb0[..., None, :]),
+                     min=0)
+    inter = inter_bev * zo
+    vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5])[..., :, None]
+    vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5])[..., None, :]
+    return inter / torch.clamp(vol_a + vol_b - inter, min=1e-6)

@@ -10,6 +10,7 @@ epoch and the iteration. The newest ``max_keep`` are kept.
 
 from __future__ import annotations
 
+import logging
 import re
 from pathlib import Path
 from typing import Optional
@@ -68,3 +69,24 @@ def load_training_state(model, optimizer, state: dict):
     if optimizer is not None:
         optimizer.load_state_dict(state["optimizer"])
     return int(state["epoch"]), int(state["it"])
+
+
+def partial_load_params(restored, init, logger=None):
+    """Shape-tolerant weights-only load (ref: detector3d_template.py:330-359;
+    ``partial_load_params`` of the JAX package on state dicts).
+
+    Returns a copy of the state dict ``init`` in which every tensor whose
+    name is in ``restored`` with the same shape is taken from ``restored``;
+    every other keeps its fresh value. The counts are logged."""
+    logger = logger or logging.getLogger(__name__)
+    out, n_loaded = {}, 0
+    for name, value in init.items():
+        got = restored.get(name)
+        if got is not None and tuple(got.shape) == tuple(value.shape):
+            out[name] = got
+            n_loaded += 1
+        else:
+            logger.info(f"partial load: keeping fresh init for {name}")
+            out[name] = value
+    logger.info(f"partial load: {n_loaded}/{len(init)} tensors restored")
+    return out

@@ -4,8 +4,9 @@
 ``train_step`` is the unit the loop repeats: forward in train mode, loss,
 backward (K5 for the assembled attention), then the optimizer chain. Its
 gradients repeat bit for bit for the same weights, batch and DropPath
-generator state: the port's gathers and K5 sum without float atomics, and
-``forward_backward`` asks cuDNN for its deterministic algorithms.
+generator state once :func:`set_deterministic` has been called: the port's
+gathers and K5 sum without float atomics. ``train_model`` feeds it from the
+data loader through :func:`batch_to_device`.
 """
 
 from __future__ import annotations
@@ -13,9 +14,49 @@ from __future__ import annotations
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .checkpoint import CheckpointManager, training_state
+
+def set_deterministic():
+    """Ask cuDNN for its deterministic algorithms and no autotuning.
+
+    Process-wide (``torch.backends.cudnn``), so it is set once by the
+    caller that needs bit-identical repeats, not per step: the training
+    entry point (``tools/train_torch.py``), ``chip_smoke.py`` and the card
+    tests. It also slows the process's other cuDNN work (the
+    BEV backbone's and the head's convolutions may lose a faster
+    nondeterministic algorithm)."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def batch_to_device(batch, device):
+    """The collated batch on ``device`` (the one-card counterpart of
+    ``shard_batch_for_mesh``): numpy arrays go through pinned memory with
+    ``non_blocking=True`` on a card; tensors are moved; python values and
+    lists (``frame_id``, ``n_real``, ``batch_size``) stay on the host."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+            if device.type == "cuda":
+                v = v.pin_memory()
+        if isinstance(v, torch.Tensor):
+            v = v.to(device, non_blocking=True)
+        out[k] = v
+    return out
+
+
+def model_device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def synchronize(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class AverageMeter:
@@ -37,8 +78,6 @@ def forward_backward(model, batch, generator=None):
     """Train-mode forward and backward: leaves the gradients in the
     parameters' ``.grad`` (accumulated onto what is there) and returns
     ``(loss, tb_dict)``, detached."""
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
     model.train()
     out = model(batch, generator=generator)
     out["loss"].backward()
@@ -58,12 +97,20 @@ def train_model(model, optimizer, train_loader, total_epochs: int,
                 ckpt_manager: Optional[CheckpointManager] = None,
                 ckpt_save_interval: int = 1, start_epoch: int = 0,
                 start_iter: int = 0, generator=None, lr_fn=None, logger=None,
-                tb_log=None, log_interval: int = 50):
-    """Run ``train_step`` over ``train_loader`` (any iterable of batches on
-    the model's device; ``set_epoch(epoch)`` is called when it has one) for
-    ``total_epochs`` epochs, logging every ``log_interval`` iterations and
-    saving a checkpoint every ``ckpt_save_interval`` epochs. Returns the
-    accumulated iteration count."""
+                tb_log=None, log_interval: int = 50, history=None):
+    """Run ``train_step`` over ``train_loader`` (a ``Loader`` of collated
+    numpy batches, or any iterable of batches; ``set_epoch(epoch)`` is
+    called when it has one) for ``total_epochs`` epochs, each batch moved
+    to the model's device by :func:`batch_to_device`, logging every
+    ``log_interval`` iterations and saving a checkpoint every
+    ``ckpt_save_interval`` epochs (checkpoints fall on epoch boundaries, so
+    a resumed run starts at ``start_epoch``'s first batch). With a
+    ``history`` list, one record per step is appended:
+    epoch, iteration, loss, the host seconds spent waiting for the batch
+    and handing it to the device (``data_s``) and the step's seconds up to
+    a device synchronisation (``step_s``). Returns the accumulated
+    iteration count."""
+    device = model_device(model)
     accumulated_iter = start_iter
     for epoch in range(start_epoch, total_epochs):
         if hasattr(train_loader, "set_epoch"):
@@ -71,9 +118,16 @@ def train_model(model, optimizer, train_loader, total_epochs: int,
         data_meter, batch_meter = AverageMeter(), AverageMeter()
         end = time.time()
         for batch in train_loader:
-            data_meter.update(time.time() - end)
+            batch = batch_to_device(batch, device)
+            data_s = time.time() - end
+            data_meter.update(data_s)
             loss, tb = train_step(model, optimizer, batch, generator)
             accumulated_iter += 1
+            if history is not None:
+                synchronize(device)
+                history.append({"epoch": epoch, "it": accumulated_iter,
+                                "loss": float(loss), "data_s": data_s,
+                                "step_s": time.time() - end - data_s})
             if accumulated_iter % log_interval == 0:
                 loss_v = float(loss)
                 lr_v = float(lr_fn(accumulated_iter)) if lr_fn else float("nan")

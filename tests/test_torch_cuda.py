@@ -24,13 +24,18 @@ from mssvt_tpu_torch.kernels import (
     fill,
     fps,
 )
+from mssvt_tpu_torch.runtime.train_utils import set_deterministic
 
 
 @pytest.fixture
 def dev():
+    """The card, with TF32 off and cuDNN deterministic
+    (``train_utils.set_deterministic``, as the entry points set it), so the
+    tests that repeat a call can ask for bit-identical results."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the port's kernels run only there")
     torch.backends.cuda.matmul.allow_tf32 = False
+    set_deterministic()
     return torch.device("cuda")
 
 

@@ -15,7 +15,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "mssvt_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mssvt_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mssvt_tpu")
+ENTRY_POINTS = (ROOT / "tools" / "train_torch.py", ROOT / "tools" / "test_torch.py")
 
 
 def _imports(path):
@@ -29,7 +30,8 @@ def _imports(path):
 
 
 def test_port_sources_import_no_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          *ENTRY_POINTS]
     assert len(files) > 20
     for path in files:
         for name in _imports(path):
@@ -50,6 +52,30 @@ def test_port_imports_without_nvcc_triton_or_jax():
         "('jax', 'flax', 'triton', 'mssvt_tpu')]\n"
         "assert not bad, bad\n")
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)}
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_entry_points_import_without_nvcc_or_jax_and_build_nothing():
+    """Both torch entry points import in a fresh interpreter with no nvcc
+    and no g++ on PATH; that loads nothing of jax, flax, orbax or
+    mssvt_tpu, and neither builds the host voxelizer nor the kernels."""
+    code = (
+        "import importlib.util, sys\n"
+        "for name in ('train_torch', 'test_torch'):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, f'tools/{name}.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    assert callable(mod.main)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'orbax', 'triton', 'mssvt_tpu')]\n"
+        "assert not bad, bad\n"
+        "from mssvt_tpu_torch.ops import voxelize\n"
+        "from mssvt_tpu_torch.kernels import _lib\n"
+        "assert voxelize._LIB is None and _lib._LIB is None\n")
+    env = {"PATH": str(Path(sys.executable).parent), "PYTHONPATH": str(ROOT)}
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -221,6 +247,9 @@ def test_kernel_sources_are_present():
                      "attention_qk.cu", "attention_qk_bwd.cu", "ffn.cu"}
     headers = {p.name for p in (PORT / "csrc").glob("*.cuh")}
     assert headers == {"attention_common.cuh", "attention_bwd_common.cuh"}
+    # the host voxelizer's C++ lies outside the nvcc glob (csrc/*.cu)
+    assert [p.name for p in (PORT / "csrc" / "host").iterdir()
+            if p.suffix == ".cpp"] == ["voxelizer.cpp"]
     mods = {m.name for m in pkgutil.iter_modules([str(PORT / "kernels")])}
     assert {"fill", "fps", "attention", "attention_bwd", "attention_qk",
             "attention_qk_bwd", "ffn", "_lib"} <= mods
