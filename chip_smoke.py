@@ -85,6 +85,25 @@ K1, K2 and K6 launch inside the flag-off step. With ``--profile`` phases 6b and 
 print the device time of each launch inside one K5 and one K7 call
 (per-window kernel, weight product, final sums, K7's pre-pass).
 
+9. data parallelism and the rest of the entry points, at ``mssvt.yaml``
+   full width: 9a ``tools/train_torch.py --launcher pytorch`` at world size
+   1 on NCCL (DDP, SyncBN) for one epoch of phase 8's config (2 steps at
+   batch 4, checkpoint 1), then ``tools/test_torch.py --launcher pytorch``
+   on it through the part/barrier/merge path, each step's and request's
+   launch counts checked and the step times printed beside phase 8's; 9b
+   two gloo ranks on ``cuda:0`` (spawned processes), each one DDP step of
+   plain SGD on its half of the batch, against the one-process step on the
+   whole batch (the tiny f32 model on 2 frames, per parameter update; the
+   full-width bf16 model on 4 Waymo-scale frames, loss within 1e-3 and
+   gradient norm within 1e-2 relative; DropPath off and window caps raised
+   to what the frames need, equal positives a frame), launch counts per
+   rank; 9c ``tools/demo_torch.py`` on four ``.npy`` frames of the synthetic
+   scene, then ``tools/import_ckpt_torch.py`` on a seeded pcdet-named
+   ``mssvt.yaml`` state dict and a request a frame from the imported
+   weights; 9d ``voxelize_points_torch`` on a 180 000-point frame against
+   the host C++ voxelizer (the same voxels and counts but where a point's
+   float32 cell differs from its float64 one), timed.
+
 Its last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
 cuDNN convolutions, so f32 comparisons are full f32.
@@ -780,7 +799,550 @@ def pipeline_path(torch, card):
     log(f"# pipeline: checkpoint {ckpt_mb:.1f} MiB; peak device memory "
         f"{peak:.2f} GiB; phase {seconds:.1f} s [{card}]")
     log(f"# pipeline launches: {counts}")
+    return counts, [h["step_s"] for h in history]
+
+
+# --------------------------------------------------------------- phase 9
+DDP_STEP = TRAIN_LAUNCHES      # each rank's step of phases 9a and 9b
+DDP_REQUEST = EXPECTED_LAUNCHES  # each request of phase 9a's eval
+TINY_STEP = launches(fill=3, fps=2, attention=2, attention_bwd=2)
+DEMO_FRAMES = 4  # phase 9c: the first request of a fresh model warms it up
+DDP_LR = 1e-2  # phase 9b's SGD (adam would scale rounding noise up)
+TINY_SLOTS, TINY_VOXELS = 1024, 600  # phase 9b's tiny frames
+WAYMO_SLOTS = 90_000  # voxel slots a full-width frame
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ddp_pipeline(torch, card, one_card_steps):
+    """Phase 9a: tools/train_torch.py --launcher pytorch at world size 1 on
+    NCCL (DDP, SyncBN) on phase 8's config for one epoch (2 steps at batch
+    4), then tools/test_torch.py --launcher pytorch on checkpoint 1, whose
+    eval goes through the part/barrier/merge path. Returns the launch
+    counts of the phase."""
+    import math
+    import shutil
+
+    from torch.nn.parallel import DistributedDataParallel
+
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.runtime import eval_utils, train_utils
+
+    cfg_path = pipeline_config()
+    out_root = ROOT / "output" / "chip_smoke" / "ddp"
+    shutil.rmtree(out_root, ignore_errors=True)
+    env = {"MSSVT_OUTPUT_ROOT": str(out_root), "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    train, test = load_tool("train_torch"), load_tool("test_torch")
+    seen = {"step": [], "request": []}
+
+    def counted(kind, fn):
+        def call(model, *args, **kw):
+            import torch.distributed as dist
+
+            before = kernels.launch_counts()
+            out = fn(model, *args, **kw)
+            after = kernels.launch_counts()
+            seen[kind].append(({n: after[n] - before[n] for n in after},
+                               type(model), dist.get_backend()))
+            return out
+        return call
+
+    train_step, eval_step = train_utils.train_step, eval_utils.eval_step
+    train_utils.train_step = counted("step", train_step)
+    eval_utils.eval_step = counted("request", eval_step)
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    common = ["--cfg_file", str(cfg_path), "--batch_size", str(BATCH),
+              "--workers", "1", "--extra_tag", "ddp", "--launcher", "pytorch"]
+    try:
+        run = train.main(common + ["--fix_random_seed", "--epochs", "1"])
+        evals = test.main(common + ["--ckpt", "1"])
+    finally:
+        train_utils.train_step, eval_utils.eval_step = train_step, eval_step
+        for k in env:
+            del os.environ[k]
+    counts = kernels.launch_counts()
+    seconds = time.time() - t0
+    if run["world_size"] != 1 or len(run["history"]) != 2:
+        raise AssertionError(f"ddp pipeline: world {run['world_size']}, "
+                             f"{len(run['history'])} steps (2 due)")
+    if not (run["ckpt_dir"] / "checkpoint_1.pt").exists():
+        raise AssertionError("ddp pipeline: checkpoint 1 was not written")
+    for kind, want in (("step", DDP_STEP), ("request", DDP_REQUEST)):
+        if len(seen[kind]) != 2:
+            raise AssertionError(f"ddp pipeline: {len(seen[kind])} {kind}s")
+        for i, (per, cls, backend) in enumerate(seen[kind]):
+            if per != want or backend != "nccl":
+                raise AssertionError(f"ddp pipeline {kind} {i}: launches "
+                                     f"{per} != {want} or backend {backend}")
+    if any(cls is not DistributedDataParallel for _, cls, _ in seen["step"]):
+        raise AssertionError("ddp pipeline: the steps did not run under DDP")
+    for h in run["history"]:
+        if not math.isfinite(h["loss"]):
+            raise AssertionError(f"ddp pipeline: loss {h['loss']}")
+    metrics = evals[1]
+    bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"ddp pipeline: non-finite metrics {bad}")
+    result = run["output_dir"] / "eval" / "epoch_1"
+    if not (result / "result.pkl").exists() or (result / "tmp_merge").exists():
+        raise AssertionError("ddp pipeline: result.pkl missing or parts left")
+    log(f"# ddp 9a: train_torch.py --launcher pytorch, world 1, NCCL, DDP + "
+        f"SyncBN: synchronised steps {[round(h['step_s'], 4) for h in run['history']]} s "
+        f"against phase 8's one-process {[round(s, 4) for s in one_card_steps]} s; "
+        f"losses {[round(h['loss'], 4) for h in run['history']]}; launches a "
+        f"step {seen['step'][0][0]} [{card}]")
+    log(f"# ddp 9a: test_torch.py --launcher pytorch (merged parts): "
+        f"{metrics['sec_per_example'] * 1e3:.2f} ms a frame, launches a request "
+        f"{seen['request'][0][0]}; phase {seconds:.1f} s [{card}]")
     return counts
+
+
+def per_frame_slots(np, scene, bsz, slots):
+    """A packed scene (frames one after another) re-laid out in per-frame
+    voxel slots of ``slots`` rows, as the collate gives it."""
+    out = {"voxels": np.zeros((bsz * slots,) + scene["voxels"].shape[1:],
+                              np.float32),
+           "voxel_num_points": np.zeros(bsz * slots, np.float32),
+           "voxel_coords": np.full((bsz * slots, 4), -1, np.int32),
+           "voxel_valid": np.zeros(bsz * slots, bool)}
+    b_col = scene["voxel_coords"][:, 0]
+    for b in range(bsz):
+        rows = np.nonzero(scene["voxel_valid"] & (b_col == b))[0][:slots]
+        for k in out:
+            out[k][b * slots:b * slots + len(rows)] = scene[k][rows]
+    return out
+
+
+def equal_count_gt(np, bsz, x_range, y_range, n, seed, max_gt):
+    """``n`` boxes a frame, classes cycling 1, 2, 3: every frame, so every
+    rank, has the same positives per class and head, and the mean of the
+    ranks' losses is the loss of the batch."""
+    rng = np.random.default_rng(seed)
+    gt = np.zeros((bsz, max_gt, 8), np.float32)
+    for b in range(bsz):
+        gt[b, :n, 0] = rng.uniform(*x_range, n)
+        gt[b, :n, 1] = rng.uniform(*y_range, n)
+        gt[b, :n, 2] = rng.uniform(-1.0, 1.0, n)
+        gt[b, :n, 3:6] = rng.uniform(0.8, 4.0, (n, 3))
+        gt[b, :n, 6] = rng.uniform(-np.pi, np.pi, n)
+        gt[b, :n, 7] = np.arange(n) % 3 + 1
+    return gt
+
+
+def window_caps(np, frames, grid, params):
+    """Each block's live windows a frame, at most, on ``frames`` (per-frame
+    coordinate arrays (n, 4) b, z, y, x): the block-by-block window
+    partition, compress blocks turning windows into the next voxels."""
+    caps = []
+    coords = [c[:, 1:] for c in frames]  # z, y, x
+    g = np.asarray(grid)                   # x, y, z
+    for p in params:
+        w = np.asarray(p["window_size"][0])  # x, y, z
+        full = (g // w) * w
+        counts, nxt = [], []
+        for c in coords:
+            x, y, z = c[:, 2], c[:, 1], c[:, 0]
+            ok = (x < full[0]) & (y < full[1]) & (z < full[2])
+            win = np.unique(np.stack([z[ok] // w[2], y[ok] // w[1],
+                                      x[ok] // w[0]], 1), axis=0)
+            counts.append(len(win))
+            nxt.append(win)
+        caps.append(max(counts))
+        if p["name"].endswith("CompressBlock"):
+            coords, g = nxt, g // w
+    return caps
+
+
+def ddp_model(kind, bsz, caps):
+    """Phase 9b's model on the card for ``bsz`` frames: the tiny f32 one or
+    full-width mssvt.yaml (bf16), DropPath off (per-rank generators would
+    drop other voxels than one generator over the batch) and each block's
+    window cap raised to what the frames need (the frames of a batch share
+    it, so a cap that drops windows drops other ones at batch 2 and 4)."""
+    from mssvt_tpu_torch.models import build_network
+    from mssvt_tpu_torch.models.model_utils.layers import DropPath
+
+    if kind == "tiny":
+        args, n_feat, _ = tiny_setup(17)
+        cfg, extra = args[0], args[1:]
+        grid, slots = args[3], TINY_SLOTS
+    else:
+        cfg = load_cfg("tools/cfgs/waymo_models/mssvt.yaml").MODEL
+        extra = (3, CLASSES, GRID, VOXEL, PCR)
+        n_feat, grid, slots = 5, GRID, WAYMO_SLOTS
+    for p, cap in zip(cfg.BACKBONE_3D.PARAMS, caps):
+        p["max_num_wins"] = max(int(p["max_num_wins"]), cap)
+    if kind == "tiny":
+        args = (cfg, *extra[:5], bsz, slots * bsz, 5)
+    else:
+        args = (cfg, *extra, bsz, slots * bsz, 5)
+    model = build_network(*args, num_point_features=n_feat, device="cuda",
+                          seed=11)
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.rate = 0.0
+    return model
+
+
+
+def ddp_sgd_step(torch, model, batch, rank=0):
+    """One train_step with plain SGD after a warm-up forward and backward
+    (the weights and statistics restored after it); (loss, gradient norm,
+    gradients as one f32 vector on the CPU, launch counts, ms of the
+    synchronised step)."""
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.parallel import dist
+    from mssvt_tpu_torch.runtime.train_utils import forward_backward, train_step
+
+    inner = dist.unwrap(model)
+    start = {k: v.detach().clone() for k, v in inner.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    forward_backward(model, batch, gen)  # warm-up, then the same start
+    inner.load_state_dict(start)
+    opt = torch.optim.SGD(model.parameters(), lr=DDP_LR)
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = train_step(model, opt, batch, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = grad_vector(torch, dist.unwrap(model)).cpu()
+    return (float(loss), grads.norm().item(), grads,
+            kernels.launch_counts(), ms)
+
+
+def ddp_rank_step(kind, shards, caps):
+    """Phase 9b's rank body (a spawned process): join the gloo group on
+    card 0, one DDP step on this rank's frames."""
+    import torch
+
+    from mssvt_tpu_torch.parallel import dist
+    from mssvt_tpu_torch.runtime.train_utils import set_deterministic
+
+    rank, world = dist.init_distributed("pytorch", "cuda", backend="gloo",
+                                        device_index=0)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        set_deterministic()
+        batch = to_device(torch, shards[rank], "cuda")
+        model = dist.wrap_ddp(ddp_model(kind, len(batch["gt_boxes"]), caps))
+        res = ddp_sgd_step(torch, model, batch, rank)
+        if kind != "tiny":
+            res = res[:2] + (None,) + res[3:]
+        return res + (torch.distributed.get_backend(), world)
+    finally:
+        dist.shutdown()
+
+
+def ddp_ranks_check(torch, card):
+    """Phase 9b: two gloo ranks on card 0, each one DDP step on its half of
+    the batch, against the one-process step on the whole batch: the tiny
+    f32 model (2 frames) per parameter, full-width mssvt.yaml bf16 (4
+    frames) by loss and gradient norm. Returns {kind: rank launch counts}."""
+    import functools
+
+    import numpy as np
+
+    from mssvt_tpu_torch.datasets.synthetic_scene import make_waymo_scale_scene
+    from mssvt_tpu_torch.parallel import dist
+
+    out = {}
+    for kind in ("tiny", "full"):
+        if kind == "tiny":
+            args, _, _ = tiny_setup(17)
+            rng = np.random.default_rng(5)
+            bsz, grid, slots = 2, args[3], TINY_SLOTS
+            frames = []
+            for b in range(bsz):
+                c = np.unique(np.stack([
+                    np.full(TINY_VOXELS, b), rng.integers(0, grid[2], TINY_VOXELS),
+                    rng.integers(0, grid[1], TINY_VOXELS),
+                    rng.integers(0, grid[0], TINY_VOXELS)], 1), axis=0)
+                frames.append(c.astype(np.int32))
+            packed = np.concatenate(frames)
+            n = len(packed)
+            scene = {"voxel_coords": packed, "voxel_valid": np.ones(n, bool),
+                     "voxels": rng.normal(size=(n, 5, 4)).astype(np.float32),
+                     "voxel_num_points": rng.integers(1, 6, n).astype(np.float32)}
+            gt = equal_count_gt(np, bsz, (1.0, 18.0), (-8.5, 8.5), 6, 5, 8)
+            params = args[0].BACKBONE_3D.PARAMS
+        else:
+            bsz, grid, slots = BATCH, GRID, WAYMO_SLOTS
+            scene, _ = make_waymo_scale_scene(slots * bsz, GRID, seed=4,
+                                              batch=bsz)
+            gt = equal_count_gt(np, bsz, (-70.0, 70.0), (-70.0, 70.0), 42, 6,
+                                64)
+            params = load_cfg("tools/cfgs/waymo_models/mssvt.yaml"
+                              ).MODEL.BACKBONE_3D.PARAMS
+        batch = per_frame_slots(np, scene, bsz, slots)
+        batch["gt_boxes"] = gt
+        frames = [batch["voxel_coords"][b * slots:(b + 1) * slots]
+                  for b in range(bsz)]
+        frames = [f[f[:, 0] >= 0] for f in frames]
+        caps = window_caps(np, frames, grid, params)
+        shards = []
+        for r in range(2):
+            half = bsz // 2
+            sh = {k: np.array(v[r * half * slots:(r + 1) * half * slots])
+                  for k, v in batch.items() if k != "gt_boxes"}
+            sh["voxel_coords"][:, 0] = np.where(
+                sh["voxel_coords"][:, 0] >= 0, sh["voxel_coords"][:, 0] - r * half,
+                -1)
+            sh["gt_boxes"] = gt[r * half:(r + 1) * half]
+            shards.append(sh)
+        t0 = time.time()
+        ranks = dist.launch_local(functools.partial(
+            ddp_rank_step, kind, shards, caps), 2, timeout_s=600)
+        rank_s = time.time() - t0
+        model = ddp_model(kind, bsz, caps)
+        loss1, norm1, g1, counts1, ms1 = ddp_sgd_step(
+            torch, model, to_device(torch, batch, "cuda"))
+        del model
+        torch.cuda.empty_cache()
+        (la, na, ga, ca, msa, backend, world), (lb, nb, gb, cb, msb, _, _) = ranks
+        if backend != "gloo" or world != 2 or la != lb or na != nb:
+            raise AssertionError(f"ddp 9b {kind}: backend {backend}, world "
+                                 f"{world}, rank losses {la}/{lb}, norms "
+                                 f"{na}/{nb}")
+        want = TINY_STEP if kind == "tiny" else DDP_STEP
+        for who, c in (("rank 0", ca), ("rank 1", cb), ("one process", counts1)):
+            if c != want:
+                raise AssertionError(f"ddp 9b {kind} {who}: launches {c} != "
+                                     f"{want}")
+        rel = abs(la - loss1) / abs(loss1)
+        nrel = abs(na - norm1) / norm1
+        if kind == "tiny":
+            if not torch.equal(ga, gb):
+                raise AssertionError("ddp 9b tiny: ranks' gradients differ")
+            # the SGD update of each parameter is LR x gradient: the JAX
+            # suite's per-leaf DDP tolerance (atol 2e-5, rtol 1e-3 on the
+            # updated parameters) on LR x the gradients
+            err = (DDP_LR * (ga - g1)).abs()
+            bound = 2e-5 + 1e-3 * (DDP_LR * g1).abs()
+            if rel > 1e-5 or not bool((err <= bound).all()):
+                raise AssertionError(
+                    f"ddp 9b tiny: loss {la} vs {loss1} (relative {rel:.3g}), "
+                    f"worst update error {err.max().item():.3g}")
+            detail = (f"largest update difference "
+                      f"{err.max().item():.3g} (bound 2e-5 + 1e-3 x |update|)")
+        else:
+            if rel > 1e-3 or nrel > 1e-2:
+                raise AssertionError(
+                    f"ddp 9b full width: loss {la} vs {loss1} (relative "
+                    f"{rel:.3g}), gradient norm {na} vs {norm1} ({nrel:.3g})")
+            detail = f"window caps a frame {caps}"
+        log(f"# ddp 9b {kind}: 2 gloo ranks on cuda:0 (batch {bsz // 2} each) "
+            f"vs one process (batch {bsz}): loss {la:.6f} vs {loss1:.6f} "
+            f"(relative {rel:.3g}), gradient norm {na:.6g} vs {norm1:.6g} "
+            f"(relative {nrel:.3g}); {detail}; rank step {msa:.1f}/{msb:.1f} "
+            f"ms, one-process step {ms1:.1f} ms; ranks' launches {ca} (one "
+            f"process {counts1}); spawn + step {rank_s:.1f} s [{card}]")
+        out[kind] = ca
+    return out
+
+
+# pcdet layout from the flax layout (the inverse of the importer's
+# pcdet -> flax transforms, named as in runtime/torch_import.py)
+TO_PCDET = {
+    "_t_linear": lambda f: f.T,
+    "_t_conv2d": lambda f: f.transpose(3, 2, 0, 1),
+    "_t_conv1d_k1": lambda f: f.T[:, :, None],
+    "_t_deconv2d": lambda f: f[::-1, ::-1].transpose(2, 3, 0, 1),
+}
+
+
+def pcdet_state(np, model, seed):
+    """A seeded pcdet-named ``model_state`` for the port ``model``: each
+    tensor the importer maps gets a LeCun-scaled (kernels) or small random
+    value in pcdet's layout, BatchNorm variances positive."""
+    from mssvt_tpu_torch.bridge import to_flax_layout
+    from mssvt_tpu_torch.runtime import torch_import as ti
+
+    rng = np.random.default_rng(seed)
+    leaves = list(ti.port_leaves(model))
+    state, tensors = {}, model.state_dict()
+    for key, mod, path in leaves:
+        src, tf = ti.flax_to_torch_key(path)
+        if src is None:
+            continue
+        if "LAST" in src:  # a head's output conv follows its conv tiers
+            head = path[-2][:-len("_out")]
+            tiers = {p[-2] for _, _, p in leaves
+                     if p[:-2] == path[:-2] and p[-2].startswith(head + "_conv")}
+            src = src.replace("LAST", str(len(tiers)))
+        fs = to_flax_layout(mod, path[-1], tensors[key]).shape
+        val = rng.normal(size=fs).astype(np.float32)
+        if path[-1] == "kernel":
+            val /= np.sqrt(np.prod(fs[:-1]))
+        elif path[-1] == "var":
+            val = 0.5 + np.abs(val)
+        elif path[-1] == "scale":
+            val = 1.0 + 0.1 * val
+        else:
+            val *= 0.1
+        state[src] = np.array(TO_PCDET[tf.__name__](val) if tf else val,
+                              order="C")
+    return state
+
+
+def demo_and_import(torch, card):
+    """Phase 9c: tools/demo_torch.py on DEMO_FRAMES .npy frames of the synthetic
+    scene (180 000 points, mssvt.yaml's voxelizer) at full width on the
+    card, one request a frame; then tools/import_ckpt_torch.py on a seeded
+    pcdet-named full-width state dict and one request from the imported
+    weights. Returns the launch counts of the phase."""
+    import math
+    import shutil
+
+    import numpy as np
+    import yaml
+
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.datasets import build_dataset
+    from mssvt_tpu_torch.models import build_network
+    from mssvt_tpu_torch.runtime import eval_utils
+
+    cfg_path = pipeline_config()
+    cfg = yaml.safe_load(cfg_path.read_text())
+    work = ROOT / "output" / "chip_smoke" / "demo"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "frames").mkdir(parents=True)
+    ds = build_dataset(cfg["DATA_CONFIG"], CLASSES, training=False)
+    for i in range(DEMO_FRAMES):
+        np.save(work / "frames" / f"{i:06d}.npy", ds._make_scene(i)[0])
+
+    seen = []
+    eval_step = eval_utils.eval_step
+
+    def counted(model, batch):
+        before = kernels.launch_counts()
+        out = eval_step(model, batch)
+        after = kernels.launch_counts()
+        seen.append({n: after[n] - before[n] for n in after})
+        return out
+
+    eval_utils.eval_step = counted
+    kernels.reset_launch_counts()
+    try:
+        demo, importer = load_tool("demo_torch"), load_tool("import_ckpt_torch")
+        common = ["--cfg_file", str(cfg_path), "--data_path",
+                  str(work / "frames"), "--ext", ".npy"]
+        dets, ms = demo.main(common + ["--out_file", str(work / "dets.pkl")])
+        # a reference checkpoint: seeded pcdet-named tensors for mssvt.yaml
+        model = build_network(load_cfg("tools/cfgs/waymo_models/mssvt.yaml")
+                              .MODEL, 3, CLASSES, GRID, VOXEL, PCR, 1, 150_000,
+                              5, num_point_features=5, device="cpu")
+        state = pcdet_state(np, model, 12)
+        del model
+        ref = work / "checkpoint_epoch_30.pth"
+        torch.save({"epoch": 30, "it": 100, "version": "pcdet",
+                    "model_state": {k: torch.as_tensor(v) for k, v in
+                                    state.items()}}, ref)
+        path, report = importer.main(["--cfg_file", str(cfg_path), "--ckpt",
+                                      str(ref), "--out", str(work / "ckpt")])
+        imported, ms_imp = demo.main(common[:4] + ["--ext", ".npy",
+                                                   "--ckpt", str(path)])
+    finally:
+        eval_utils.eval_step = eval_step
+    counts = kernels.launch_counts()
+    if len(seen) != 2 * DEMO_FRAMES or any(s != EXPECTED_LAUNCHES
+                                           for s in seen):
+        raise AssertionError(f"demo: requests' launches {seen} "
+                             f"({2 * DEMO_FRAMES} of {EXPECTED_LAUNCHES} due)")
+    for d in dets + imported:
+        if not all(np.isfinite(d[k]).all() for k in ("boxes", "scores")):
+            raise AssertionError(f"demo: non-finite detections in frame "
+                                 f"{d['frame_id']}")
+    missing = sorted(report["missing"])
+    if (missing != ["backbone_3d.input_proj.bias",
+                    "backbone_3d.input_proj.weight"]
+            or report["unused"] or report["shape_mismatch"]):
+        raise AssertionError(f"import: missing {missing}, unused "
+                             f"{report['unused']}, shape mismatches "
+                             f"{report['shape_mismatch']}")
+    if not math.isfinite(ms) or not (work / "dets.pkl").exists():
+        raise AssertionError("demo: no timing or no pickle")
+    log(f"# demo 9c: demo_torch.py on {DEMO_FRAMES} synthetic frames "
+        f"({len(np.load(work / 'frames' / '000000.npy'))} points each): ms a "
+        f"frame (forward between synchronisations, batch 1) "
+        f"{[round(d['ms'], 2) for d in dets]}, mean {ms:.2f}; detections "
+        f"{[len(d['scores']) for d in dets]}; launches a request {seen[0]} "
+        f"[{card}]")
+    log(f"# import 9c: import_ckpt_torch.py on a seeded pcdet-named "
+        f"mssvt.yaml state dict: {len(report['loaded'])} tensors loaded, "
+        f"kept {missing}; one request a frame from the imported weights: "
+        f"{[round(d['ms'], 2) for d in imported]} ms, detections "
+        f"{[len(d['scores']) for d in imported]} [{card}]")
+    return counts
+
+
+def voxelizer_device_check(torch, card):
+    """Phase 9d: voxelize_points_torch on a 180 000-point synthetic frame
+    (two scenes of mssvt.yaml's voxelizer config overlaid) on the card against the host C++ voxelizer: the same voxels and counts,
+    except where a point's float32 cell (the device's, as JAX's) differs
+    from its float64 one (the host's); both timed."""
+    import numpy as np
+    import yaml
+
+    from mssvt_tpu_torch.datasets import build_dataset
+    from mssvt_tpu_torch.ops.voxelize import (
+        voxelize_points,
+        voxelize_points_torch,
+    )
+
+    cfg = yaml.safe_load(pipeline_config().read_text())
+    ds = build_dataset(cfg["DATA_CONFIG"], CLASSES, training=False)
+    # 180 000 points: two synthetic scenes overlaid
+    pts = np.concatenate([ds._make_scene(i)[0] for i in (0, 1)])[:180_000]
+    vs, pcr = tuple(ds.voxel_size), tuple(ds.point_cloud_range)
+    p, cap = ds.max_points_per_voxel, 2 * len(pts)
+    t0 = time.perf_counter()
+    hv, hc, hn = voxelize_points(pts, vs, pcr, p, cap)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    dp = torch.as_tensor(pts, device="cuda")
+    valid = torch.ones(len(pts), dtype=torch.bool, device="cuda")
+    call = lambda: voxelize_points_torch(dp, valid, vs, pcr, p, cap)
+    dev_ms = time_ms(torch, call, reps=10)
+    dv, dc, dn, dm = (t.cpu().numpy() for t in call())
+    # each point's cell in float32 and in float64
+    grid = np.round((np.asarray(pcr[3:]) - np.asarray(pcr[:3]))
+                    / np.asarray(vs)).astype(np.int64)
+    c32 = np.floor((pts[:, :3] - np.asarray(pcr[:3], np.float32))
+                   / np.asarray(vs, np.float32)).astype(np.int64)
+    c64 = np.floor((pts[:, :3].astype(np.float64) - np.asarray(pcr[:3]))
+                   / np.asarray(vs)).astype(np.int64)
+    moved = np.any(c32 != c64, axis=1)
+    inside = lambda c: np.all((c >= 0) & (c < grid), axis=1)
+    touched = {tuple(c[::-1]) for c in np.concatenate([c32[moved & inside(c32)],
+                                                       c64[moved & inside(c64)]])}
+    host = {tuple(c): min(int(n), p) for c, n in zip(hc, hn)}
+    dev = {tuple(c[1:]): int(n) for c, n in zip(dc[dm], dn[dm])}
+    bad = {c for c in set(host) | set(dev)
+           if host.get(c) != dev.get(c) and c not in touched}
+    if bad or len(dev) < 0.99 * len(host):
+        raise AssertionError(f"voxelize_points_torch: {len(bad)} voxels "
+                             f"differ from the host voxelizer's beyond the "
+                             f"{int(moved.sum())} points whose float32 cell "
+                             f"moved")
+    nbytes = pts.nbytes + dv.nbytes + dc.nbytes + dn.nbytes + dm.nbytes
+    log(f"# voxelize 9d: voxelize_points_torch on {len(pts)} points -> "
+        f"{int(dm.sum())} voxels (host C++ {len(host)}); "
+        f"{sum(host.get(c) == dev.get(c) for c in host)} voxels equal, "
+        f"{int(moved.sum())} points in another float32 than float64 cell; "
+        f"card {dev_ms:.3f} ms (CUDA events, 10 calls; {nbytes / 2**20:.1f} "
+        f"MiB in and out), host C++ {host_ms:.1f} ms [{card}]")
 
 
 # --------------------------------------------------------------- phase 5
@@ -1466,12 +2028,30 @@ def main(argv):
     del model, optimizer
     torch.cuda.empty_cache()
 
-    pipeline_counts = pipeline_path(torch, card)
+    pipeline_counts, pipeline_steps = pipeline_path(torch, card)
     for name in set(PIPELINE_STEP) | set(PIPELINE_REQUEST):
         if (PIPELINE_STEP[name] or PIPELINE_REQUEST[name]) and \
                 pipeline_counts[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "pipeline path")
+    torch.cuda.empty_cache()
+
+    # phase 9: data parallel (9a: the entry points under DDP on NCCL at
+    # world 1; 9b: two gloo ranks on this card against one process)
+    ddp_counts = ddp_pipeline(torch, card, pipeline_steps[:2])
+    for name in set(DDP_STEP) | set(DDP_REQUEST):
+        if (DDP_STEP[name] or DDP_REQUEST[name]) and ddp_counts[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "data-parallel path")
+    torch.cuda.empty_cache()
+    ddp_ranks_check(torch, card)
+    # phase 9c-9d: the demo, the pcdet importer, the on-device voxelizer
+    demo_counts = demo_and_import(torch, card)
+    for name, n in EXPECTED_LAUNCHES.items():
+        if n and demo_counts[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 "demo")
+    voxelizer_device_check(torch, card)
     for name, counts_ in (("attention_qk", off_counts),
                           ("attention_qk_bwd", off_counts),
                           ("fps_picks_warp", sampling_counts),

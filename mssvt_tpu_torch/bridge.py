@@ -48,18 +48,27 @@ def _tensor(a, like: torch.Tensor, name: str) -> torch.Tensor:
     return t.to(device=like.device, dtype=like.dtype)
 
 
+def from_flax_layout(mod: nn.Module, key: str, val) -> np.ndarray:
+    """A flax leaf ``key`` of ``mod`` in the port's layout (the rules of
+    the module note)."""
+    val = np.asarray(val)
+    if key != "kernel":
+        return val
+    if isinstance(mod, ConvTranspose2d):
+        return val[::-1, ::-1].transpose(2, 3, 0, 1)
+    if val.ndim == 4:
+        return val.transpose(3, 2, 0, 1)
+    if val.ndim == 2:
+        return val.T
+    return val
+
+
 def _load_leaf(mod: nn.Module, leaf: Dict, path: str) -> int:
     n = 0
     with torch.no_grad():
         for key, val in leaf.items():
-            val = np.asarray(val)
+            val = from_flax_layout(mod, key, val)
             if key == "kernel":
-                if isinstance(mod, ConvTranspose2d):
-                    val = val[::-1, ::-1].transpose(2, 3, 0, 1)
-                elif val.ndim == 4:
-                    val = val.transpose(3, 2, 0, 1)
-                elif val.ndim == 2:
-                    val = val.T
                 tgt = mod.weight
             elif key == "scale":
                 tgt = mod.scale if isinstance(mod, BatchNorm) else mod.weight
@@ -102,7 +111,7 @@ def load_flax_variables(model: nn.Module, tree: Dict) -> int:
     return n
 
 
-def _to_flax_layout(mod: nn.Module, key: str, t: torch.Tensor) -> np.ndarray:
+def to_flax_layout(mod: nn.Module, key: str, t: torch.Tensor) -> np.ndarray:
     a = t.detach().float().cpu().numpy()
     if key != "kernel":
         return a
@@ -139,5 +148,5 @@ def to_flax_tree(model: nn.Module, collection: str = "params",
                 continue
             if grads:
                 t = t.grad if t.grad is not None else torch.zeros_like(t)
-            node[key] = _to_flax_layout(mod, key, t)
+            node[key] = to_flax_layout(mod, key, t)
     return tree

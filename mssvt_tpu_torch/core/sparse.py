@@ -35,8 +35,62 @@ class SparseVoxels:
     def max_voxels(self) -> int:
         return self.features.shape[0]
 
+    @property
+    def num_features(self) -> int:
+        return self.features.shape[1]
+
     def with_features(self, features) -> "SparseVoxels":
         return replace(self, features=features)
+
+    def metric_centers(self) -> torch.Tensor:
+        """(max_voxels, 3) metric x, y, z of each voxel's centre."""
+        dev = self.coords.device
+        vs = torch.tensor(self.voxel_size, dtype=torch.float32, device=dev)
+        mins = torch.tensor(self.point_cloud_range[:3], dtype=torch.float32,
+                            device=dev)
+        xyz = self.coords[:, [3, 2, 1]].to(torch.float32)
+        return (xyz + 0.5) * vs + mins
+
+    def per_sample(self, max_per_sample=None):
+        """The flat rows re-laid out per frame: (xyz (B, M, 3) metric
+        centres, features (B, M, C), valid (B, M)), M = ``max_per_sample``
+        (default max_voxels). Each row goes to its frame at its rank among
+        the frame's live rows (any row order, e.g. globally compacted
+        sites); rows past M in a frame are dropped."""
+        m = max_per_sample or self.max_voxels
+        b, v = self.batch_size, self.max_voxels
+        dev = self.coords.device
+        bidx = torch.where(self.valid, self.coords[:, 0].long(), b)
+        onehot = ((bidx[:, None] == torch.arange(b, device=dev)[None, :])
+                  & self.valid[:, None]).to(torch.int64)
+        excl = torch.cumsum(onehot, dim=0) - onehot
+        rank = torch.gather(excl, 1, bidx.clamp(0, b - 1)[:, None])[:, 0]
+        ok = self.valid & (rank < m)
+        dest = torch.where(ok, bidx * m + rank, b * m)  # b * m: a spare row
+
+        def scatter(x, width, dtype):
+            out = torch.zeros((b * m + 1, width), dtype=dtype, device=dev)
+            out[dest] = x.reshape(v, width).to(dtype)
+            return out[:b * m].reshape(b, m, width)
+
+        xyz = scatter(self.metric_centers(), 3, torch.float32)
+        feats = scatter(self.features, self.num_features, self.features.dtype)
+        valid = scatter(ok, 1, torch.bool)[..., 0]
+        return xyz, feats, valid
+
+    def dense(self, channels_last: bool = True) -> torch.Tensor:
+        """A dense (B, D, H, W, C) grid (zeros where empty), or (B, C, D, H,
+        W) with ``channels_last=False`` (ref: mssvt_utils.py:50-62)."""
+        x_max, y_max, z_max = self.spatial_shape
+        b, z, y, x = (self.coords[:, i].long() for i in range(4))
+        b = torch.where(self.valid, b, self.batch_size)  # padding: spare slot
+        z, y, x = (torch.where(self.valid, t, 0) for t in (z, y, x))
+        out = torch.zeros((self.batch_size + 1, z_max, y_max, x_max,
+                           self.num_features), dtype=self.features.dtype,
+                          device=self.features.device)
+        out[b, z, y, x] = self.features
+        out = out[:self.batch_size]
+        return out if channels_last else out.permute(0, 4, 1, 2, 3)
 
     def bev(self) -> torch.Tensor:
         """Direct (B, H, W, D*C) BEV scatter, z-major channels: channel block

@@ -7,7 +7,9 @@ framework-free loader: ``dataset[i] -> collate`` on the host, optionally in
 one prefetch thread that runs ahead of the consumer by ``prefetch`` batches,
 and per-rank sharding as DistributedSampler's rank/num_replicas split. The
 same index order, shards and padded last batch (``n_real``) as the JAX
-loader. Unlike it, a failure in the prefetch thread is raised in the
+loader, except that a training loader of several ranks repeats its first
+frames so that every rank takes as many steps (DistributedSampler's
+padding; a DDP step needs all ranks). Unlike it, a failure in the prefetch thread is raised in the
 consumer, and leaving an iteration early stops and joins the thread, so two
 threads never draw from the dataset's random state at once.
 """
@@ -71,7 +73,12 @@ class Loader:
             if self.shuffle:
                 rng = np.random.default_rng(self.seed + self.epoch)
                 idx = rng.permutation(n)
-        # rank sharding (as DistributedSampler)
+        # rank sharding (as DistributedSampler); in training every rank gets
+        # as many frames (the first ones repeat), since the ranks of a DDP
+        # step must take the same number of steps
+        if self.drop_last and self.world_size > 1:
+            total = -(-len(idx) // self.world_size) * self.world_size
+            idx = np.concatenate([idx, idx[:total - len(idx)]])
         idx = idx[self.rank::self.world_size]
         steps = len(idx) // self.batch_size
         if not self.drop_last and len(idx) % self.batch_size:

@@ -12,10 +12,12 @@ reaches a kernel wrapper calls :func:`lib`.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -76,17 +78,38 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile (if needed) and return the path of the shared library."""
-    global BUILD_SECONDS
+    """Compile (if needed) and return the path of the shared library.
+
+    Safe under concurrent first use (the ranks of a data-parallel run, test
+    workers): the build holds an exclusive ``flock`` on ``BUILD_DIR/
+    build.lock`` and looks for the library again once it has the lock, so
+    one process compiles and the others load its result. The objects go to
+    a directory private to the process, and the library and ``build.log``
+    are published by atomic renames. A failed build raises (and releases
+    the lock)."""
     so = BUILD_DIR / f"libmssvt_kernels_{_digest()}.so"
     if so.exists():
         return so
-    t0 = time.time()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            work = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_DIR))
+            try:
+                _compile(so, work)
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+    return so
+
+
+def _compile(so: Path, work: Path):
+    """One nvcc per source into ``work``, linked into ``so``."""
+    global BUILD_SECONDS
+    t0 = time.time()
     nvcc = _nvcc()
     procs = []
     for src in _sources():
-        obj = BUILD_DIR / (src.stem + ".o")
+        obj = work / (src.stem + ".o")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
                "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
@@ -98,15 +121,15 @@ def build() -> Path:
         if p.returncode != 0:
             failed.append(log[-1])
         objs.append(str(obj))
-    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    (work / "build.log").write_text("\n".join(log))
+    (work / "build.log").replace(BUILD_DIR / "build.log")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    tmp = so.with_suffix(".tmp")
+    tmp = work / so.name
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                     "-shared", "-o", str(tmp), *objs], check=True)
-    tmp.rename(so)
+    tmp.replace(so)
     BUILD_SECONDS = time.time() - t0
-    return so
 
 
 def lib():

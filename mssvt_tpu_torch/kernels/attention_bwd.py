@@ -66,15 +66,21 @@ def _launch(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
     the operand of the out-projection's weight product (rows of windows at or
     past ``num_valid`` are not written)."""
     global launches
-    if pad_row is None or num_valid is None:
-        raise ValueError("attention_bwd kernel: needs pad_row and num_valid "
-                         "(the MsSVT block's training inputs)")
+    nw, n1cap, d = win1_fea.shape
+    # The kernel reads a pad row and a live-window count. Without a pad row
+    # the masked picks are zero rows, which a zero pad row gives exactly
+    # (its cotangent is dropped); without num_valid every window is live.
+    no_pad = pad_row is None
+    if no_pad:
+        pad_row = torch.zeros((nw, d), dtype=compute_dtype or win1_fea.dtype,
+                              device=win1_fea.device)
+    if num_valid is None:
+        num_valid = nw
     t, nq, tensors, dims = attention.kernel_inputs(
         win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
         pos_base, pos_w, proj, key_bias, num_heads, q_prefix, nq, pad_row,
         num_valid, compute_dtype, "attention_bwd")
     dev = win1_fea.device
-    nw, n1cap, d = win1_fea.shape
     nk2 = k2_fea.shape[1]
     nk_tot = fps1.shape[1] + nk2
     _lib.require(g, "g", t, (nw, nq, d), dev)
@@ -108,7 +114,8 @@ def _launch(win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
     launches += 1
     dproj = tuple(x.to(p.dtype) for x, p in zip(
         (dw[0], db[0], dw[1], db[1], dw[2], db[2], dw[3], db[3]), proj))
-    return (dwin1, dk2, dqext, dpad, dbase, dposw.to(pos_w.dtype), dproj), os_
+    return (dwin1, dk2, dqext, None if no_pad else dpad, dbase,
+            dposw.to(pos_w.dtype), dproj), os_
 
 
 class AssembledAttention(torch.autograd.Function):

@@ -13,8 +13,13 @@ per-group einsum attention. Shapes are static; valid windows are a sorted
 prefix of each block's capacity, and ``num_valid`` (a device scalar) lets
 the kernels skip the tail without a host sync.
 
-Training draws DropPath masks from the ``torch.Generator`` the detector
-threads down (``generator=``), which must live on the model's device.
+Training draws DropPath and dropout masks from the ``torch.Generator`` the
+detector threads down (``generator=``), which must live on the model's
+device, in the order the JAX blocks draw theirs: the attention's
+``attn_drop_i``/``proj_drop_i`` per group, then DropPath, ``dropout1`` on
+the FFN's hidden layer and on its output, DropPath. With dropout > 0 the
+attention trains through the per-group einsum (the kernels carry no
+dropout, and JAX leaves them there too).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ...ops.window import (
 )
 from ..model_utils.attention import MixedScaleAttention
 from ..model_utils.layers import Dense, DropPath, LayerNorm, PosProjection
+from ..model_utils.layers import dropout as _dropout
 
 
 def _parts(table_parts):
@@ -84,8 +90,12 @@ class MsSVTBlock(nn.Module):
         self.linear1 = Dense(in_channels, ff_channels, dtype=dtype)
         self.linear2 = Dense(ff_channels, in_channels, dtype=dtype)
         self.droppath = DropPath(drop_path)
+        self.dropout = float(dropout)
         if out_channels != in_channels:
             self.out_linear = Dense(in_channels, out_channels, dtype=dtype)
+
+    def dropout1(self, x, generator):
+        return _dropout(x, self.dropout, self.training, generator)
 
     def forward(self, sp: SparseVoxels, generator=None) -> SparseVoxels:
         dt = self.compute_dtype
@@ -231,7 +241,8 @@ class MsSVTBlock(nn.Module):
             assembled["pad_row"] = pad_row
         attn_fea = self.ms_attn(query_mask=q["mask"],
                                 key_masks=torch.cat([k_mask1, k_mask2], dim=1),
-                                assembled=assembled)  # (NW, nq, C)
+                                assembled=assembled,
+                                generator=generator)  # (NW, nq, C)
 
         if self.use_feature_interpolation:
             w3 = three_interp_weights_planes(*win1_m, *q_m, dtype=attn_fea.dtype)
@@ -251,10 +262,12 @@ class MsSVTBlock(nn.Module):
             updated = base[:v]
 
         if self.training:
-            # the plain chain, two independent DropPath draws (dropout is 0)
+            # the plain chain; DropPath and dropout draw in JAX's order
             new = self.droppath(updated, generator) + shortcut
-            act = self.linear2(torch.relu(self.linear1(self.norm2(new))))
-            new = new + self.droppath(act, generator)
+            act = self.linear2(self.dropout1(
+                torch.relu(self.linear1(self.norm2(new))), generator))
+            new = new + self.droppath(self.dropout1(act, generator),
+                                      generator)
         else:
             # residual + LayerNorm + FFN: one K4 launch (droppath/dropout are
             # identities at inference)
@@ -289,10 +302,14 @@ class MsSVTCompressBlock(nn.Module):
         self.pos_proj = PosProjection(in_channels, deep=True, dtype=dtype)
         self.linear1 = Dense(in_channels, ff_channels, dtype=dtype)
         self.linear2 = Dense(ff_channels, in_channels, dtype=dtype)
+        self.dropout = float(dropout)
         if out_channels != in_channels:
             self.out_linear = Dense(in_channels, out_channels, dtype=dtype)
 
-    def forward(self, sp: SparseVoxels) -> SparseVoxels:
+    def dropout1(self, x, generator):
+        return _dropout(x, self.dropout, self.training, generator)
+
+    def forward(self, sp: SparseVoxels, generator=None) -> SparseVoxels:
         bsz = sp.batch_size
         x = self.norm1(sp.features)
         win_coords, win_valid, win_grid, num_win, vrow = window_partition(
@@ -336,8 +353,11 @@ class MsSVTCompressBlock(nn.Module):
         k_fea = k_fea + self.pos_proj.deep_from_planes(
             mx - qcx[:, None], my - qcy[:, None], mz - qcz[:, None],
             qcx, qcy, qcz)
-        new = self.ms_attn(query=q_fea, keys=k_fea, key_masks=k["mask"])[:, 0]
-        new = new + self.linear2(torch.relu(self.linear1(self.norm2(new))))
+        new = self.ms_attn(query=q_fea, keys=k_fea, key_masks=k["mask"],
+                           generator=generator)[:, 0]
+        act = self.linear2(self.dropout1(
+            torch.relu(self.linear1(self.norm2(new))), generator))
+        new = new + self.dropout1(act, generator)
         if self.out_channels != self.in_channels:
             new = self.out_linear(new)
         new = new * win_valid[:, None].to(new.dtype)
@@ -392,6 +412,5 @@ class MixedScaleSparseTransformer(nn.Module):
             self.input_proj.compute_dtype)
         sp = sp.with_features(feats)
         for block in self.blocks():
-            sp = (block(sp, generator) if isinstance(block, MsSVTBlock)
-                  else block(sp))
+            sp = block(sp, generator)
         return sp

@@ -19,17 +19,21 @@ Three routes, chosen as the JAX module chooses them on the TPU
   ``ref_compat_keys: False``, where the block passes no pad inputs and the
   query and keys are assembled here in plain differentiable tensor ops
   (:meth:`MixedScaleAttention.assemble`);
-- per-group einsum otherwise (nq < 8: the compress blocks with nq = 1),
-  plain tensor ops differentiated by autograd.
+- per-group einsum otherwise (nq < 8: the compress blocks with nq = 1;
+  and every training call with dropout > 0, where JAX's
+  ``_use_fused_kernel`` leaves the kernels, which carry no dropout), plain
+  tensor ops differentiated by autograd.
 
 For the kernels the per-group parameters fold into block-diagonal (D, D)
 weights at call time (the folding is differentiable, so the kernels' full
 (D, D) weight cotangents reach the per-group parameters through their
 diagonal blocks).
 
-Attention dropout > 0 in training is not ported: JAX then leaves the kernels
-and runs the per-group einsum with ``nn.Dropout`` on the attention weights
-and on the projection output.
+With dropout > 0 in training, each group's attention weights and its
+projection output go through ``layers.dropout`` (flax's ``attn_drop_i`` and
+``proj_drop_i``), their masks drawn from the caller's ``torch.Generator``
+in JAX's order. Dropout 0 (the configs' value) draws nothing and keeps the
+kernel routes.
 """
 
 from __future__ import annotations
@@ -40,18 +44,10 @@ from torch import nn
 from ...kernels.attention_bwd import AssembledAttention
 from ...kernels.attention_qk_bwd import FusedAttention
 from ...ops.sampling import gather_along_batch
-from .layers import Dense
+from .layers import Dense, dropout
 
 KEY_PAD_NEG = -100.0
 MIN_KERNEL_QUERIES = 8  # below it (the compress blocks) the einsum path runs
-
-
-def _dropout_not_ported():
-    return NotImplementedError(
-        "training with attention dropout > 0 is not ported: JAX leaves its "
-        "fused kernels there and runs the per-group einsum with nn.Dropout "
-        "on the attention weights and the projection output "
-        "(see ROADMAP.md, Queue 1 item 9)")
 
 
 class MixedScaleAttention(nn.Module):
@@ -132,21 +128,23 @@ class MixedScaleAttention(nn.Module):
         return q_raw + pos(a["q_rel"]), keys
 
     def forward(self, query=None, keys=None, query_mask=None, key_masks=None,
-                assembled=None):
+                assembled=None, generator=None):
         dt = self.compute_dtype
-        if self.training and self.dropout != 0.0:
-            raise _dropout_not_ported()
+        drop = self.training and self.dropout != 0.0
         if assembled is not None:
             a = assembled
             pad1 = a.get("pad1")
             pad_row = a.get("pad_row")
-            if self.training and (pad1 is None or a.get("num_valid") is None):
+            if self.training and (drop or pad1 is None
+                                  or a.get("num_valid") is None):
                 # JAX's trainable assembled kernel needs the ref-compat
-                # inputs; without them it assembles outside and trains
-                # through its plain fused attention, as here
+                # inputs and no dropout; else it assembles outside and
+                # trains through its fused attention or, with dropout,
+                # the einsum, as here
                 query, keys = self.assemble(a)
                 return self.forward(query=query, keys=keys,
-                                    query_mask=query_mask, key_masks=key_masks)
+                                    query_mask=query_mask, key_masks=key_masks,
+                                    generator=generator)
             q_prefix = a.get("q_ext") is None
             static = (self.num_heads,
                       (self.embed_dim // sum(self.num_heads)) ** -0.5,
@@ -175,7 +173,7 @@ class MixedScaleAttention(nn.Module):
         per_head = self.embed_dim // sum(self.num_heads)
         nk = tot_nk // groups
         scale = per_head ** -0.5
-        if nq >= MIN_KERNEL_QUERIES:
+        if nq >= MIN_KERNEL_QUERIES and not drop:
             # K6 forward, K7 backward on the unsliced tokens
             if key_masks is not None:
                 bias = torch.where(key_masks, KEY_PAD_NEG, 0.0).float()
@@ -208,8 +206,10 @@ class MixedScaleAttention(nn.Module):
                 attn = attn + torch.where(km, KEY_PAD_NEG, 0.0)[
                     :, None, None, :].to(attn.dtype)
             attn = torch.softmax(attn.float(), dim=-1).to(attn.dtype)
+            attn = dropout(attn, self.dropout, self.training, generator)
             x = torch.einsum("bhqk,bkhc->bqhc", attn, v).reshape(b, nq, sd)
-            outs.append(self._group("proj", i)(x))
+            outs.append(dropout(self._group("proj", i)(x), self.dropout,
+                                self.training, generator))
             start += sd
         out = torch.cat(outs, dim=-1)
         if query_mask is not None:

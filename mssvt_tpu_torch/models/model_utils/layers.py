@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import syncbn
+
 
 class Dense(nn.Linear):
     """``nn.Linear`` computing in ``dtype`` (flax ``nn.Dense(dtype=...)``)."""
@@ -54,7 +56,10 @@ class BatchNorm(nn.Module):
     does (``var = max(0, E[x^2] - E[x]^2)``, the biased variance), the input
     is normalised with them, and the running statistics are updated with
     the same biased variance (``F.batch_norm`` would update ``var`` with
-    the unbiased one)."""
+    the unbiased one). Inside :func:`syncbn.sync_bn` (the data-parallel
+    train step) ``E[x]`` and ``E[x^2]`` are first averaged over the ranks,
+    as flax's ``pmean`` does under the JAX package's sharded step, so every
+    rank normalises with, and keeps, the statistics of the global batch."""
 
     def __init__(self, channels, eps, momentum=0.99, dtype=torch.float32):
         super().__init__()
@@ -70,8 +75,12 @@ class BatchNorm(nn.Module):
         if self.training:
             xf = x.float()
             mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            mean2 = (xf * xf).mean(dim=(0, 2, 3))
+            on, group = syncbn.active()
+            if on:
+                mean, mean2 = syncbn.all_mean(torch.cat([mean, mean2]),
+                                              group).chunk(2)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -115,6 +124,15 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                                   self.stride, self.padding)
 
 
+def keep_mask(shape, keep, generator, device):
+    """A Bernoulli(``keep``) bool mask of ``shape`` drawn from
+    ``generator``: every DropPath and Dropout draw of the port goes through
+    it, in the order the JAX modules draw theirs."""
+    if generator is None:
+        raise ValueError("a random mask in training needs a torch.Generator")
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
 class DropPath(nn.Module):
     """Stochastic depth per leading-axis row; identity at eval. The keep
     mask is drawn from the ``torch.Generator`` the caller passes (it must
@@ -127,12 +145,22 @@ class DropPath(nn.Module):
     def forward(self, x, generator=None):
         if self.rate == 0.0 or not self.training:
             return x
-        if generator is None:
-            raise ValueError("DropPath in training needs a torch.Generator")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        mask = keep_mask(shape, keep, generator, x.device)
         return x * mask.to(x.dtype) / keep
+
+
+def dropout(x, rate, training, generator):
+    """flax ``nn.Dropout``: in training, ``x / (1 - rate)`` where a
+    Bernoulli(1 - rate) mask is set, else 0; identity at eval or rate 0
+    (no draw)."""
+    if rate == 0.0 or not training:
+        return x
+    keep = 1.0 - rate
+    mask = keep_mask(x.shape, keep, generator, x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 class PosProjection(nn.Module):
@@ -146,6 +174,25 @@ class PosProjection(nn.Module):
         self.proj0 = Dense(6, channels, dtype=dtype)
         if deep:
             self.proj1 = Dense(channels, channels, dtype=dtype)
+
+    def forward(self, x):
+        """The embedding of (..., 6) inputs (rel xyz ++ window centre xyz)."""
+        x = torch.relu(self.proj0(x))
+        if self.deep:
+            x = torch.relu(self.proj1(x))
+        return x
+
+    def from_planes(self, rx, ry, rz, cx, cy, cz):
+        """Shallow-path embedding from (NW, n) relative-coordinate planes
+        and per-window centres (NW,): ``forward`` of the stacked (NW, n, 6)
+        input without building it (the centre half is a per-window base)."""
+        assert not self.deep, "from_planes is the shallow (two-scale) path"
+        dt = self.compute_dtype
+        w = self.proj0.kernel()
+        base = self.base_from_centers(cx, cy, cz)
+        return torch.relu(rx[..., None].to(dt) * w[0]
+                          + ry[..., None].to(dt) * w[1]
+                          + rz[..., None].to(dt) * w[2] + base[:, None, :])
 
     def rel_kernel(self):
         """(3, C) relative-coordinate rows of the shallow kernel."""

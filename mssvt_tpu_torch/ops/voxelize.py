@@ -15,6 +15,11 @@ the source and flags names the library); it raises when that build fails.
 the tests hold the C++ against; ``use_native=False`` selects it. Both compute
 every point's cell in float64 from float32 points, so they agree bit for bit.
 Nothing is built at import.
+
+:func:`voxelize_points_torch` is the on-device counterpart of the JAX
+package's ``voxelize_points_jax``: tensors in, static shapes out, voxels in
+sorted-key order; it finds the same voxel set and counts as the host
+version wherever float32 and float64 cells agree.
 """
 
 from __future__ import annotations
@@ -27,6 +32,9 @@ import threading
 from pathlib import Path
 
 import numpy as np
+import torch
+
+from ..utils.device import device_constant
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "host" / "voxelizer.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels" / "host"
@@ -172,3 +180,66 @@ def voxelize_points_numpy(points: np.ndarray, voxel_size, point_cloud_range,
     first_point[vox_of_point] = np.arange(len(pts))  # any point of the voxel
     coords = idx[first_point[:num_voxels]][:, ::-1].astype(np.int32)  # zyx
     return voxels, coords, num_points
+
+
+def voxelize_points_torch(points, valid, voxel_size, point_cloud_range,
+                          max_points_per_voxel: int, max_voxels: int):
+    """On-device voxelization of tensors (torch counterpart of
+    ``voxelize_points_jax``; static shapes, no host sync).
+
+    Voxels come in sorted-key order (z, then y, then x), not the host
+    version's first-appearance order, and each keeps its first
+    ``max_points_per_voxel`` points in input order; MeanVFE does not depend
+    on the order. Cells are computed in float32, as the JAX version does.
+    No Pallas kernel stands behind the JAX version, so this is plain torch
+    (a stable sort, a cumulative sum and scatters).
+
+    Args:
+        points: (N, C) padded points; valid: (N,) bool.
+
+    Returns:
+        voxels (max_voxels, P, C), coords (max_voxels, 4) = (0, z, y, x)
+        int32 (batch column zero; -1 past the live voxels), num_points
+        (max_voxels,) int32, vmask (max_voxels,) bool.
+    """
+    dev = points.device
+    vs = device_constant(np.asarray(voxel_size, np.float32), dev)
+    pcr = device_constant(np.asarray(point_cloud_range, np.float32), dev)
+    grid = np.round((np.asarray(point_cloud_range[3:])
+                     - np.asarray(point_cloud_range[:3]))
+                    / np.asarray(voxel_size)).astype(np.int64)
+    nx, ny, nz = (int(g) for g in grid)
+    n = points.shape[0]
+
+    idx = torch.floor((points[:, :3] - pcr[:3]) / vs).to(torch.int64)
+    dims = device_constant(np.asarray([nx, ny, nz], np.int64), dev)
+    ok = valid & ((idx >= 0) & (idx < dims)).all(dim=1)
+    big = nx * ny * nz
+    key = torch.where(ok, (idx[:, 2] * ny + idx[:, 1]) * nx + idx[:, 0], big)
+
+    skey, order = torch.sort(key, stable=True)
+    pos = torch.arange(n, device=dev)
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = skey[1:] != skey[:-1]
+    first &= skey < big
+    vox_id = torch.cumsum(first.to(torch.int64), 0) - 1
+    pt_rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    keep = (skey < big) & (vox_id < max_voxels) & (pt_rank < max_points_per_voxel)
+    dest_v = torch.where(keep, vox_id, max_voxels)
+    dest_p = torch.where(keep, pt_rank, 0)
+
+    voxels = torch.zeros((max_voxels + 1, max_points_per_voxel,
+                          points.shape[1]), dtype=points.dtype, device=dev)
+    voxels[dest_v, dest_p] = points[order]  # dropped points: the spare row
+    num_points = torch.zeros(max_voxels + 1, dtype=torch.int64, device=dev)
+    num_points.index_add_(0, dest_v, torch.ones_like(dest_v))
+    vkeys = torch.full((max_voxels + 1,), big, dtype=torch.int64, device=dev)
+    vkeys.scatter_reduce_(0, dest_v, skey, reduce="amin")
+    vkeys = vkeys[:max_voxels]
+    vmask = vkeys < big
+    kk = torch.where(vmask, vkeys, 0)
+    coords = torch.stack([torch.zeros_like(kk), kk // (nx * ny),
+                          (kk // nx) % ny, kk % nx], dim=-1)
+    coords = torch.where(vmask[:, None], coords, -1).to(torch.int32)
+    return (voxels[:max_voxels], coords,
+            num_points[:max_voxels].to(torch.int32), vmask)

@@ -11,13 +11,20 @@ gather path that the MsSVT blocks run:
    single-scale blocks), row-gathers each window's D neighbour cells into
    the (NW, K) box table, and compacts it to the fixed-capacity buffers with
    the fill kernel (``kernels/fill.py``). The odd/even/win1 buffers are
-   contiguous runs of the win2 buffer (:func:`_derive_from_win2`), and the
-   voxel -> (window, slot) inverse map reads the fill's own-cell rank slab.
+   contiguous runs of the win2 buffer (:func:`_derive_from_win2`). With a
+   bijective cell decomposition (every shipped configuration: win2 / win1
+   odd per dimension) the fill reads the box in its source layout
+   (``order``) and the voxel -> (window, slot) inverse map reads the fill's
+   own-cell rank slab; otherwise the box is permuted to table order by
+   ``col_src`` first, and the counts and the inverse map come from the box's
+   occupancy, as in JAX.
 
 The host-side query tables (:func:`build_query_tables`) are numpy, built once
-per block. Only bijective cell decompositions are supported (every shipped
-configuration: win2 / win1 odd per dimension); the candidate-scatter gather
-of the JAX package is not ported.
+per block. The own-cell path needs a batch size and buffers that are runs of
+win2. Everything else takes the candidate-scatter gather
+(:func:`_gather_candidates`, the JAX package's ``MSSVT_PALLAS=off`` path):
+each voxel enumerates the windows whose gather box may hold it, and
+per-window ranks in table order place it, with the same fill semantics.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 
 from ..core.index import (
     INVALID_KEY,
+    build_dense_row_table,
     delinearize_key,
     linearize_coords,
     unique_compact_dense,
@@ -54,6 +62,7 @@ class QueryTables:
     single_scale: bool
     off_min: np.ndarray = None
     off_max: np.ndarray = None
+    pos_lut: np.ndarray = None  # (Ox, Oy, Oz) table position of an offset
     deltas: np.ndarray = None   # (D, 3) int32 xyz window deltas
     col_src: np.ndarray = None  # (K,) int32 source column of table entry k
     k_own_lut: np.ndarray = None  # (cell_vol,) table position, -1 absent
@@ -86,6 +95,9 @@ def _candidate_window_deltas(win1_size, off_min, off_max) -> np.ndarray:
 def _with_cells(offsets, elig, num_odd, num_even, single, win1_size):
     off_min = offsets.min(axis=0).astype(np.int32)
     off_max = offsets.max(axis=0).astype(np.int32)
+    rel = offsets - off_min
+    pos_lut = np.full(tuple(off_max - off_min + 1), -1, np.int32)
+    pos_lut[rel[:, 0], rel[:, 1], rel[:, 2]] = np.arange(len(offsets))
     ws = np.asarray([int(s) for s in win1_size], np.int64)
     deltas = _candidate_window_deltas(win1_size, off_min, off_max)
     dmap = {tuple(d): i for i, d in enumerate(deltas.tolist())}
@@ -106,7 +118,7 @@ def _with_cells(offsets, elig, num_odd, num_even, single, win1_size):
         if (inv >= 0).all():
             inv_src = inv.astype(np.int32)
     return QueryTables(offsets, elig, num_odd, num_even, single, off_min,
-                       off_max, deltas, col_src, k_own, inv_src,
+                       off_max, pos_lut, deltas, col_src, k_own, inv_src,
                        int(dmap.get((0, 0, 0), 0)))
 
 
@@ -227,9 +239,12 @@ def _derive_from_win2(ind2, coordp2, odd_cnt, even_cnt, win1_cnt, names,
 
 
 def _own_cell_inverse(win_key, win_valid, own_key, lid, valid, tables, cap1,
-                      cap2, n_cells, rank_own, win_row_v=None):
+                      cap2, n_cells, rank_own, box, win_row_v=None):
     """voxel -> (window row, win1 slot): a voxel's fill rank among its own
-    window's cells is its win1 slot (win1 cells precede win2-only cells)."""
+    window's cells is its win1 slot (win1 cells precede win2-only cells).
+    The rank comes from the fill's own-cell slab ``rank_own`` or, without
+    one, from an exclusive scan of ``box`` (table order) read at the
+    voxel's own table position."""
     nw = win_valid.shape[0]
     if win_row_v is None:
         wsafe = torch.where(win_key != INVALID_KEY, win_key.long(), n_cells)
@@ -241,16 +256,143 @@ def _own_cell_inverse(win_key, win_valid, own_key, lid, valid, tables, cap1,
         own_cell = torch.where(own_key != INVALID_KEY, own_key.long(),
                                n_cells)
         win_row_v = cell_rows[own_cell]
-    cell_vol = int(tables.k_own_lut.shape[0])
-    flat = (win_row_v.clamp(min=0).long() * cell_vol + lid.long())
-    slot_v = rank_own.reshape(-1)[flat].to(torch.int32)
-    inv_valid = valid & (win_row_v >= 0) & (slot_v < min(cap1, cap2))
+    row = win_row_v.clamp(min=0).long()
+    if rank_own is not None:
+        k_own = lid
+        flat = row * rank_own.shape[1] + lid.long()
+        slot_v = rank_own.reshape(-1)[flat].to(torch.int32)
+    else:
+        k_own = device_constant(tables.k_own_lut, lid.device)[lid.long()]
+        occ = (box >= 0).to(torch.int32)
+        rank = torch.cumsum(occ, 1, dtype=torch.int32) - occ
+        flat = row * box.shape[1] + k_own.clamp(min=0).long()
+        slot_v = rank.reshape(-1)[flat]
+    inv_valid = (valid & (win_row_v >= 0) & (k_own >= 0)
+                 & (slot_v < min(cap1, cap2)))
     return {"win_row": win_row_v, "slot": slot_v, "valid": inv_valid}
+
+
+def _derivable(tables, caps, names):
+    """Whether every requested buffer is a run of the win2 buffer (odd and
+    win1 prefixes, even the run from the window's odd count)."""
+    if tables.single_scale:
+        return True
+    return (all(int(caps[n]) <= int(caps["win2"]) for n in names)
+            and ("even" not in names
+                 or int(caps["even"]) + tables.num_odd <= int(caps["win2"])))
+
+
+def _window_rows(win_coords, win_valid, win_grid, keys, batch_size):
+    """Row of the window of each key (-1: no such window): a dense table
+    over the window grid with a batch size, else a search in the sorted
+    window keys."""
+    if batch_size is not None:
+        table = build_dense_row_table(win_coords, win_valid, win_grid,
+                                      batch_size)
+        n = table.shape[0]
+        ok = (keys >= 0) & (keys < n) & (keys != INVALID_KEY)
+        return torch.where(ok, table[keys.long().clamp(0, n - 1)], -1)
+    wkeys = linearize_coords(win_coords, win_grid, win_valid)
+    sorted_keys, order = torch.sort(wkeys)
+    pos = torch.searchsorted(sorted_keys, keys).clamp(max=len(wkeys) - 1)
+    hit = (sorted_keys[pos] == keys) & (keys != INVALID_KEY)
+    return torch.where(hit, order[pos].to(torch.int32), -1)
+
+
+def _gather_candidates(win_coords, win_valid, coords, valid, win_grid,
+                       win1_size, tables, caps, names, batch_size,
+                       return_inverse):
+    """The candidate-scatter gather (``mssvt_tpu/ops/window.py``'s path
+    with ``MSSVT_PALLAS=off``): each voxel looks up the windows of its D
+    candidate deltas and its table position in each (``pos_lut``); a
+    (window, position) occupancy table and its exclusive scan along the
+    table give each hit its fill rank, and each hit is written to its slot.
+    Buffers that are runs of win2 are derived from it (with the inverse
+    map); otherwise each buffer has its own scan over its eligible
+    positions. Plain tensor ops: no Pallas kernel stands behind this path."""
+    dev = coords.device
+    ws = torch.tensor([int(s) for s in win1_size], device=dev)
+    deltas = device_constant(tables.deltas, dev, torch.int64)
+    d, k_total = deltas.shape[0], tables.offsets.shape[0]
+    nw, v = win_coords.shape[0], coords.shape[0]
+    vox_xyz = coords[:, [3, 2, 1]].long()
+    cand_w = (torch.where(valid[:, None], vox_xyz, 0) // ws)[:, None, :] \
+        + deltas[None]
+    cand = torch.cat([coords[:, None, 0:1].long().expand(v, d, 1),
+                      cand_w.flip(-1)], dim=-1)
+    keys = linearize_coords(cand, win_grid, valid=valid[:, None])
+    win_row = _window_rows(win_coords, win_valid, win_grid, keys, batch_size)
+    rel = vox_xyz[:, None, :] - (cand_w * ws + ws // 2) \
+        - device_constant(tables.off_min, dev, torch.int64)
+    dims = torch.tensor(tables.pos_lut.shape, device=dev)
+    in_box = ((rel >= 0) & (rel < dims)).all(dim=-1)
+    rel = torch.minimum(rel.clamp(min=0), dims - 1)
+    k = device_constant(tables.pos_lut, dev, torch.int64)[
+        rel[..., 0], rel[..., 1], rel[..., 2]]
+    ok = ((win_row >= 0) & in_box & (k >= 0) & valid[:, None]).reshape(-1)
+
+    # one cell of the (NW, K) table a hit (a grid cell holds one voxel);
+    # rejected candidates go to the spare cell nw * K
+    win_flat = win_row.reshape(-1).long()
+    k_flat = k.clamp(min=0).reshape(-1)
+    spare = nw * k_total
+    cell = torch.where(ok, win_flat * k_total + k_flat, spare)
+    vox_rows = torch.arange(v, device=dev)[:, None].expand(v, d).reshape(-1)
+    occ = torch.zeros(spare + 1, dtype=torch.int64, device=dev)
+    occ[cell] = 1
+    occ = occ[:spare].view(nw, k_total)
+    elig = device_constant(tables.eligibility, dev)
+    offs_packed = device_constant(pack_offsets5(tables.offsets), dev)
+
+    def ranks(hits):  # exclusive scan along the table, read at each hit
+        scan = torch.cumsum(hits, dim=1) - hits
+        return scan.reshape(-1)[cell.clamp(max=spare - 1)]
+
+    def place(keep, rank, cap):
+        dest = torch.where(keep, win_flat * cap + rank, nw * cap)
+        ind = torch.full((nw * cap + 1,), -1, dtype=torch.int32, device=dev)
+        pos = torch.full((nw * cap + 1,), -1, dtype=torch.int64, device=dev)
+        ind[dest] = vox_rows.to(torch.int32)
+        pos[dest] = k_flat
+        ind, pos = ind[:-1].view(nw, cap), pos[:-1].view(nw, cap)
+        coordp = torch.where(ind >= 0, offs_packed[pos.clamp(min=0)],
+                             PACK5_ZERO)
+        return ind, coordp
+
+    if not tables.single_scale and _derivable(tables, caps, names):
+        cap2 = int(caps["win2"])
+        rank = ranks(occ)
+        ind2, coordp2 = place(ok & (rank < cap2), rank, cap2)
+        cnt = [(occ * elig[None, :, c]).sum(dim=1) for c in (ODD, EVEN, WIN1)]
+        out = _derive_from_win2(ind2, coordp2, *cnt, names, caps)
+        if return_inverse:
+            # a win1 hit's win2 rank is its win1 slot (win1 cells come first)
+            cap1 = int(caps["win1"])
+            keep = ok & elig[k_flat, WIN1] & (rank < min(cap1, cap2))
+            inv = torch.full((v + 1,), -1, dtype=torch.int64, device=dev)
+            inv[torch.where(keep, vox_rows, v)] = \
+                win_flat * cap1 + rank.clamp(max=cap1 - 1)
+            inv = inv[:v]
+            out["inv_win1"] = {
+                "win_row": torch.where(inv >= 0, inv // cap1, -1).to(torch.int32),
+                "slot": torch.where(inv >= 0, inv % cap1, 0).to(torch.int32),
+                "valid": inv >= 0}
+        return out
+    cols = {"odd": ODD, "even": EVEN, "win1": WIN1, "win2": WIN2}
+    out = {}
+    for name in names:
+        col, cap = cols[name], int(caps[name])
+        rank = ranks(occ * elig[None, :, col])
+        ind, coordp = place(ok & elig[k_flat, col] & (rank < cap), rank, cap)
+        out[name] = {"ind": ind, "coordp": coordp, "mask": ind < 0}
+    return out
 
 
 def gather_window_voxels(win_coords, win_valid, coords, valid, spatial_shape,
                          win1_size, tables: QueryTables, max_num_win1: int,
                          max_num_win2: Optional[int] = None,
+                         max_num_odd: Optional[int] = None,
+                         max_num_even: Optional[int] = None,
                          batch_size: Optional[int] = None,
                          buffers: Optional[Tuple[str, ...]] = None,
                          return_inverse: bool = False, num_valid=None,
@@ -258,11 +400,9 @@ def gather_window_voxels(win_coords, win_valid, coords, valid, spatial_shape,
     """Per-window fixed-capacity buffers of voxel rows (``ind``, -1 empty),
     packed offsets from the window-centre voxel (``coordp``,
     :data:`PACK5_ZERO` empty) and ``mask`` (True = empty slot), for each
-    requested buffer; plus ``inv_win1`` with ``return_inverse``."""
-    if batch_size is None or tables.inv_src is None:
-        raise NotImplementedError(
-            "only the own-cell gather with a bijective cell decomposition is "
-            "ported (see ROADMAP.md)")
+    requested buffer; plus ``inv_win1`` with ``return_inverse`` (on the
+    candidate-scatter path only where the buffers derive from win2, as in
+    JAX)."""
     wx, wy, wz = (int(s) for s in win1_size)
     x_max, y_max, z_max = (int(s) for s in spatial_shape)
     win_grid = (x_max // wx, y_max // wy, z_max // wz)
@@ -270,16 +410,17 @@ def gather_window_voxels(win_coords, win_valid, coords, valid, spatial_shape,
         caps = {"win1": max_num_win1}
         names = ("win1",)
     else:
-        caps = {"odd": tables.num_odd, "even": tables.num_even,
+        caps = {"odd": tables.num_odd if max_num_odd is None else max_num_odd,
+                "even": (tables.num_even if max_num_even is None
+                         else max_num_even),
                 "win1": max_num_win1, "win2": max_num_win2}
         names = tuple(buffers) if buffers is not None else (
             "odd", "even", "win1", "win2")
-        derivable = (all(int(caps[n]) <= int(caps["win2"]) for n in names)
-                     and ("even" not in names
-                          or int(caps["even"]) + tables.num_odd
-                          <= int(caps["win2"])))
-        if not derivable:
-            raise NotImplementedError("buffers not derivable from win2")
+    if not _derivable(tables, caps, names) or batch_size is None \
+            or tables.col_src is None:
+        return _gather_candidates(win_coords, win_valid, coords, valid,
+                                  win_grid, win1_size, tables, caps, names,
+                                  batch_size, return_inverse)
 
     dev = coords.device
     cv = wx * wy * wz
@@ -318,9 +459,12 @@ def gather_window_voxels(win_coords, win_valid, coords, valid, spatial_shape,
         box = table[nbr_row].reshape(nw, d * cv)
 
     order = tables.inv_src
+    if order is None:  # non-bijective: permute the box to table order
+        box = box[:, device_constant(tables.col_src, dev, torch.int64)]
     offs_packed = pack_offsets5(tables.offsets)
     cap2 = int(caps["win1"] if tables.single_scale else caps["win2"])
-    want_extras = (not tables.single_scale) or return_inverse
+    want_extras = order is not None and (not tables.single_scale
+                                         or return_inverse)
     own_slab = (tables.d0 * cv, cv) if want_extras else None
     elig = None
     if want_extras and not tables.single_scale:
@@ -334,7 +478,7 @@ def gather_window_voxels(win_coords, win_valid, coords, valid, spatial_shape,
 
     def inverse(cap1):
         return _own_cell_inverse(inv_win_key, win_valid, own_key, lid, valid,
-                                 tables, cap1, cap2, n_cells, rank_own,
+                                 tables, cap1, cap2, n_cells, rank_own, box,
                                  win_row_v=voxel_win_row)
 
     if tables.single_scale:
@@ -342,7 +486,12 @@ def gather_window_voxels(win_coords, win_valid, coords, valid, spatial_shape,
         if return_inverse:
             out["inv_win1"] = inverse(int(caps["win1"]))
         return out
-    cnt = outs[3]
+    if want_extras:
+        cnt = outs[3]
+    else:
+        cnt = ((box >= 0).float() @ device_constant(
+            tables.eligibility[:, [ODD, EVEN, WIN1]].astype(np.float32),
+            dev)).to(torch.int32)
     out = _derive_from_win2(ind2, off2, cnt[:, 0], cnt[:, 1], cnt[:, 2],
                             names, caps)
     if return_inverse:

@@ -1,15 +1,19 @@
 """What ``tools/train_torch.py`` and ``tools/test_torch.py`` share: the
 config of a run (YAML, TAG, EXP_GROUP_PATH, ``--set`` overrides), its
-output tree, the one-device rule, the model of a dataset and the recall
-thresholds."""
+output tree, the data-parallel flags and launch, the model of a dataset and
+the recall thresholds."""
 
 from __future__ import annotations
 
+import functools
 import os
 from pathlib import Path
 
+import torch
+
 from ..config import cfg, cfg_from_list, cfg_from_yaml_file
 from ..models import build_network
+from ..parallel import dist
 from ..utils.edict import EasyDict
 
 
@@ -33,12 +37,58 @@ def output_dir_of(cfg_, extra_tag) -> Path:
     return out_root / cfg_.EXP_GROUP_PATH / cfg_.TAG / extra_tag
 
 
-def refuse_multi_device(launcher, num_devices):
-    if launcher != "none" or (num_devices or 1) > 1:
-        raise NotImplementedError(
-            f"--launcher {launcher} / --num_devices {num_devices}: "
-            "the port runs one process on one device; data parallelism is "
-            "ROADMAP.md Queue 1 item 10")
+def add_dist_args(parser):
+    """``--launcher`` (pcdet's names: ``none``, ``pytorch`` under
+    ``torchrun``, ``slurm``), ``--num_devices`` and ``--tcp_port``."""
+    parser.add_argument("--launcher", choices=list(dist.LAUNCHERS),
+                        default="none")
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help="--launcher none: start this many local ranks "
+                             "(one card each, or CPU processes with --device "
+                             "cpu); else the expected world size")
+    parser.add_argument("--tcp_port", type=int, default=18888,
+                        help="--launcher slurm: the rendezvous port")
+
+
+def wants_local_launch(args, launcher=None) -> bool:
+    """``--num_devices N > 1`` under ``--launcher none``: the entry point
+    starts N ranks of itself (``local_launch``)."""
+    return (launcher or args.launcher) == "none" and (args.num_devices or 1) > 1
+
+
+def local_launch(script, argv, args):
+    """Run ``script``'s ``main(argv, launcher="pytorch")`` in
+    ``args.num_devices`` local processes joined by a file rendezvous (one
+    card each with ``--device cuda``); returns the ranks' results in rank
+    order."""
+    n = args.num_devices
+    if args.device == "cuda" and torch.cuda.device_count() < n:
+        raise RuntimeError(f"--num_devices {n}: {torch.cuda.device_count()} "
+                           "card(s) visible; NCCL runs one rank a card")
+    return dist.launch_local(
+        functools.partial(dist.run_script, str(script), "main", argv,
+                          "pytorch"), n)
+
+
+def join_ranks(args, launcher):
+    """``init_distributed`` for the entry point's flags; checks
+    ``--num_devices`` against the world size. Returns (rank, world,
+    device)."""
+    rank, world = dist.init_distributed(launcher, args.device,
+                                        tcp_port=args.tcp_port)
+    if launcher != "none" and args.num_devices and args.num_devices != world:
+        raise ValueError(f"--num_devices {args.num_devices}, but the launcher "
+                         f"started {world} ranks")
+    return rank, world, dist.local_device(args.device)
+
+
+def per_rank_batch(batch_size, world):
+    """The global ``batch_size`` split over the ranks, as the JAX entry
+    points split it over their devices (ref: train.py:71-75)."""
+    if batch_size % world:
+        raise ValueError(f"batch size {batch_size} is not divisible by "
+                         f"{world} ranks")
+    return batch_size // world
 
 
 def build_model(cfg_, dataset, batch_size, device):

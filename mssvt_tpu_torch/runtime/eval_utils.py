@@ -4,14 +4,18 @@ ref: tools/eval_utils/eval_utils.py:22-121).
 Runs the model in eval mode under ``torch.inference_mode()`` over the eval
 split, strips the padding on the host, accumulates per-frame predictions
 and GT, computes seconds per example (the forward between two device
-synchronisations) and the dataset metric. One process; the merge of
-per-process results (``merge_result_parts``) is ported for the data
-parallel slice (ROADMAP.md Queue 1 item 10).
+synchronisations) and the dataset metric. In a process group (an entry
+point's ``--launcher`` other than ``none``, any world size) each rank
+evaluates its shard of the split (the loader's ``idx[rank::world]``) and
+pickles ``part_<rank>.pkl`` into ``result_dir/tmp_merge``; after a barrier
+rank 0 merges the parts (``merge_result_parts``, the reference's
+``merge_results_dist`` scheme) and computes the metrics.
 """
 
 from __future__ import annotations
 
 import pickle
+import shutil
 import time
 from pathlib import Path
 
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.box_ops import pairwise_iou_3d
+from ..parallel.dist import barrier, initialized, rank_and_world
 from ..utils.eval_ap import kitti_style_eval
 from .train_utils import batch_to_device, model_device, synchronize
 
@@ -46,7 +51,8 @@ def merge_result_parts(tmp_dir, recall_thresh_list):
 
     The analog of ref ``common_utils.merge_results_dist``
     (common_utils.py:199-220): each process pickles its per-frame results;
-    rank 0 concatenates them in rank order. Returns
+    rank 0 concatenates them in rank order (by the integer rank, so that
+    ``part_10`` follows ``part_9``). Returns
     (det_frames, gt_frames, recall_acc, gt_total, n_frames, t_total) —
     t_total is the MAX across ranks (processes evaluate concurrently).
     """
@@ -54,7 +60,9 @@ def merge_result_parts(tmp_dir, recall_thresh_list):
     recall_acc = {t: 0 for t in recall_thresh_list}
     gt_total = n_frames = 0
     t_total = 0.0
-    for part in sorted(Path(tmp_dir).glob("part_*.pkl")):
+    parts = sorted(Path(tmp_dir).glob("part_*.pkl"),
+                   key=lambda p: int(p.stem.split("_")[1]))
+    for part in parts:
         with open(part, "rb") as f:
             d = pickle.load(f)
         det_frames += d["det"]
@@ -81,12 +89,17 @@ def eval_one_epoch(model, loader, class_names, logger=None, result_dir=None,
                    recall_thresh_list=(0.3, 0.5, 0.7), world_size=1):
     """Evaluate ``model`` (on its device; built for ``loader.batch_size``)
     over ``loader``; writes ``result.pkl`` (the per-frame detections) into
-    ``result_dir`` and returns ``(metrics, det_frames)``."""
-    if world_size != 1:
-        raise NotImplementedError(
-            "eval_one_epoch runs one process; the multi-process merge "
-            "(merge_result_parts) waits for data parallelism, ROADMAP.md "
-            "Queue 1 item 10")
+    ``result_dir`` and returns ``(metrics, det_frames)``. In a process
+    group of ``world_size`` ranks (``loader`` holds this rank's shard) rank
+    0 returns the merged result and the other ranks ``({}, [])``."""
+    rank, world = rank_and_world()
+    if world_size != world:
+        raise ValueError(f"eval_one_epoch: world_size {world_size}, but the "
+                         f"process group holds {world} ranks")
+    merge = initialized()
+    if merge and result_dir is None:
+        raise ValueError("eval_one_epoch: the ranks merge their parts "
+                         "through result_dir, which is None")
     model.eval()
     device = model_device(model)
     batch_size = loader.batch_size
@@ -127,6 +140,23 @@ def eval_one_epoch(model, loader, class_names, logger=None, result_dir=None,
                 recall_acc[t] += counts[t]
             gt_total += n_gt
             n_frames += 1
+
+    if merge:
+        tmp = Path(result_dir) / "tmp_merge"
+        if rank == 0:  # no parts of an earlier run
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir(parents=True)
+        barrier()
+        with open(tmp / f"part_{rank}.pkl", "wb") as f:
+            pickle.dump({"det": det_frames, "gt": gt_frames,
+                         "recall": recall_acc, "gt_total": gt_total,
+                         "n": n_frames, "t": t_total}, f)
+        barrier()
+        if rank != 0:
+            return {}, []
+        (det_frames, gt_frames, recall_acc, gt_total, n_frames,
+         t_total) = merge_result_parts(tmp, recall_thresh_list)
+        shutil.rmtree(tmp)
 
     sec_per_example = t_total / max(n_frames, 1)
     if logger:

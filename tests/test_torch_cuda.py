@@ -89,6 +89,43 @@ def test_fill_kernel_matches_plain(dev, nw, k, cap, with_order, cv, ne, nv,
         assert torch.equal(g, w) and torch.equal(a, w)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("return_inverse", [True, False])
+def test_non_bijective_gather_launches_fill(dev, return_inverse):
+    """A non-bijective query table (win2 / win1 = 5/3) on the own-cell path
+    launches K1 at ``order=None`` once, and every buffer and the inverse
+    map equal the same gather on the CPU (``fill_plain``)."""
+    from mssvt_tpu_torch.ops import window
+
+    grid, b, v = (24, 24, 8), 2, 512
+    rng = np.random.default_rng(5)
+    coords = np.unique(np.stack([
+        rng.integers(0, b, 420), rng.integers(0, grid[2], 420),
+        rng.integers(0, grid[1], 420), rng.integers(0, grid[0], 420)], 1),
+        axis=0).astype(np.int32)
+    pad = np.full((v, 4), -1, np.int32)
+    pad[:len(coords)] = coords
+    tables = window.build_query_tables((3, 3, 4), (5, 5, 4))
+    assert tables.inv_src is None
+    outs = []
+    for d in ("cpu", dev):
+        c = torch.as_tensor(pad, device=d)
+        ok = torch.as_tensor(np.arange(v) < len(coords), device=d)
+        wc, wv, _, nv = window.window_partition(c, ok, grid, (3, 3, 4), 96, b)
+        before = fill.launches
+        outs.append(window.gather_window_voxels(
+            wc, wv, c, ok, grid, (3, 3, 4), tables, max_num_win1=20,
+            max_num_win2=40, batch_size=b, return_inverse=return_inverse,
+            num_valid=nv))
+        assert fill.launches - before == (d == dev)
+    want, got = outs
+    assert set(got) == set(want) and ("inv_win1" in got) == return_inverse
+    for name in want:
+        for key in want[name]:
+            assert torch.equal(got[name][key].cpu(), want[name][key]), (
+                name, key)
+
+
 def _fps_planes(rng, kind, rows, n, count):
     """``count`` (rows, n) f32 planes: "int" small integers (exact ties),
     "dup" each row's points drawn from 3 distinct ones (every distance 0
@@ -423,6 +460,47 @@ def test_attention_qk_bwd_live_window_list(dev, zero, nw, nq, nk, num_heads, d,
         assert torch.equal(got[name], again[name]), name
     assert not got["dq"][dead.to(dev)].any() and not got["dk"][dead.to(dev)].any()
     _hold_qk_bwd(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_prefix", [True, False])
+def test_attention_bwd_kernel_without_pad_row_or_num_valid(dev, dtype,
+                                                           q_prefix):
+    """K5 with ``pad_row=None`` and ``num_valid=None`` (the wrapper gives
+    the kernel a zero pad row and every window live) against the plain
+    version with the same Nones, at the tolerances of
+    test_attention_bwd_kernel_matches_plain; no pad-row cotangent comes
+    back, and a second call is bit-identical."""
+    nq = 32 if q_prefix else 8
+    args, _ = _attn_args(dev, dtype, q_prefix, False, (2, 2), nq)
+    args["num_valid"] = None
+    nw, d = args["win1_fea"].shape[0], args["win1_fea"].shape[2]
+    g = torch.Generator().manual_seed(9)
+    args["g"] = torch.randn(nw, nq, d, generator=g).to(dev, dtype)
+    got = attention_bwd.fused_window_attention_assembled_bwd(**args)
+    again = attention_bwd.fused_window_attention_assembled_bwd(**args)
+    want = attention.attention_bwd_plain(**args)
+    torch.cuda.synchronize()
+    flat = lambda res: dict(zip(BWD_NAMES, (*res[:6], *res[6])))
+    got, again, want = flat(got), flat(again), flat(want)
+    assert got["dpad_row"] is None and want["dpad_row"] is None
+    for name, wt in want.items():
+        if wt is None:
+            continue
+        gt = got[name]
+        assert torch.equal(gt, again[name]), name
+        tol = 1e-4 if dtype == torch.float32 else 2.0 ** -5
+        if name == "dbk":
+            scale = want["dbv"].float().abs().max()
+            assert (gt.float() - wt.float()).abs().max() <= tol * scale
+        elif dtype == torch.float32 and name[:2] in ("dw", "db", "dp"):
+            torch.testing.assert_close(
+                gt.float(), wt.float(), rtol=1e-4,
+                atol=1e-4 + 1e-5 * wt.float().abs().max().item())
+        else:
+            _close(gt, wt, dtype)
+    assert got["dwin1"][-1].abs().sum() > 0  # the last window is live
 
 
 @pytest.mark.cuda

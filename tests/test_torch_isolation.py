@@ -16,7 +16,9 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "mssvt_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mssvt_tpu")
-ENTRY_POINTS = (ROOT / "tools" / "train_torch.py", ROOT / "tools" / "test_torch.py")
+ENTRY_POINTS = tuple(sorted((ROOT / "tools").glob("*_torch.py")))
+# imported by the spawned ranks of test_torch_ddp.py, which must not load JAX
+RANK_BODIES = (ROOT / "tests" / "torch_ddp_worker.py",)
 
 
 def _imports(path):
@@ -31,8 +33,10 @@ def _imports(path):
 
 def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          *ENTRY_POINTS]
-    assert len(files) > 20
+                                          *ENTRY_POINTS, *RANK_BODIES]
+    # the glob finds the entry points (every tools/*_torch.py is scanned)
+    assert len(files) > 20 and {"train_torch.py", "test_torch.py"} <= {
+        p.name for p in ENTRY_POINTS}
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -58,12 +62,16 @@ def test_port_imports_without_nvcc_triton_or_jax():
 
 
 def test_entry_points_import_without_nvcc_or_jax_and_build_nothing():
-    """Both torch entry points import in a fresh interpreter with no nvcc
-    and no g++ on PATH; that loads nothing of jax, flax, orbax or
-    mssvt_tpu, and neither builds the host voxelizer nor the kernels."""
+    """Every torch entry point (``tools/*_torch.py``) and the DDP tests'
+    rank bodies import in a fresh interpreter with no nvcc and no g++ on
+    PATH; that loads nothing of jax, flax, orbax or mssvt_tpu, and neither
+    builds the host voxelizer nor the kernels."""
+    names = [p.stem for p in ENTRY_POINTS]
     code = (
         "import importlib.util, sys\n"
-        "for name in ('train_torch', 'test_torch'):\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_ddp_worker\n"
+        f"for name in {names!r}:\n"
         "    spec = importlib.util.spec_from_file_location(\n"
         "        name, f'tools/{name}.py')\n"
         "    mod = importlib.util.module_from_spec(spec)\n"
@@ -105,14 +113,15 @@ def test_unported_names_raise_pointing_at_roadmap():
     ctx = BuildCtx(3, ("a", "b", "c"), (8, 8, 8), (1, 1, 1), (0,) * 6, 1, 8, 5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_backbone_3d({"NAME": "VoxelBackBone8x"}, ctx)
-    # attention dropout > 0 in training: JAX leaves its kernels for the
-    # per-group einsum with nn.Dropout there, and the message says so
+    # attention dropout > 0 in training is ported (the per-group einsum,
+    # test_torch_dropout.py); its masks need the caller's generator
     attn = MixedScaleAttention(32, (1, 1), dropout=0.1).train()
-    with pytest.raises(NotImplementedError, match="einsum.*ROADMAP.md"):
-        attn(query=torch.randn(3, 8, 32), keys=torch.randn(3, 8, 32),
-             key_masks=torch.zeros(3, 8, dtype=torch.bool))
-    attn.eval()(query=torch.randn(3, 8, 32), keys=torch.randn(3, 8, 32),
-                key_masks=torch.zeros(3, 8, dtype=torch.bool))
+    kw = dict(query=torch.randn(3, 8, 32), keys=torch.randn(3, 8, 32),
+              key_masks=torch.zeros(3, 8, dtype=torch.bool))
+    with pytest.raises(ValueError, match="needs a torch.Generator"):
+        attn(**kw)
+    assert attn(**kw, generator=torch.Generator()).shape == (3, 8, 32)
+    attn.eval()(**kw)
 
 
 def _einsum_route(attn, **kw):

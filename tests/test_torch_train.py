@@ -105,6 +105,61 @@ def test_k5_plain_matches_jax_backward(q_prefix, dtype):
             assert err <= 2.0 ** -5 * np.abs(w_).max(), (name, err)
 
 
+@pytest.mark.parametrize("q_prefix", [True, False])
+def test_k5_plain_without_pad_row_or_num_valid_matches_jax(q_prefix):
+    """K5's optional inputs: ``attention_bwd_plain`` with ``pad_row=None``
+    and ``num_valid=None`` (masked picks are zero rows, every window is
+    live) against ``jax.vjp`` through JAX's trainable assembled attention
+    (interpret mode), which takes both inputs and so is given what they
+    mean: a zero pad row and ``num_valid = NW``. f32: rtol 1e-4, atol
+    1e-5 of each cotangent's largest magnitude (the weight cotangents sum
+    products of magnitude ~40 over every window and token, in another
+    order; ``dbk``, analytically zero, is rounding noise on both sides and
+    is held against ``dbv``'s magnitude); no pad-row cotangent comes
+    back."""
+    from mssvt_tpu.ops.pallas_attention import (
+        fused_window_attention_assembled_train)
+
+    a, st = _k5_inputs(q_prefix)
+    nw, _, d = a["win1"].shape
+
+    def fwd(win1, k2, q_ext, base, posw, proj):
+        return fused_window_attention_assembled_train(
+            win1, k2, jnp.asarray(a["fps1"]), jnp.asarray(a["km1"]), q_ext,
+            jnp.asarray(a["q_keep"]), tuple(map(jnp.asarray, a["k_rel"])),
+            tuple(map(jnp.asarray, a["q_rel"])), base, posw, proj,
+            jnp.asarray(a["bias"]), pad_row=jnp.zeros((nw, d), jnp.float32),
+            num_valid=jnp.asarray(nw, jnp.int32), interpret=True,
+            compute_dtype=jnp.float32, **st)
+
+    primals = (a["win1"], a["k2"], a["q_ext"], a["base"], a["posw"],
+               a["proj"])
+    with jax.default_matmul_precision("float32"):
+        _, vjp = jax.vjp(fwd, *jax.tree_util.tree_map(jnp.asarray, primals))
+        want = vjp(jnp.asarray(a["g"]))
+    T = lambda x: torch.as_tensor(np.asarray(x))
+    dwin1, dk2, dqext, dpad, dbase, dposw, dproj = \
+        t_attention.attention_bwd_plain(
+            T(a["win1"]), T(a["k2"]), T(a["fps1"]), T(a["km1"]),
+            None if q_prefix else T(a["q_ext"]), T(a["q_keep"]),
+            tuple(map(T, a["k_rel"])), tuple(map(T, a["q_rel"])),
+            T(a["base"]), T(a["posw"]), tuple(map(T, a["proj"])),
+            T(a["bias"]), T(a["g"]), pad_row=None, num_valid=None,
+            compute_dtype=torch.float32, **st)
+    assert dpad is None
+    pairs = [("win1", dwin1, want[0]), ("k2", dk2, want[1]),
+             ("pos_base", dbase, want[3]), ("pos_w", dposw, want[4])]
+    pairs += [(f"proj[{i}]", gp, wp) for i, (gp, wp) in
+              enumerate(zip(dproj, want[5]))]
+    if not q_prefix:
+        pairs.append(("q_ext", dqext, want[2]))
+    for name, g_, w_ in pairs:
+        w_ = np.asarray(w_)
+        size = np.abs(np.asarray(want[5][5]) if name == "proj[3]" else w_)
+        np.testing.assert_allclose(g_.numpy(), w_, rtol=1e-4,
+                                   atol=1e-5 * size.max(), err_msg=name)
+
+
 # ------------------------------------------------------- gather gradients
 def _dyadic(rng, *shape):
     """Values k/8 with small integer k: every sum of a few of them is exact

@@ -7,14 +7,22 @@ output tree, ``$MSSVT_OUTPUT_ROOT`` (default ``output/`` at the repo root)
     python tools/train_torch.py --cfg_file tools/cfgs/waymo_models/mssvt.yaml \\
         [--device cuda|cpu] [--epochs N] [--batch_size B] [--eval_after_train]
 
-It runs on one card (``--device cuda``, the default, raises when there is
+It runs on the card (``--device cuda``, the default, raises when there is
 none); ``--device cpu`` runs the kernels' plain versions on the CPU. A run
 resumes from the newest checkpoint of its ``ckpt`` directory. ``--ckpt
 FILE`` starts a fresh run from a checkpoint's weights, shape-tolerant
-(``partial_load_params``). ``--launcher`` other than ``none`` and
-``--num_devices`` above 1 raise: data parallelism is ROADMAP.md Queue 1
-item 10. ``main(argv)`` returns what the run did (directories, start
-epoch and iteration, per-step records, eval metrics).
+(``partial_load_params``). ``main(argv)`` returns what the run did
+(directories, start epoch and iteration, per-step records, eval metrics).
+
+Data parallel (DDP with SyncBN; ``--batch_size`` is the global batch, each
+rank takes ``batch_size // world`` from its shard of the loader):
+
+    torchrun --nproc_per_node 8 tools/train_torch.py --launcher pytorch ...
+    srun -n 8 python tools/train_torch.py --launcher slurm ...
+    python tools/train_torch.py --num_devices 2 [--device cpu] ...
+
+The last starts the ranks itself (``--launcher none``); on the CPU they
+talk over gloo, on cards over NCCL, one card a rank.
 """
 
 from __future__ import annotations
@@ -32,17 +40,22 @@ import torch  # noqa: E402
 
 from mssvt_tpu_torch.config import log_config_to_file  # noqa: E402
 from mssvt_tpu_torch.datasets.loader import build_dataloader  # noqa: E402
+from mssvt_tpu_torch.parallel import dist  # noqa: E402
 from mssvt_tpu_torch.runtime.checkpoint import (  # noqa: E402
     CheckpointManager,
     load_training_state,
     partial_load_params,
 )
 from mssvt_tpu_torch.runtime.cli import (  # noqa: E402
+    add_dist_args,
     build_model,
+    join_ranks,
     load_run_config,
+    local_launch,
     output_dir_of,
+    per_rank_batch,
     recall_thresholds,
-    refuse_multi_device,
+    wants_local_launch,
 )
 from mssvt_tpu_torch.runtime.eval_utils import eval_one_epoch  # noqa: E402
 from mssvt_tpu_torch.runtime.optimization import build_optimizer  # noqa: E402
@@ -69,10 +82,7 @@ def parse_config(argv=None):
     parser.add_argument("--fix_random_seed", action="store_true")
     parser.add_argument("--ckpt_save_interval", type=int, default=1)
     parser.add_argument("--max_ckpt_save_num", type=int, default=30)
-    parser.add_argument("--num_devices", type=int, default=None)
-    parser.add_argument("--launcher", choices=["none", "jax", "slurm"],
-                        default="none")
-    parser.add_argument("--coordinator", type=str, default=None)
+    add_dist_args(parser)
     parser.add_argument("--eval_after_train", action="store_true")
     parser.add_argument("--merge_all_iters_to_one_epoch", action="store_true",
                         help="fold all epochs into one continuous pass")
@@ -84,17 +94,31 @@ def parse_config(argv=None):
 
 
 
-def main(argv=None):
+def main(argv=None, launcher=None):
+    """One run; ``launcher`` overrides ``--launcher`` (the ranks that
+    ``--num_devices`` starts under ``--launcher none`` run as ``pytorch``)."""
     args, cfg_ = parse_config(argv)
-    refuse_multi_device(args.launcher, args.num_devices)
-    device = resolve_device(args.device)
+    launcher = launcher or args.launcher
+    resolve_device(args.device)
+    if wants_local_launch(args, launcher):
+        results = local_launch(__file__, argv, args)
+        return {**results[0], "ranks": results}
+    rank, world, device = join_ranks(args, launcher)
+    try:
+        return train(args, cfg_, rank, world, device)
+    finally:
+        dist.shutdown()
+
+
+def train(args, cfg_, rank, world, device):
     set_deterministic()
     data_seed = None
     if args.fix_random_seed:
         set_random_seed(FIXED_SEED)
-        data_seed = FIXED_SEED
+        data_seed = FIXED_SEED + rank  # each rank its own augmentations
 
-    batch_size = args.batch_size or cfg_.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    batch_size = per_rank_batch(
+        args.batch_size or cfg_.OPTIMIZATION.BATCH_SIZE_PER_GPU, world)
     epochs = args.epochs or cfg_.OPTIMIZATION.NUM_EPOCHS
 
     output_dir = output_dir_of(cfg_, args.extra_tag)
@@ -102,17 +126,18 @@ def main(argv=None):
     output_dir.mkdir(parents=True, exist_ok=True)
     log_file = output_dir / (
         "log_train_%s.txt" % datetime.datetime.now().strftime("%Y%m%d-%H%M%S"))
-    logger = create_logger(log_file)
+    logger = create_logger(log_file if rank == 0 else None, rank=rank)
     logger.info("**********************Start logging**********************")
     logger.info(f"device: {device}"
                 + (f" ({torch.cuda.get_device_name(device)})"
-                   if device.type == "cuda" else ""))
+                   if device.type == "cuda" else "")
+                + f"; {world} rank(s), batch {batch_size} a rank")
     log_config_to_file(cfg_, logger=logger)
 
     dataset, train_loader = build_dataloader(
         dataset_cfg=cfg_.DATA_CONFIG, class_names=cfg_.CLASS_NAMES,
         batch_size=batch_size, training=True, workers=args.workers,
-        logger=logger, data_seed=data_seed)
+        logger=logger, data_seed=data_seed, rank=rank, world_size=world)
     model = build_model(cfg_, dataset, batch_size, device)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model parameters: {n_params / 1e6:.2f} M")
@@ -130,7 +155,7 @@ def main(argv=None):
     ckpt_manager = CheckpointManager(ckpt_dir, max_keep=args.max_ckpt_save_num)
     start_epoch, start_iter = 0, 0
     latest = ckpt_manager.latest_step()
-    if latest is not None:  # auto-resume (ref: train.py:130-140)
+    if latest is not None:  # auto-resume on every rank (ref: train.py:130-140)
         start_epoch, start_iter = load_training_state(
             model, optimizer, ckpt_manager.restore(latest,
                                                    map_location=device))
@@ -140,8 +165,12 @@ def main(argv=None):
         state = torch.load(args.ckpt, map_location=device, weights_only=False)
         model.load_state_dict(partial_load_params(
             state["model"], model.state_dict(), logger))
+    dist.barrier()  # every rank has read the checkpoint before rank 0 writes
+    if dist.initialized():
+        model = dist.wrap_ddp(model)
 
-    generator = torch.Generator(device=device).manual_seed(0)  # DropPath
+    # DropPath and dropout masks: one generator a rank
+    generator = torch.Generator(device=device).manual_seed(rank)
     history = []
     logger.info("**********************Start training**********************")
     it = train_model(
@@ -150,21 +179,24 @@ def main(argv=None):
         start_epoch=start_epoch, start_iter=start_iter, generator=generator,
         lr_fn=lr_fn, logger=logger, history=history)
     logger.info("**********************End training**********************")
+    model = dist.unwrap(model)
     result = {"output_dir": output_dir, "ckpt_dir": ckpt_dir,
               "start_epoch": start_epoch, "start_iter": start_iter,
-              "iterations": it, "history": history,
+              "iterations": it, "history": history, "rank": rank,
+              "world_size": world,
               "loader_make_seconds": list(train_loader.make_seconds),
               "metrics": None}
+    dist.barrier()  # rank 0's last checkpoint is written
 
     if args.eval_after_train:
         _, test_loader = build_dataloader(
             dataset_cfg=cfg_.DATA_CONFIG, class_names=cfg_.CLASS_NAMES,
             batch_size=batch_size, training=False, workers=args.workers,
-            logger=logger, data_seed=data_seed)
+            logger=logger, data_seed=data_seed, rank=rank, world_size=world)
         result["metrics"], _ = eval_one_epoch(
             model, test_loader, cfg_.CLASS_NAMES, logger=logger,
             result_dir=output_dir / "eval",
-            recall_thresh_list=recall_thresholds(cfg_))
+            recall_thresh_list=recall_thresholds(cfg_), world_size=world)
     return result
 
 
