@@ -103,6 +103,23 @@ print the device time of each launch inside one K5 and one K7 call
    weights; 9d ``voxelize_points_torch`` on a 180 000-point frame against
    the host C++ voxelizer (the same voxels and counts but where a point's
    float32 cell differs from its float64 one), timed.
+10. SECOND and PointPillar (``kitti_models/second.yaml``,
+   ``pointpillar.yaml``: the sparse-conv engine, the pillar VFE and
+   scatter, the anchor head and its post-processing; no kernel of K1-K7
+   stands on their path, and every step and request is checked to launch
+   none): 10a tiny f32 models on the card against the CPU plain path on
+   the same weights (kept boxes as sets within 1e-3; one ``train_step``:
+   loss within 1e-4 relative, gradient norm within 1e-3); 10b each at full
+   KITTI width on ``SyntheticDataset`` frames (~61 000 points) under
+   ``kitti_dataset.yaml``'s processors (``KITTI_DATA``; the config is
+   written under ``output/``): ``tools/train_torch.py`` for one epoch (2
+   steps at batch 4) and ``tools/test_torch.py`` on its checkpoint (2
+   requests), printing voxels a frame against the 16 000 / 40 000 caps, the
+   BEV width (128, 64), each synchronised step and request, the anchor
+   post-processing's (NMS) share of a request by the host clock and under
+   the profiler, and the peak memory, also of a request with the NMS's
+   pairwise IoU at once instead of in row blocks (``# 10a``/``# 10b``
+   lines).
 
 Its last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -1345,6 +1362,374 @@ def voxelizer_device_check(torch, card):
         f"MiB in and out), host C++ {host_ms:.1f} ms [{card}]")
 
 
+# -------------------------------------------------------------- phase 10
+# SECOND and PointPillar (kitti_models/second.yaml, pointpillar.yaml): no
+# TPU kernel stands on their path, so each step and request launches none
+KITTI_MODELS = ("second", "pointpillar")
+KITTI_STEP = KITTI_REQUEST = launches()
+# 10b's DATA_CONFIG: kitti_dataset.yaml's processors (range, 4 point
+# features, voxelizer, caps 16 000 / 40 000, world flip/rotation/scaling)
+# on synthetic frames: this recipe's 100 000 give ~61 000 points a frame
+# inside the range (half ground, a tenth noise, objects)
+KITTI_DATA = {"DATASET": "SyntheticDataset", "NUM_FRAMES": 8,
+              "POINTS_PER_FRAME": 100_000}
+KITTI_BEV = {"second": 128, "pointpillar": 64}  # the 2D backbone's input
+KITTI_TINY_GRID = 32  # 10a: 32 x 32 (x 32) cells of 0.4 m
+
+
+def kitti_tiny(name, seed):
+    """10a: ``kitti_models/<name>.yaml`` at narrow widths on a 12.8 m range
+    of 32 x 32 (x 32) cells, and a seeded 2-frame scene of up to 256 voxels
+    a frame with GT boxes of the three classes: (build args, scene)."""
+    import numpy as np
+
+    cfg = load_cfg(f"tools/cfgs/kitti_models/{name}.yaml")
+    m, pillar = cfg.MODEL, name == "pointpillar"
+    g = KITTI_TINY_GRID
+    pcr = (0.0, -6.4, -3.0, 12.8, 6.4, 1.0)
+    grid, vs = ((g, g, 1), (0.4, 0.4, 4.0)) if pillar else \
+        ((g, g, g), (0.4, 0.4, 0.125))
+    if pillar:
+        m.VFE.NUM_FILTERS = [16]
+        m.MAP_TO_BEV.NUM_BEV_FEATURES = 16
+    else:
+        m.BACKBONE_3D.NUM_FILTERS = [8, 16, 16, 16]
+        m.BACKBONE_3D.OUT_CHANNELS = 16
+    m.BACKBONE_2D.update(LAYER_NUMS=[1, 1], NUM_FILTERS=[16, 16],
+                         UPSAMPLE_STRIDES=[1, 2], NUM_UPSAMPLE_FILTERS=[16, 16])
+    m.POST_PROCESSING.NMS_CONFIG.update(NMS_PRE_MAXSIZE=256,
+                                        NMS_POST_MAXSIZE=64)
+    rng = np.random.default_rng(seed)
+    bsz, slots, pts = 2, 256, 5 if not pillar else 32
+    n = 300
+    cells = np.unique(np.stack([
+        rng.integers(0, bsz, n), rng.integers(0, grid[2], n),
+        rng.integers(0, g, n), rng.integers(0, g, n)], 1), axis=0)
+    coords = np.full((bsz * slots, 4), -1, np.int32)
+    valid = np.zeros(bsz * slots, bool)
+    for b in range(bsz):
+        cb = cells[cells[:, 0] == b][:slots]
+        coords[b * slots:b * slots + len(cb)] = cb
+        valid[b * slots:b * slots + len(cb)] = True
+    num = (rng.integers(1, pts + 1, bsz * slots) * valid).astype(np.float32)
+    mask = np.arange(pts)[None, :] < num[:, None]
+    xyz = ((coords[:, None, [3, 2, 1]] + rng.uniform(0, 1, (bsz * slots,
+                                                           pts, 3)))
+           * vs + pcr[:3])
+    voxels = np.concatenate([xyz, rng.uniform(0, 1, (bsz * slots, pts, 1))],
+                            -1).astype(np.float32) * mask[..., None]
+    gt = np.zeros((bsz, 6, 8), np.float32)
+    sizes = {1: (3.9, 1.6, 1.56), 2: (0.8, 0.6, 1.73), 3: (1.76, 0.6, 1.73)}
+    for b in range(bsz):
+        for j in range(4):
+            cls = j % 3 + 1
+            gt[b, j] = [rng.uniform(2, 11), rng.uniform(-4.5, 4.5), -1.0,
+                        *sizes[cls], rng.uniform(-np.pi, np.pi), cls]
+    scene = {"voxels": voxels, "voxel_num_points": num,
+             "voxel_coords": coords, "voxel_valid": valid, "gt_boxes": gt}
+    return (cfg, (cfg.MODEL, 3, list(cfg.CLASS_NAMES), grid, vs, pcr, bsz,
+                  slots, pts)), scene
+
+
+def kept_box_sets_error(a, b):
+    """(boxes kept a frame in total, largest difference) between two
+    detectors' outputs compared as sets a frame: the rows (box, score,
+    label) of the kept boxes sorted, since NMS keeps equal-score boxes in
+    index order and scores equal within rounding may order either way.
+    Inf when the counts differ."""
+    import numpy as np
+
+    worst, total = 0.0, 0
+    for f in range(a["final_mask"].shape[0]):
+        rows = []
+        for o in (a, b):
+            m = o["final_mask"][f].cpu().numpy()
+            r = np.concatenate([o["final_boxes"][f].cpu().numpy()[m],
+                                o["final_scores"][f].cpu().numpy()[m, None],
+                                o["final_labels"][f].cpu().numpy()[m, None]],
+                               1).astype(np.float64)
+            rows.append(r[np.lexsort(np.round(r, 3).T[::-1])])
+        if rows[0].shape != rows[1].shape:
+            return total, float("inf")
+        total += len(rows[0])
+        if len(rows[0]):
+            worst = max(worst, float(np.abs(rows[0] - rows[1]).max()))
+    return total, worst
+
+
+def kitti_tiny_models(torch, args, scene, seed):
+    """10a's model on the CPU and on the card with equal seeded weights:
+    its BatchNorm statistics are those of one train-mode forward of the
+    scene (momentum 0 for it: with LeCun-initialised sparse convs on a
+    sparse scene the features fade by orders of magnitude each layer, and
+    scores then tie at 0.5 within rounding), and its classification bias
+    is zero, so that boxes pass the score threshold."""
+    from mssvt_tpu_torch.models import build_network
+    from mssvt_tpu_torch.models.model_utils.layers import BatchNorm
+
+    cpu = build_network(*args, num_point_features=4, device="cpu", seed=seed)
+    bns = [m for m in cpu.modules() if isinstance(m, BatchNorm)]
+    moms = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 0.0
+    with torch.no_grad():
+        cpu.train()(to_device(torch, scene, "cpu"))
+        cpu.dense_head.conv_cls.bias.zero_()
+    for m, mom in zip(bns, moms):
+        m.momentum = mom
+    card = build_network(*args, num_point_features=4, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    return cpu.eval(), card
+
+
+def kitti_tiny_reference(torch):
+    """10a: tiny f32 SECOND and PointPillar on the card against the CPU
+    plain path on the same weights (``kitti_tiny_models``): the kept boxes
+    of each frame, as sets, within 1e-3, then
+    one ``train_step`` each (adam_onecycle): the loss within 1e-4 relative
+    and the gradient norm within 1e-3; no kernel of K1-K7 launched."""
+    import math
+
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.runtime.optimization import build_optimizer
+    from mssvt_tpu_torch.runtime.train_utils import train_step
+
+    for name in KITTI_MODELS:
+        (cfg, args), scene = kitti_tiny(name, 23)
+        res = {}
+        kernels.reset_launch_counts()
+        models = dict(zip(("cpu", "cuda"),
+                          kitti_tiny_models(torch, args, scene, 5)))
+        for dev, model in models.items():
+            batch = to_device(torch, scene, dev)
+            with torch.no_grad():
+                out = model(batch)
+            opt, _ = build_optimizer(cfg.OPTIMIZATION, model.named_parameters(),
+                                     total_steps=10, steps_per_epoch=5)
+            loss, _ = train_step(model, opt, batch,
+                                 torch.Generator(device=dev))
+            gnorm = math.sqrt(sum(float((p.grad.double() ** 2).sum())
+                                  for p in model.parameters()))
+            res[dev] = (out, float(loss), gnorm)
+        torch.cuda.synchronize()
+        (oc, lc, gc), (og, lg, gg) = res["cpu"], res["cuda"]
+        n_kept, err = kept_box_sets_error(oc, og)
+        if n_kept == 0 or err > 1e-3:
+            raise AssertionError(f"10a {name}: {n_kept} boxes, error {err}")
+        rel, grel = abs(lg - lc) / abs(lc), abs(gg - gc) / gc
+        if rel > 1e-4 or grel > 1e-3 or not math.isfinite(lg):
+            raise AssertionError(f"10a {name}: loss {lg} vs {lc}, gradient "
+                                 f"norm {gg} vs {gc}")
+        counts = kernels.launch_counts()
+        if counts != KITTI_STEP:
+            raise AssertionError(f"10a {name}: launches {counts}")
+        log(f"# 10a tiny {name} (f32): {n_kept} boxes agree within "
+            f"{err:.3g}; one train_step: loss card {lg:.6f} vs CPU "
+            f"{lc:.6f} (relative {rel:.3g}), gradient norm {gg:.6g} vs "
+            f"{gc:.6g} (relative {grel:.3g}); launches: none")
+
+
+def kitti_config(name):
+    """10b: ``kitti_models/<name>.yaml`` with KITTI_DATA and gt_sampling
+    disabled (no db-info file exists), written under output/."""
+    import yaml
+
+    cfg = json.loads(json.dumps(load_cfg(f"tools/cfgs/kitti_models/{name}.yaml")))
+    cfg["DATA_CONFIG"].update(KITTI_DATA)
+    cfg["DATA_CONFIG"]["DATA_AUGMENTOR"]["DISABLE_AUG_LIST"] = ["gt_sampling"]
+    path = ROOT / "output" / "chip_smoke" / "cfgs" / "kitti" / f"{name}_synthetic.yaml"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def profile_kitti_request(torch, model, batch, name, card):
+    """One request of the trained model, synchronised around the anchor
+    post-processing (max over classes, score threshold, greedy rotated
+    NMS over NMS_PRE_MAXSIZE candidates a frame): its share of the
+    request by the host clock and, under ``torch.profiler``, by device
+    kernel time; then the request's peak memory with the pairwise IoU in
+    row blocks (``ops.nms.IOU_BLOCK_PAIRS``) and at once."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mssvt_tpu_torch.models.detectors import generic_post
+    from mssvt_tpu_torch.ops import nms
+    from mssvt_tpu_torch.runtime.eval_utils import eval_step
+
+    post = generic_post.post_process_anchor
+    spans = []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_function("anchor_post_process"):
+            out = post(*a, **kw)
+            torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+        return out
+
+    generic_post.post_process_anchor = timed
+    try:
+        eval_step(model, batch)  # warm
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eval_step(model, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        post_s = spans[-3:]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eval_step(model, batch)
+            torch.cuda.synchronize()
+    finally:
+        generic_post.post_process_anchor = post
+    evs = prof.events()
+    kern = [e for e in evs if "CUDA" in str(getattr(e, "device_type", ""))]
+    dev_all = sum(e.self_device_time_total for e in kern) / 1e3
+    spans_ = [e.time_range for e in evs if e.name == "anchor_post_process"]
+    if spans_:  # kernels that started inside the synchronised span
+        inside = [e for e in kern
+                  if spans_[0].start <= e.time_range.start <= spans_[0].end]
+        dev_post = (f"{sum(e.self_device_time_total for e in inside) / 1e3:.3f}"
+                    f" ms of them in {len(inside)} post-processing kernels")
+    else:
+        dev_post = "the post-processing's share not measured (no span)"
+    share = [p / w for p, w in zip(post_s, walls)]
+    log(f"# 10b {name} request: synchronised {[round(w, 4) for w in walls]} s"
+        f", of which the anchor post-processing (NMS) "
+        f"{[round(p, 4) for p in post_s]} s = "
+        f"{[round(100 * x, 1) for x in share]}% (host clock); profiled: "
+        f"device kernels {dev_all:.3f} ms over {len(kern)} kernels, "
+        f"{dev_post} [{card}]")
+    peaks = {}
+    for label, pairs in (("row blocks", nms.IOU_BLOCK_PAIRS),
+                         ("at once", 1 << 62)):
+        saved, nms.IOU_BLOCK_PAIRS = nms.IOU_BLOCK_PAIRS, pairs
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            eval_step(model, batch)
+            torch.cuda.synchronize()
+            peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        finally:
+            nms.IOU_BLOCK_PAIRS = saved
+    log(f"# 10b {name} request peak above the resident model and batch: "
+        f"IoU in row blocks {peaks['row blocks']:.2f} GiB, at once "
+        f"{peaks['at once']:.2f} GiB [{card}]")
+    return walls, post_s
+
+
+def kitti_pipeline(torch, card):
+    """10b: for SECOND and PointPillar at full KITTI width,
+    ``tools/train_torch.py`` in-process for one epoch (2 steps at batch 4)
+    and ``tools/test_torch.py`` on its checkpoint (2 requests at batch 4),
+    on the card; each step's and request's launches (none), finite losses
+    and metrics; prints voxels a frame against the caps, the BEV width,
+    each synchronised step and request, the NMS share of a request and the
+    peak memory."""
+    import math
+    import shutil
+
+    import yaml
+
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.datasets import build_dataset
+    from mssvt_tpu_torch.runtime import eval_utils, train_utils
+
+    t_phase = time.time()
+    out_root = ROOT / "output" / "chip_smoke" / "kitti_runs"
+    shutil.rmtree(out_root, ignore_errors=True)
+    os.environ["MSSVT_OUTPUT_ROOT"] = str(out_root)
+    train, test = load_tool("train_torch"), load_tool("test_torch")
+    train_step, eval_step = train_utils.train_step, eval_utils.eval_step
+    try:
+        for name in KITTI_MODELS:
+            cfg_path = kitti_config(name)
+            cfg = yaml.safe_load(cfg_path.read_text())
+            seen = {"step": [], "request": []}
+
+            def counted(kind, fn):
+                def call(model, *args, **kw):
+                    before = kernels.launch_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(model, *args, **kw)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    after = kernels.launch_counts()
+                    batch = args[1] if kind == "step" else args[0]
+                    seen[kind].append(({n: after[n] - before[n] for n in after},
+                                       batch, dt, model))
+                    return out
+                return call
+
+            train_utils.train_step = counted("step", train_step)
+            eval_utils.eval_step = counted("request", eval_step)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            common = ["--cfg_file", str(cfg_path), "--batch_size", str(BATCH),
+                      "--workers", "1", "--extra_tag", "smoke"]
+            run = train.main(common + ["--fix_random_seed", "--epochs", "1"])
+            train_peak = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            metrics = test.main(common + ["--ckpt", "1"])[1]
+            eval_peak = torch.cuda.max_memory_allocated() / 2**30
+            seconds = time.time() - t0
+            train_utils.train_step, eval_utils.eval_step = train_step, eval_step
+            hist = run["history"]
+            if len(hist) != 2 or len(seen["step"]) != 2 or \
+                    len(seen["request"]) != 2:
+                raise AssertionError(f"10b {name}: {len(hist)} steps, "
+                                     f"{len(seen['request'])} requests (2, 2)")
+            if not all(math.isfinite(h["loss"]) for h in hist):
+                raise AssertionError(f"10b {name}: losses {hist}")
+            bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+            if bad:
+                raise AssertionError(f"10b {name}: non-finite metrics {bad}")
+            for kind in ("step", "request"):
+                for i, (per, *_rest) in enumerate(seen[kind]):
+                    if per != KITTI_STEP:
+                        raise AssertionError(f"10b {name} {kind} {i}: "
+                                             f"launches {per}")
+            model = seen["request"][-1][3]
+            bev = (model.backbone_3d.num_bev_features if name == "second"
+                   else model.map_to_bev.num_bev_features)
+            if bev != KITTI_BEV[name] or \
+                    model.backbone_2d.block0_conv0.in_channels != bev:
+                raise AssertionError(f"10b {name}: BEV width {bev}")
+            proc = cfg["DATA_CONFIG"]["DATA_PROCESSOR"][-1]
+            caps = proc["MAX_NUMBER_OF_VOXELS"]
+            pts = len(build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"],
+                                    training=False)._make_scene(0)[0])
+            for kind, split in (("step", "train"), ("request", "test")):
+                vox = [v for _, b, *_r in seen[kind] for v in
+                       b["voxel_valid"].reshape(BATCH, -1).sum(1).tolist()]
+                log(f"# 10b {name} {split}: voxels a frame min {min(vox)}, "
+                    f"max {max(vox)} against the cap {caps[split]} "
+                    f"({len(vox)} frames of ~{pts} points)")
+            log(f"# 10b {name}: BEV map {bev} channels into the 2D backbone; "
+                f"synchronised steps {[round(s[2], 4) for s in seen['step']]}"
+                f" s (losses {[round(h['loss'], 4) for h in hist]}), requests "
+                f"{[round(s[2], 4) for s in seen['request']]} s; peak device "
+                f"memory train {train_peak:.2f} GiB, eval {eval_peak:.2f} GiB;"
+                f" entry points {seconds:.1f} s; launches of K1-K7 "
+                f"{sum(sum(p.values()) for p, *_r in seen['step'])} over the"
+                f" steps, {sum(sum(p.values()) for p, *_r in seen['request'])}"
+                f" over the requests [{card}]")
+            profile_kitti_request(torch, model, seen["request"][-1][1], name,
+                                  card)
+            del model, seen, run
+            torch.cuda.empty_cache()
+    finally:
+        train_utils.train_step, eval_utils.eval_step = train_step, eval_step
+        del os.environ["MSSVT_OUTPUT_ROOT"]
+    log(f"# 10b: phase {time.time() - t_phase:.1f} s [{card}]")
+
+
 # --------------------------------------------------------------- phase 5
 def main_path(torch, model, scenes):
     """One warm-up request, then REQUESTS requests cycling the scenes, each
@@ -2052,6 +2437,9 @@ def main(argv):
             raise AssertionError(f"kernel {name} was not launched by the "
                                  "demo")
     voxelizer_device_check(torch, card)
+    # phase 10: SECOND and PointPillar (no kernel of K1-K7 on their path)
+    kitti_tiny_reference(torch)
+    kitti_pipeline(torch, card)
     for name, counts_ in (("attention_qk", off_counts),
                           ("attention_qk_bwd", off_counts),
                           ("fps_picks_warp", sampling_counts),

@@ -11,7 +11,10 @@ is mechanical. Layout rules:
   spatially (flax's transposed convolution does not flip its kernel,
   PyTorch's does);
 - LayerNorm / BatchNorm ``scale``/``bias`` -> ``weight``/``bias`` or
-  ``scale``/``bias``; BatchNorm ``mean``/``var`` from ``batch_stats``.
+  ``scale``/``bias``; BatchNorm ``mean``/``var`` from ``batch_stats``
+  (``MaskedBatchNorm`` and the VFEs' channels-last BatchNorm alike);
+- sparse-conv kernel (K, Cin, Cout) -> ``weight`` as it is (a node of the
+  sparse-conv layers holds its ``kernel`` beside its ``bn`` subtree).
 
 MixedScaleAttention's per-group ``to_q_i``/``to_kv_i``/``proj_i`` are
 stored as they are (the block-diagonal folding happens at call time), and
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.backbones_3d.spconv_backbone import SparseConvKernel
 from .models.model_utils.layers import (
     BatchNorm,
     Conv2d,
@@ -84,15 +88,18 @@ def _load_leaf(mod: nn.Module, leaf: Dict, path: str) -> int:
 
 
 def _walk(mod: nn.Module, tree: Dict, path: str) -> int:
-    n = 0
+    """Load the leaves of ``tree`` onto ``mod`` (a node may hold leaves
+    beside subtrees: a sparse-conv layer's ``kernel`` beside its ``bn``)
+    and walk its subtrees into the submodules of the same names."""
+    leaves = {k: v for k, v in tree.items() if not isinstance(v, dict)}
+    n = _load_leaf(mod, leaves, path) if leaves else 0
     for key, val in tree.items():
+        if not isinstance(val, dict):
+            continue
         child = getattr(mod, key, None)
         if not isinstance(child, nn.Module):
             raise KeyError(f"{path}/{key}: no such submodule in the port")
-        if all(not isinstance(v, dict) for v in val.values()):
-            n += _load_leaf(child, val, f"{path}/{key}")
-        else:
-            n += _walk(child, val, f"{path}/{key}")
+        n += _walk(child, val, f"{path}/{key}")
     return n
 
 
@@ -119,6 +126,8 @@ def to_flax_layout(mod: nn.Module, key: str, t: torch.Tensor) -> np.ndarray:
         return a.transpose(2, 3, 0, 1)[::-1, ::-1].copy()
     if a.ndim == 4:
         return a.transpose(2, 3, 1, 0).copy()
+    if a.ndim == 3:  # sparse-conv (K, Cin, Cout): the flax layout
+        return a
     return a.T.copy()
 
 
@@ -135,13 +144,15 @@ def to_flax_tree(model: nn.Module, collection: str = "params",
             leaves = {"mean": mod.mean, "var": mod.var}
         elif isinstance(mod, (Dense, Conv2d, ConvTranspose2d)):
             leaves = {"kernel": mod.weight, "bias": mod.bias}
+        elif isinstance(mod, SparseConvKernel):
+            leaves = {"kernel": mod.weight}
         elif isinstance(mod, (LayerNorm, BatchNorm)):
             leaves = {"scale": mod.weight if isinstance(mod, LayerNorm)
                       else mod.scale, "bias": mod.bias}
         else:
             continue
         node = tree
-        for part in name.split("."):
+        for part in name.split(".") if name else ():
             node = node.setdefault(part, {})
         for key, t in leaves.items():
             if t is None:

@@ -5,13 +5,31 @@ the highest digit (``((b*X + x)*Y + y)*Z + z``); invalid or out-of-range
 coordinates map to :data:`INVALID_KEY`. All shapes are static: padded rows
 are routed to a scratch slot past the end of each table and sliced off,
 which is what JAX's ``mode="drop"`` scatters do implicitly.
+
+The sorted-key index (:class:`VoxelIndex`, :func:`build_index`,
+:func:`lookup`) and the sort-based :func:`unique_compact` serve the sparse
+convolutions; the MsSVT path uses the dense tables below and never sorts.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 INVALID_KEY = 2**31 - 1
+
+
+def _check_key_capacity(batch_size: int, spatial_shape) -> None:
+    """Raise when the linearised key space of ``batch_size`` grids of
+    ``spatial_shape`` (x, y, z) does not fit below :data:`INVALID_KEY`."""
+    x, y, z = (int(s) for s in spatial_shape)
+    total = batch_size * x * y * z
+    if total >= INVALID_KEY:
+        raise ValueError(
+            f"linearized key space {total} overflows int32 "
+            f"(batch_size={batch_size}, spatial_shape={spatial_shape}); "
+            "reduce grid size or batch, or shard the batch across devices")
 
 
 def linearize_coords(coords: torch.Tensor, spatial_shape, valid=None):
@@ -85,3 +103,52 @@ def build_dense_row_table(coords, valid, spatial_shape, batch_size: int):
                        device=coords.device)
     table[safe] = torch.arange(n, dtype=torch.int32, device=coords.device)
     return table[:n_cells]
+
+
+@dataclass(frozen=True)
+class VoxelIndex:
+    """Sorted (key, row) pairs over the padded voxel set of a whole batch:
+    ``sorted_keys`` (V,) int32 ascending with the INVALID_KEY padding last,
+    ``sorted_rows`` (V,) int32 the row of each key in the flat arrays."""
+
+    sorted_keys: torch.Tensor
+    sorted_rows: torch.Tensor
+
+
+def build_index(coords, valid, spatial_shape) -> VoxelIndex:
+    """The sorted-key index of (V, 4) (b, z, y, x) coords (one stable sort:
+    padding rows keep their row order behind the live keys, as JAX's
+    ``argsort`` does)."""
+    keys = linearize_coords(coords, spatial_shape, valid)
+    sorted_keys, order = torch.sort(keys, stable=True)
+    return VoxelIndex(sorted_keys, order.to(torch.int32))
+
+
+def lookup(index: VoxelIndex, query_keys):
+    """Row of each query key (any shape) by binary search, -1 if absent."""
+    sk = index.sorted_keys
+    n = sk.shape[0]
+    pos = torch.searchsorted(sk, query_keys.contiguous(), side="left")
+    pos = pos.clamp(0, n - 1)
+    found = (sk[pos] == query_keys) & (query_keys != INVALID_KEY)
+    return torch.where(found, index.sorted_rows[pos], -1).to(torch.int32)
+
+
+def unique_compact(keys, capacity: int):
+    """Ascending unique valid keys of (n,) ``keys`` in ``capacity`` slots
+    (INVALID_KEY padded; beyond ``capacity`` the largest are dropped).
+    Returns (out_keys, out_valid, num_unique), ``num_unique`` counted before
+    the truncation. Overflowing keys go to a dump slot at ``capacity`` that
+    is sliced off (JAX's ``mode="drop"``)."""
+    sorted_keys, _ = torch.sort(keys)
+    first = torch.ones_like(sorted_keys, dtype=torch.bool)
+    first[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    first &= sorted_keys != INVALID_KEY
+    slot = torch.cumsum(first.to(torch.int64), 0) - 1
+    num_unique = first.sum().to(torch.int32)
+    dest = torch.where(first & (slot < capacity), slot, capacity)
+    out = torch.full((capacity + 1,), INVALID_KEY, dtype=torch.int32,
+                     device=keys.device)
+    out[dest] = sorted_keys.to(torch.int32)
+    out_keys = out[:capacity]
+    return out_keys, out_keys != INVALID_KEY, num_unique

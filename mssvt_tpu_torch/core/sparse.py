@@ -3,14 +3,18 @@
 
 Rows past the live voxels are padding: features zero, coords -1, valid
 False. Geometry (grid, voxel size, range) is plain Python metadata.
+``index`` is the sorted-key :class:`~mssvt_tpu_torch.core.index.VoxelIndex`
+that the sparse convolutions look neighbours up in, or None.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from .index import VoxelIndex, build_index, _check_key_capacity
 
 
 @dataclass(frozen=True)
@@ -22,14 +26,23 @@ class SparseVoxels:
     spatial_shape: Tuple[int, int, int]  # (x, y, z)
     voxel_size: Tuple[float, float, float]
     point_cloud_range: Tuple[float, ...]
+    index: Optional[VoxelIndex] = None
 
     @classmethod
     def create(cls, features, coords, valid, batch_size, spatial_shape,
-               voxel_size, point_cloud_range) -> "SparseVoxels":
-        return cls(features, coords, valid, int(batch_size),
-                   tuple(int(s) for s in spatial_shape),
+               voxel_size, point_cloud_range,
+               with_index: bool = True) -> "SparseVoxels":
+        """``with_index=False`` skips the sorted-key index (one sort over
+        the rows) for consumers that use only the dense window tables, the
+        MsSVT path; the sparse convolutions need it."""
+        spatial_shape = tuple(int(s) for s in spatial_shape)
+        index = None
+        if with_index:
+            _check_key_capacity(int(batch_size), spatial_shape)
+            index = build_index(coords, valid, spatial_shape)
+        return cls(features, coords, valid, int(batch_size), spatial_shape,
                    tuple(float(v) for v in voxel_size),
-                   tuple(float(v) for v in point_cloud_range))
+                   tuple(float(v) for v in point_cloud_range), index)
 
     @property
     def max_voxels(self) -> int:

@@ -1,5 +1,5 @@
-"""Sparse 3D -> dense BEV (torch counterpart of ``HeightCompression`` in
-``mssvt_tpu/models/backbones_2d/map_to_bev.py``).
+"""Sparse 3D -> dense BEV (torch counterpart of ``HeightCompression`` and
+``PointPillarScatter`` in ``mssvt_tpu/models/backbones_2d/map_to_bev.py``).
 
 The public layout is NHWC, as in the JAX package; the convolutions run in
 NCHW inside.
@@ -45,3 +45,28 @@ class HeightCompression(nn.Module):
             x = getattr(self, f"compress_conv_{i}")(x)
             x = torch.relu(getattr(self, f"compress_bn_{i}")(x))
         return x.permute(0, 2, 3, 1).float()  # (B, H, W, C_bev)
+
+
+class PointPillarScatter(nn.Module):
+    """Pillar features onto the (B, ny, nx, C) BEV canvas (ref:
+    pointpillar_scatter.py). Padding pillars go to a dump frame at index
+    B that is sliced off (JAX's ``mode="drop"``)."""
+
+    def __init__(self, num_bev_features: int, grid_size: Sequence[int]):
+        super().__init__()
+        self.num_bev_features = int(num_bev_features)
+        self.grid_size = tuple(int(g) for g in grid_size)
+        if self.grid_size[2] != 1:
+            raise ValueError(f"PointPillarScatter needs nz == 1, got grid "
+                             f"{self.grid_size}")
+
+    def forward(self, pillar_features, coords, valid, batch_size: int):
+        nx, ny, _ = self.grid_size
+        b, y, x = (coords[:, i].long() for i in (0, 2, 3))
+        b = torch.where(valid, b, batch_size)
+        y = torch.where(valid, y, 0)
+        x = torch.where(valid, x, 0)
+        out = pillar_features.new_zeros((batch_size + 1, ny, nx,
+                                         self.num_bev_features))
+        out = out.index_put((b, y, x), pillar_features)
+        return out[:batch_size]

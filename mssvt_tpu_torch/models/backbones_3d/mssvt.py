@@ -364,7 +364,7 @@ class MsSVTCompressBlock(nn.Module):
         return SparseVoxels.create(
             new, win_coords, win_valid, bsz, win_grid,
             tuple(sp.voxel_size[i] * self.win1[i] for i in range(3)),
-            sp.point_cloud_range)
+            sp.point_cloud_range, with_index=sp.index is not None)
 
 
 class MixedScaleSparseTransformer(nn.Module):

@@ -1,8 +1,10 @@
 """Per-family module registries (torch counterpart of
-``mssvt_tpu/models/builders.py``), holding only the names on the ported
-path: MeanVFE -> MixedScaleSparseTransformer -> HeightCompression ->
-BaseBEVBackbone -> CenterHead. Any other name raises and points at
-ROADMAP.md, where the rest of the zoo is queued.
+``mssvt_tpu/models/builders.py``), holding the names of the ported
+families: the MsSVT CenterPoint path (MeanVFE -> MixedScaleSparseTransformer
+-> HeightCompression -> BaseBEVBackbone -> CenterHead) and the SECOND and
+PointPillar families (the Pillar/Hard/Dynamic VFEs, the sparse-conv
+backbones, PointPillarScatter, AnchorHeadSingle). Any other name raises and
+points at ROADMAP.md, where the rest of the zoo is queued.
 """
 
 from __future__ import annotations
@@ -13,9 +15,11 @@ from typing import Any, Sequence
 import torch
 
 from .backbones_2d.base_bev_backbone import BaseBEVBackbone
-from .backbones_2d.map_to_bev import HeightCompression
+from .backbones_2d.map_to_bev import HeightCompression, PointPillarScatter
 from .backbones_3d.mssvt import MixedScaleSparseTransformer
-from .backbones_3d.vfe import MeanVFE
+from .backbones_3d.spconv_backbone import VoxelBackBone8x, VoxelResBackBone8x
+from .backbones_3d.vfe import DynamicVFE, HardVFE, MeanVFE, PillarVFE
+from .dense_heads.anchor_head import AnchorHeadSingle
 from .dense_heads.center_head import CenterHead
 
 
@@ -33,6 +37,18 @@ class BuildCtx:
     dtype: Any = torch.float32
 
 
+def build_ctx(num_class, class_names, grid_size, voxel_size,
+              point_cloud_range, batch_size, max_voxels, max_points_per_voxel,
+              num_point_features, dtype) -> BuildCtx:
+    """A detector's constructor arguments as the builders' context."""
+    return BuildCtx(int(num_class), tuple(class_names),
+                    tuple(int(g) for g in grid_size),
+                    tuple(float(v) for v in voxel_size),
+                    tuple(float(v) for v in point_cloud_range),
+                    int(batch_size), int(max_voxels),
+                    int(max_points_per_voxel), int(num_point_features), dtype)
+
+
 def _lookup(registry, family, cfg):
     name = cfg["NAME"]
     if name not in registry:
@@ -42,12 +58,50 @@ def _lookup(registry, family, cfg):
     return registry[name]
 
 
-VFE = {"MeanVFE": lambda cfg, ctx: MeanVFE()}
+def _pillar_kwargs(cfg, ctx):
+    return dict(
+        num_point_features=ctx.num_point_features,
+        num_filters=tuple(cfg.get("NUM_FILTERS", [64])),
+        voxel_size=tuple(ctx.voxel_size),
+        point_cloud_range=tuple(ctx.point_cloud_range),
+        use_norm=bool(cfg.get("USE_NORM", True)))
+
+
+VFE = {
+    "MeanVFE": lambda cfg, ctx: MeanVFE(),
+    "PillarVFE": lambda cfg, ctx: PillarVFE(
+        use_absolute_xyz=bool(cfg.get("USE_ABSLOTE_XYZ",
+                                      cfg.get("USE_ABSOLUTE_XYZ", True))),
+        with_distance=bool(cfg.get("WITH_DISTANCE", False)),
+        **_pillar_kwargs(cfg, ctx)),
+    "HardVFE": lambda cfg, ctx: HardVFE(
+        with_cluster_center=bool(cfg.get("WITH_CLUSTER_CENTER", True)),
+        with_voxel_center=bool(cfg.get("WITH_VOXEL_CENTER", True)),
+        with_distance=bool(cfg.get("WITH_DISTANCE", False)),
+        **_pillar_kwargs(cfg, ctx)),
+}
+VFE["DynVFE"] = VFE["DynamicVFE"] = lambda cfg, ctx: DynamicVFE(
+    num_voxels=ctx.max_voxels * ctx.batch_size, **_pillar_kwargs(cfg, ctx))
+
+
+def _spconv8x(cls):
+    """The sparse-conv backbone on the MeanVFE's point features, with the
+    JAX builder's input capacity ``max_voxels * batch_size``."""
+    return lambda cfg, ctx: cls(
+        in_channels=ctx.num_point_features,
+        input_capacity=ctx.max_voxels * ctx.batch_size,
+        grid_size=tuple(ctx.grid_size),
+        num_filters=tuple(cfg.get("NUM_FILTERS", [16, 32, 64, 64])),
+        out_channels=int(cfg.get("OUT_CHANNELS", 128)),
+        return_stages=bool(cfg.get("RETURN_STAGES", False)), dtype=ctx.dtype)
+
 
 BACKBONE_3D = {
     "MixedScaleSparseTransformer": lambda cfg, ctx: MixedScaleSparseTransformer(
         params_cfg=[dict(p) for p in cfg["PARAMS"]],
         in_features=ctx.num_point_features, dtype=ctx.dtype),
+    "VoxelBackBone8x": _spconv8x(VoxelBackBone8x),
+    "VoxelResBackBone8x": _spconv8x(VoxelResBackBone8x),
 }
 
 MAP_TO_BEV = {
@@ -58,6 +112,9 @@ MAP_TO_BEV = {
         layer_dilations=tuple(cfg.get("LAYER_DIALATIONS", [1, 1, 2])),
         layer_paddings=tuple(cfg.get("LAYER_PADDINGS", [1, 2, 2])),
         dtype=ctx.dtype),
+    "PointPillarScatter": lambda cfg, ctx: PointPillarScatter(
+        num_bev_features=int(cfg["NUM_BEV_FEATURES"]),
+        grid_size=tuple(ctx.grid_size)),
 }
 
 BACKBONE_2D = {
@@ -76,6 +133,10 @@ DENSE_HEAD = {
         class_names=tuple(ctx.class_names), grid_size=tuple(ctx.grid_size),
         point_cloud_range=tuple(ctx.point_cloud_range),
         voxel_size=tuple(ctx.voxel_size), dtype=ctx.dtype),
+    "AnchorHeadSingle": lambda cfg, ctx, c_in: AnchorHeadSingle(
+        model_cfg=cfg, input_channels=c_in, num_class=ctx.num_class,
+        class_names=tuple(ctx.class_names), grid_size=tuple(ctx.grid_size),
+        point_cloud_range=tuple(ctx.point_cloud_range), dtype=ctx.dtype),
 }
 
 

@@ -1,8 +1,11 @@
 import torch
 
 from .centerpoint import CenterPoint
+from .pointpillar import PointPillar
+from .second_net import SECONDNet
 
-__all__ = {"CenterPoint": CenterPoint}
+__all__ = {"CenterPoint": CenterPoint, "PointPillar": PointPillar,
+           "SECOND": SECONDNet, "SECONDNet": SECONDNet}
 
 _DTYPES = {
     "float32": torch.float32, "fp32": torch.float32,

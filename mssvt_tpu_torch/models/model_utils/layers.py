@@ -47,21 +47,24 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the channels of an NCHW tensor with flax's semantics
-    and parameter names: ``scale``/``bias`` parameters, ``mean``/``var``
-    running statistics, and flax's ``momentum`` (the running average keeps
-    ``momentum`` of its old value).
+    """BatchNorm over the channels of an NCHW tensor (or, with
+    ``channels_last``, of the last axis of any tensor, as flax's default
+    ``axis=-1``) with flax's semantics and parameter names: ``scale``/
+    ``bias`` parameters, ``mean``/``var`` running statistics, and flax's
+    ``momentum`` (the running average keeps ``momentum`` of its old value).
 
-    In training the batch statistics are taken in f32 over N*H*W as flax
-    does (``var = max(0, E[x^2] - E[x]^2)``, the biased variance), the input
-    is normalised with them, and the running statistics are updated with
-    the same biased variance (``F.batch_norm`` would update ``var`` with
-    the unbiased one). Inside :func:`syncbn.sync_bn` (the data-parallel
-    train step) ``E[x]`` and ``E[x^2]`` are first averaged over the ranks,
-    as flax's ``pmean`` does under the JAX package's sharded step, so every
-    rank normalises with, and keeps, the statistics of the global batch."""
+    In training the batch statistics are taken in f32 over every other
+    axis as flax does (``var = max(0, E[x^2] - E[x]^2)``, the biased
+    variance), the input is normalised with them, and the running
+    statistics are updated with the same biased variance (``F.batch_norm``
+    would update ``var`` with the unbiased one). Inside
+    :func:`syncbn.sync_bn` (the data-parallel train step) ``E[x]`` and
+    ``E[x^2]`` are first averaged over the ranks, as flax's ``pmean`` does
+    under the JAX package's sharded step, so every rank normalises with,
+    and keeps, the statistics of the global batch."""
 
-    def __init__(self, channels, eps, momentum=0.99, dtype=torch.float32):
+    def __init__(self, channels, eps, momentum=0.99, dtype=torch.float32,
+                 channels_last=False):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -70,29 +73,73 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.compute_dtype = dtype
+        self.channels_last = channels_last
+
+    def _layout(self, x):
+        """(axes reduced over, view of a (C,) vector against ``x``)."""
+        if self.channels_last:
+            return tuple(range(x.ndim - 1)), lambda v: v
+        return (0, 2, 3), lambda v: v[:, None, None]
 
     def forward(self, x):
+        dims, per_c = self._layout(x)
         if self.training:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            mean2 = (xf * xf).mean(dim=(0, 2, 3))
+            mean = xf.mean(dim=dims)
+            mean2 = (xf * xf).mean(dim=dims)
             on, group = syncbn.active()
             if on:
                 mean, mean2 = syncbn.all_mean(torch.cat([mean, mean2]),
                                               group).chunk(2)
             var = torch.clamp(mean2 - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
+            self._update_running(mean, var)
             mul = torch.rsqrt(var + self.eps) * self.scale
-            y = (xf - mean[:, None, None]) * mul[:, None, None] \
-                + self.bias[:, None, None]
+            y = (xf - per_c(mean)) * per_c(mul) + per_c(self.bias)
             return y.to(self.compute_dtype)
         a = self.scale * torch.rsqrt(self.var + self.eps)
         b = self.bias - self.mean * a
-        return (x.float() * a[:, None, None] + b[:, None, None]).to(
-            self.compute_dtype)
+        return (x.float() * per_c(a) + per_c(b)).to(self.compute_dtype)
+
+    def _update_running(self, mean, var):
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+
+
+class MaskedBatchNorm(BatchNorm):
+    """BatchNorm over the valid rows of a padded (V, C) array (the sparse
+    convolutions' norm layer; flax momentum 0.99, epsilon 1e-3 by
+    default): the statistics count only the rows where ``valid`` is set,
+    the variance ``E[x^2] - E[x]^2`` is clipped at 0, and the output
+    (f32, as the JAX module's) is multiplied by ``valid``.
+
+    Inside :func:`syncbn.sync_bn` the valid count, the sum and the sum of
+    squares are summed over the ranks (a sum forward and backward, the
+    JAX module's ``psum``), so the statistics are those of all the ranks'
+    valid rows together, however unequal their counts."""
+
+    def __init__(self, channels, eps=1e-3, momentum=0.99):
+        super().__init__(channels, eps, momentum)
+
+    def forward(self, x, valid):
+        w = valid.to(torch.float32)[:, None]
+        if self.training:
+            xf = x.float()
+            sums = torch.cat([w.sum(0), (xf * w).sum(0),
+                              (xf * xf * w).sum(0)])
+            on, group = syncbn.active()
+            if on:
+                sums = syncbn.all_sum(sums, group)
+            n = torch.clamp(sums[0], min=1.0)
+            c = x.shape[-1]
+            mean = sums[1:1 + c] / n
+            var = torch.clamp(sums[1 + c:] / n - mean * mean, min=0.0)
+            self._update_running(mean, var)
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+        return y * w
 
 
 class Conv2d(nn.Conv2d):

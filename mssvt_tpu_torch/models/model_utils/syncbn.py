@@ -8,7 +8,9 @@ then takes ``pmean`` of the batch mean and of ``E[x^2]``. The port does the
 same: ``runtime.train_utils.train_step`` enters :func:`sync_bn` with the
 process group when the model is wrapped in ``DistributedDataParallel``, and
 ``layers.BatchNorm`` in training then averages its two statistics over the
-ranks with :func:`all_mean`. Eval and one-process runs never enter it and
+ranks with :func:`all_mean`; ``layers.MaskedBatchNorm`` (the sparse
+convolutions') sums its valid count and sums with :func:`all_sum`, as the
+JAX module's ``psum`` does. Eval and one-process runs never enter it and
 stay local.
 """
 
@@ -59,6 +61,12 @@ class _AllReduceSum(torch.autograd.Function):
         g = g.clone()
         dist.all_reduce(g, group=ctx.group)
         return g, None
+
+
+def all_sum(x, group=None):
+    """The sum of ``x`` over the ranks of ``group``, differentiable (its
+    cotangent is summed over the ranks too)."""
+    return _AllReduceSum.apply(x, group)
 
 
 def all_mean(x, group=None):

@@ -5,8 +5,9 @@ raises when CUDA is absent; it never falls back to the CPU. Pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels. Weights
 are drawn from a ``torch.Generator`` seeded with ``seed`` (flax-like:
 LeCun-normal kernels, zero biases, identity normalisation, the heatmap
-output bias at -2.19); ``bridge.load_flax_variables`` replaces them with a
-JAX model's variables.
+output bias at -2.19, an anchor head's class prior and box kernel as
+``AnchorHeadSingle.flax_init`` draws them); ``bridge.load_flax_variables``
+replaces them with a JAX model's variables.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import math
 import torch
 from torch import nn
 
+from .backbones_3d.spconv_backbone import SparseConvKernel
 from .detectors import build_detector
 from .model_utils.layers import BatchNorm, Conv2d, ConvTranspose2d, Dense
 
@@ -42,6 +44,13 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.fill_(0.0)
+            elif isinstance(m, SparseConvKernel):  # (K, Cin, Cout)
+                w = m.weight
+                w.copy_(torch.randn(w.shape, generator=gen)
+                        / math.sqrt(w.shape[0] * w.shape[1]))
+        for m in model.modules():  # a head's own flax initialisers
+            if hasattr(m, "flax_init"):
+                m.flax_init(gen)
     return model
 
 

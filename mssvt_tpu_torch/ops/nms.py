@@ -44,13 +44,30 @@ def _greedy(over, cand_valid, order, post_max):
     return sel[:, :post_max], num
 
 
+# candidate pairs a block of the pairwise IoU: its largest temporaries are
+# (B, rows, K, 4, 2) f32, 256 MiB at this many pairs (a whole 4 x 4096^2
+# matrix at once would take ~2 GiB each)
+IOU_BLOCK_PAIRS = 1 << 23
+
+
+def _overlaps(c7, thresh: float):
+    """(B, K, K) ``pairwise_iou_bev(c7, c7) > thresh``, computed in row
+    blocks of at most ``IOU_BLOCK_PAIRS`` pairs (each element's IoU is
+    the same whatever the block)."""
+    b, k = c7.shape[:2]
+    rows = max(1, IOU_BLOCK_PAIRS // max(1, b * k))
+    if rows >= k:
+        return pairwise_iou_bev(c7, c7) > thresh
+    return torch.cat([pairwise_iou_bev(c7[:, i:i + rows], c7) > thresh
+                      for i in range(0, k, rows)], dim=1)
+
+
 def nms_bev(boxes, scores, valid, thresh: float, pre_max: int,
             post_max: int):
     """Rotated-IoU greedy NMS over (B, N, 7+) boxes."""
     cand, cand_valid, order = _candidates(boxes, scores, valid, pre_max)
-    c7 = cand[..., :7]
-    over = pairwise_iou_bev(c7, c7) > thresh
-    return _greedy(over, cand_valid, order, post_max)
+    return _greedy(_overlaps(cand[..., :7], thresh), cand_valid, order,
+                   post_max)
 
 
 def circle_nms(boxes, scores, valid, min_radius: float, pre_max: int,

@@ -742,3 +742,84 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):  # mixed dtypes
         attention_qk.fused_window_attention(
             q, q.bfloat16(), proj, torch.zeros(3, 8, device=dev), (1, 1), 0.2)
+
+
+# ------------------------------------ the sparse-conv and anchor families
+# They reach none of the kernels above: these hold the plain PyTorch path
+# on the card (gathers, products, scatters, NMS) against the CPU's.
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+def test_sparse_conv_backbone_on_card_matches_cpu(dev, residual):
+    """The SECOND backbone (subm stages, strided layers, masked BN) in
+    training on the card: output sites equal, features and every gradient
+    within 1e-4 of the CPU's largest magnitude (f32, TF32 off)."""
+    from mssvt_tpu_torch.core.sparse import SparseVoxels
+    from mssvt_tpu_torch.models.backbones_3d.spconv_backbone import (
+        VoxelBackBone8x,
+    )
+    from mssvt_tpu_torch.models.network import init_weights
+
+    rng = np.random.default_rng(2)
+    n, cap, grid = 600, 512, (32, 32, 32)
+    cells = np.unique(np.stack([rng.integers(0, 2, n), rng.integers(0, 8, n),
+                                rng.integers(0, 32, n), rng.integers(0, 32, n)],
+                               1), axis=0)[:cap]
+    coords = np.full((cap, 4), -1, np.int32)
+    coords[:len(cells)] = cells
+    valid = np.arange(cap) < len(cells)
+    feats = (rng.normal(size=(cap, 4)) * valid[:, None]).astype(np.float32)
+    res = {}
+    for d in ("cpu", dev):
+        bb = init_weights(VoxelBackBone8x(
+            4, cap, grid, (8, 16, 16, 16), 32, residual=residual), 3).to(d)
+        bb.train()
+        f = torch.as_tensor(feats, device=d).requires_grad_(True)
+        sp = bb(SparseVoxels.create(f, torch.as_tensor(coords, device=d),
+                                    torch.as_tensor(valid, device=d), 2, grid,
+                                    (0.4, 0.4, 0.125), (0,) * 6))
+        g = torch.as_tensor(np.random.default_rng(3).normal(
+            size=tuple(sp.features.shape)).astype(np.float32), device=d)
+        sp.features.backward(g)
+        res[d] = (sp, f.grad, {k: p.grad for k, p in bb.named_parameters()})
+    (sc, fc, gc), (sg, fg, gg) = res["cpu"], res[dev]
+    assert torch.equal(sc.coords, sg.coords.cpu())
+    for name, a, b in [("features", sc.features, sg.features),
+                       ("input cotangent", fc, fg)] + [
+            (k, gc[k], gg[k]) for k in gc]:
+        assert (a - b.cpu()).abs().max() <= 1e-4 * a.abs().max(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["second", "pointpillar"])
+def test_tiny_kitti_detectors_on_card_match_cpu(dev, name, monkeypatch):
+    """chip_smoke 10a as a test: tiny ``kitti_models/<name>.yaml`` on the
+    card against the CPU on the same weights (``kitti_tiny_models``: BN
+    statistics of the scene, classification bias zeroed): the kept boxes
+    of each frame, as sets, within 1e-3, the training loss within 1e-4
+    relative, the gradient norm and every gradient within 1e-3 of the
+    global norm (f32: TF32 off for cuDNN's convolutions too); no kernel
+    launched."""
+    import chip_smoke
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.runtime.train_utils import forward_backward
+
+    (_, args), scene = chip_smoke.kitti_tiny(name, 29)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    kernels.reset_launch_counts()
+    res = {}
+    models = chip_smoke.kitti_tiny_models(torch, args, scene, 7)
+    for d, model in zip(("cpu", dev), models):
+        batch = {k: torch.as_tensor(v, device=d) for k, v in scene.items()}
+        with torch.no_grad():
+            out = model(batch)
+        loss, _ = forward_backward(model, batch)
+        grads = torch.cat([p.grad.reshape(-1).cpu()
+                           for p in model.parameters()])
+        res[d] = (out, float(loss), grads)
+    (oc, lc, gc), (og, lg, gg) = res["cpu"], res[dev]
+    n_kept, err = chip_smoke.kept_box_sets_error(oc, og)  # sets a frame
+    assert n_kept > 0 and err <= 1e-3, (n_kept, err)
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    assert abs(gg.norm() - gc.norm()) <= 1e-3 * gc.norm()
+    assert (gg - gc).abs().max() <= 1e-3 * gc.norm()
+    assert not any(kernels.launch_counts().values())

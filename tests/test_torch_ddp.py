@@ -253,6 +253,52 @@ def test_two_rank_gap_matches_jax_sharded_gap(runs):
             k, port_gap, jax_gap)
 
 
+def test_masked_batchnorm_syncs_sums_and_counts_over_unequal_ranks():
+    """``MaskedBatchNorm`` under SyncBN on two gloo ranks holding 11 and 53
+    valid rows (of 40 and 70): each rank's output rows and input
+    cotangents, the ranks' summed scale/bias cotangents and both ranks'
+    running statistics equal one process's on the concatenated rows (rtol
+    1e-5: the same f32 sums, reduced in another order). The mean of the
+    two ranks' means, what ``layers.BatchNorm`` syncs, would be off by far
+    more here."""
+    rng = np.random.default_rng(6)
+    c, rows, live = 6, (40, 70), (11, 53)
+    xs = [(rng.normal(size=(n, c)) * (1 + 2 * r) + r).astype(np.float32)
+          for r, n in enumerate(rows)]
+    valids = [rng.permutation(np.arange(n) < k) for n, k in zip(rows, live)]
+    gs = [rng.normal(size=(n, c)).astype(np.float32) for n in rows]
+    from mssvt_tpu_torch.models.model_utils.layers import MaskedBatchNorm
+
+    bn = MaskedBatchNorm(c)
+    with torch.no_grad():
+        bn.scale.uniform_(0.5, 2.0)
+        bn.bias.normal_()
+        bn.mean.normal_()
+        bn.var.uniform_(0.5, 2.0)
+    state = bn.state_dict()
+    ranks = dist.launch_local(functools.partial(
+        W.masked_bn_rank, state, xs, valids, gs), 2)
+    one = W.masked_bn(state, np.concatenate(xs), np.concatenate(valids),
+                      np.concatenate(gs))
+    close = dict(rtol=1e-5, atol=1e-5)
+    split = np.cumsum(rows)[:-1]
+    for key in ("y", "dx"):
+        for r, part in enumerate(np.split(one[key], split)):
+            np.testing.assert_allclose(ranks[r][key], part, err_msg=key,
+                                       **close)
+    for key in ("dscale", "dbias"):
+        np.testing.assert_allclose(ranks[0][key] + ranks[1][key], one[key],
+                                   err_msg=key, **close)
+    for key in ("mean", "var"):
+        for r in range(2):
+            np.testing.assert_allclose(ranks[r][key], one[key], err_msg=key,
+                                       **close)
+    means = [x[v].mean(0) for x, v in zip(xs, valids)]
+    assert np.abs((means[0] + means[1]) / 2
+                  - np.concatenate(xs)[np.concatenate(valids)].mean(0)).max() \
+        > 0.1
+
+
 def test_merge_result_parts_orders_twelve_ranks_by_integer_rank(tmp_path):
     """``part_10`` and ``part_11`` follow ``part_9``: frames come back in
     rank order from twelve parts, counts and recall summed, time the max."""

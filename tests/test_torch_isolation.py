@@ -35,8 +35,12 @@ def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           *ENTRY_POINTS, *RANK_BODIES]
     # the glob finds the entry points (every tools/*_torch.py is scanned)
+    # and the sparse-conv and anchor-head families' modules
     assert len(files) > 20 and {"train_torch.py", "test_torch.py"} <= {
         p.name for p in ENTRY_POINTS}
+    assert {"sparse_conv.py", "spconv_backbone.py", "anchor_head.py",
+            "box_coder.py", "second_net.py", "pointpillar.py"} <= {
+        p.name for p in files}
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -111,8 +115,9 @@ def test_unported_names_raise_pointing_at_roadmap():
     from mssvt_tpu_torch.models.model_utils.attention import MixedScaleAttention
 
     ctx = BuildCtx(3, ("a", "b", "c"), (8, 8, 8), (1, 1, 1), (0,) * 6, 1, 8, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_backbone_3d({"NAME": "VoxelBackBone8x"}, ctx)
+    for name in ("UNetV2", "PointNet2MSG"):  # VoxelBackBone8x is ported
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            build_backbone_3d({"NAME": name}, ctx)
     # attention dropout > 0 in training is ported (the per-group einsum,
     # test_torch_dropout.py); its masks need the caller's generator
     attn = MixedScaleAttention(32, (1, 1), dropout=0.1).train()

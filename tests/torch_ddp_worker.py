@@ -7,12 +7,16 @@ that ``launch_local`` set up, over gloo on the CPU.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import numpy as np
 import torch
 
 from mssvt_tpu_torch.bridge import to_flax_tree
 from mssvt_tpu_torch.config import cfg_from_yaml_file
 from mssvt_tpu_torch.models import build_network
+from mssvt_tpu_torch.models.model_utils import syncbn
+from mssvt_tpu_torch.models.model_utils.layers import MaskedBatchNorm
 from mssvt_tpu_torch.parallel import dist
 from mssvt_tpu_torch.runtime.train_utils import (
     average_across_hosts,
@@ -83,6 +87,31 @@ def ddp_rank(cfg_path, max_voxels, max_num_wins, state, shards, lr):
                                        torch.tensor(2.0 * rank))
         return dict(step=step, world=world, hosts=hosts,
                     ranks_mean=(float(loss), float(x)))
+    finally:
+        dist.shutdown()
+
+
+def masked_bn(state, x, valid, g):
+    """One train-mode ``MaskedBatchNorm`` forward and backward (inside
+    ``syncbn.sync_bn`` when a process group is up): output, input and
+    parameter cotangents, the updated running statistics."""
+    bn = MaskedBatchNorm(x.shape[1])
+    bn.load_state_dict(state)
+    bn.train()
+    xt = torch.as_tensor(x).requires_grad_(True)
+    with syncbn.sync_bn() if dist.initialized() else nullcontext():
+        y = bn(xt, torch.as_tensor(valid))
+    y.backward(torch.as_tensor(g))
+    return dict(y=y.detach().numpy(), dx=xt.grad.numpy(),
+                dscale=bn.scale.grad.numpy(), dbias=bn.bias.grad.numpy(),
+                mean=bn.mean.numpy(), var=bn.var.numpy())
+
+
+def masked_bn_rank(state, xs, valids, gs):
+    """This rank's rows of :func:`masked_bn` under SyncBN over gloo."""
+    rank, _ = dist.init_distributed("pytorch", "cpu")
+    try:
+        return masked_bn(state, xs[rank], valids[rank], gs[rank])
     finally:
         dist.shutdown()
 
