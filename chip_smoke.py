@@ -120,6 +120,33 @@ print the device time of each launch inside one K5 and one K7 call
    the profiler, and the peak memory, also of a request with the NMS's
    pairwise IoU at once instead of in row blocks (``# 10a``/``# 10b``
    lines).
+11. the file-backed datasets, on seeded trees in their on-disk layouts
+   under ``output/chip_smoke/data/`` (``datasets/synthetic_files.py``; no
+   dataset file ships with the repo), read through the shipped dataset
+   configs with gt_sampling on from a database the port wrote: 11a
+   ``mssvt.yaml`` (full width, bf16, batch 4) on a ``WaymoDataset`` tree
+   of 40 train and 8 val frames of 180 000 points (6 columns, ~5% in the
+   no-label zone; ``SAMPLED_INTERVAL`` leaves 8 train frames), the GT
+   database from ``create_groundtruth_database``, the shared-memory cache
+   under ``output/``: ``tools/train_torch.py`` for one epoch (2 steps) and
+   ``tools/test_torch.py`` (2 requests), each step's and request's launch
+   counts as phase 8's, the official Waymo AP/APH (12 values, finite, in
+   [0, 1]) and the KITTI-style proxy of ``result.pkl`` through
+   ``WaymoDataset.evaluation``, a frame read twice by a fresh instance
+   (the staged read, then its own dict) against the file read, and
+   ``clean_shared_memory``; 11b ``kitti_models/second.yaml`` (f32, batch
+   4) on a KITTI tree of 8 train and 4 val frames of 120 000 points
+   prepared by ``create_kitti_infos``: one epoch (2 steps) and 1 request,
+   no launch of K1-K7, the official R40 evaluation (bbox, bev, 3d, aos;
+   finite) of ``result.pkl`` with its camera fields, and of the val GT
+   boxes moved ~5 cm (nonzero). Both print the host seconds of BATCH
+   training items split by stage (read, each augmentor and processor,
+   collate). Prints points a frame
+   before and after the NLZ and FOV filters, voxels a frame against the
+   caps, objects pasted a frame, the loader's host seconds a batch beside
+   the synchronised step, eval ms a frame, the evaluations' host seconds,
+   the metrics, the peaks and the phase's seconds (``# 11a``/``# 11b``
+   lines).
 
 Its last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -1730,6 +1757,454 @@ def kitti_pipeline(torch, card):
     log(f"# 10b: phase {time.time() - t_phase:.1f} s [{card}]")
 
 
+# -------------------------------------------------------------- phase 11
+# the file-backed datasets: seeded trees in WaymoDataset's and
+# KittiDataset's on-disk layouts (no dataset file ships with the repo) under
+# output/chip_smoke/data/, read through the shipped dataset configs with
+# gt_sampling on from a database the port wrote. 11a: waymo_dataset.yaml
+# keeps SAMPLED_INTERVAL (train 5, test 1), so 40 train frames give 8 (2
+# steps at batch 4) and 8 val frames 2 requests; 11b: 8 train and 4 val
+# KITTI frames (2 steps, 1 request).
+FILES_DATA = ROOT / "output" / "chip_smoke" / "data"
+WAYMO_FILES = dict(train=(["seq_00", "seq_01"], 20), val=(["seq_10"], 8),
+                   points=180_000)
+KITTI_FILES = dict(train=[f"{i:06d}" for i in range(8)],
+                   val=[f"{i:06d}" for i in range(8, 12)], points=120_000)
+WAYMO_DB = "pcdet_waymo_dbinfos_train_sampled_1.pkl"
+
+
+def files_config(model_yaml, data, name, db_info=None):
+    """``model_yaml`` with its DATA_CONFIG updated by ``data``, gt_sampling
+    left on (reading ``db_info`` if given), written under output/; returns
+    (path, config)."""
+    import yaml
+
+    cfg = json.loads(json.dumps(load_cfg(model_yaml)))
+    cfg["DATA_CONFIG"].update(data)
+    aug = cfg["DATA_CONFIG"]["DATA_AUGMENTOR"]
+    sampler = aug["AUG_CONFIG_LIST"][0]
+    if sampler["NAME"] != "gt_sampling" or \
+            "gt_sampling" in aug["DISABLE_AUG_LIST"]:
+        raise AssertionError(f"{name}: gt_sampling is not on: {aug}")
+    if db_info is not None:
+        sampler["DB_INFO_PATH"] = [db_info]
+    path = ROOT / "output" / "chip_smoke" / "cfgs" / "files" / f"{name}.yaml"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml.safe_dump(cfg))
+    return path, cfg
+
+
+def drive_files_entry_points(torch, cfg_path, out_root, label):
+    """``tools/train_torch.py`` for one epoch and ``tools/test_torch.py`` on
+    its checkpoint, in-process on the card, with the launch counts set to 0
+    just before; each step's and request's launches, synchronised seconds
+    and batch, the objects gt_sampling pasted into each training frame, the
+    peaks of training and eval. Returns a dict of those."""
+    import math
+    import shutil
+
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.datasets import augmentor
+    from mssvt_tpu_torch.runtime import eval_utils, train_utils
+
+    shutil.rmtree(out_root, ignore_errors=True)
+    os.environ["MSSVT_OUTPUT_ROOT"] = str(out_root)
+    train, test = load_tool("train_torch"), load_tool("test_torch")
+    seen = {"step": [], "request": [], "pasted": []}
+
+    def counted(kind, fn):
+        def call(model, *args, **kw):
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(model, *args, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = kernels.launch_counts()
+            batch = args[1] if kind == "step" else args[0]
+            seen[kind].append(({n: after[n] - before[n] for n in after},
+                               batch, dt))
+            return out
+        return call
+
+    sample = augmentor.DataBaseSampler.__call__
+
+    def pasting(self, data_dict):
+        n = len(data_dict["gt_boxes"])
+        out = sample(self, data_dict)
+        seen["pasted"].append(len(out["gt_boxes"]) - n)
+        return out
+
+    train_step, eval_step = train_utils.train_step, eval_utils.eval_step
+    train_utils.train_step = counted("step", train_step)
+    eval_utils.eval_step = counted("request", eval_step)
+    augmentor.DataBaseSampler.__call__ = pasting
+    common = ["--cfg_file", str(cfg_path), "--batch_size", str(BATCH),
+              "--workers", "1", "--extra_tag", "smoke"]
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        run = train.main(common + ["--fix_random_seed", "--epochs", "1"])
+        seen["train_peak"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        seen["metrics"] = test.main(common + ["--ckpt", "1"])[1]
+        seen["eval_peak"] = torch.cuda.max_memory_allocated() / 2**30
+        seen["seconds"] = time.time() - t0
+        seen["counts"] = kernels.launch_counts()
+    finally:
+        train_utils.train_step, eval_utils.eval_step = train_step, eval_step
+        augmentor.DataBaseSampler.__call__ = sample
+        del os.environ["MSSVT_OUTPUT_ROOT"]
+    seen["run"] = run
+    seen["result"] = run["output_dir"] / "eval" / "epoch_1" / "result.pkl"
+    hist = run["history"]
+    if len(hist) != 2 or len(seen["step"]) != 2:
+        raise AssertionError(f"{label}: {len(hist)} steps (2 due)")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"{label}: losses {hist}")
+    bad = {k: v for k, v in seen["metrics"].items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"{label}: non-finite metrics {bad}")
+    if not seen["result"].exists():
+        raise AssertionError(f"{label}: {seen['result']} was not written")
+    if not seen["pasted"] or max(seen["pasted"]) == 0:
+        raise AssertionError(f"{label}: gt_sampling pasted nothing "
+                             f"{seen['pasted']}")
+    return seen
+
+
+def loader_line(seen, cfg, label, card):
+    """The loader against the step, voxels a frame against the caps and the
+    objects pasted a frame (``# 11a``/``# 11b`` lines)."""
+    run = seen["run"]
+    make = run["loader_make_seconds"]
+    caps = cfg["DATA_CONFIG"]["DATA_PROCESSOR"][-1]["MAX_NUMBER_OF_VOXELS"]
+    for kind, split in (("step", "train"), ("request", "test")):
+        vox = [v for _, b, _ in seen[kind]
+               for v in b["voxel_valid"].reshape(BATCH, -1).sum(1).tolist()]
+        log(f"# {label} {split}: voxels a frame min {min(vox)}, max "
+            f"{max(vox)} against the cap {caps[split]} ({len(vox)} frames)")
+    pasted = seen["pasted"]
+    log(f"# {label} gt_sampling: objects pasted a frame {pasted} (mean "
+        f"{sum(pasted) / len(pasted):.1f})")
+    log(f"# {label} train: loader host seconds a batch (file reads, "
+        f"gt_sampling, augmentation, voxelizer, collate) "
+        f"{[round(x, 4) for x in make]}; the step's wait for it "
+        f"{[round(h['data_s'], 4) for h in run['history']]}; synchronised "
+        f"step {[round(s[2], 4) for s in seen['step']]} s; losses "
+        f"{[round(h['loss'], 4) for h in run['history']]} [{card}]")
+    log(f"# {label} eval: {seen['metrics']['sec_per_example'] * 1e3:.2f} ms a "
+        f"frame; synchronised requests "
+        f"{[round(s[2], 4) for s in seen['request']]} s; peak device memory "
+        f"train {seen['train_peak']:.2f} GiB, eval {seen['eval_peak']:.2f} "
+        f"GiB [{card}]")
+
+
+def loader_breakdown(dataset, data_cfg, label, card):
+    """The host seconds of BATCH training items of a fresh dataset (file
+    reads, no shared-memory cache, as the first epoch) and their collate,
+    split by stage: the frame read, each augmentor, each processor."""
+    spent = {}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    dataset.get_lidar = timed("read", dataset.get_lidar)
+    aug = data_cfg["DATA_AUGMENTOR"]
+    names = [c["NAME"] for c in aug["AUG_CONFIG_LIST"]
+             if c["NAME"] not in aug["DISABLE_AUG_LIST"]]
+    for queue, stages in (
+            (dataset.data_augmentor.data_augmentor_queue, names),
+            (dataset.data_processor.data_processor_queue,
+             [c["NAME"] for c in data_cfg["DATA_PROCESSOR"]])):
+        if len(queue) != len(stages):
+            raise AssertionError(f"{label}: stages {stages} for {queue}")
+        queue[:] = [timed(n, fn) for n, fn in zip(stages, queue)]
+    items, per_item = [], []
+    t_all = time.perf_counter()
+    for i in range(BATCH):
+        t0 = time.perf_counter()
+        items.append(dataset[i])
+        per_item.append(time.perf_counter() - t0)
+    timed("collate", dataset.collate_batch)(items)
+    total = time.perf_counter() - t_all
+    log(f"# {label} loader breakdown: {BATCH} training items "
+        f"{[round(t, 4) for t in per_item]} s + collate, {total:.4f} s host: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in spent.items())
+        + f", the rest {total - sum(spent.values()):.4f} s [{card}]")
+
+
+def waymo_files_path(torch, card):
+    """11a: ``mssvt.yaml`` at full width, bf16, batch 4, trained and served
+    from a file-backed ``WaymoDataset`` (NLZ filter, tanh, SAMPLED_INTERVAL,
+    gt_sampling from the port's database, the shared-memory cache under
+    output/), its official Waymo metrics from ``result.pkl``, the staged
+    read against the file read. Returns the launch counts of the phase."""
+    import math
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from mssvt_tpu_torch.datasets.synthetic_files import write_waymo_tree
+    from mssvt_tpu_torch.datasets.waymo import WaymoDataset
+    from mssvt_tpu_torch.utils.edict import EasyDict
+
+    t_phase = time.time()
+    root = FILES_DATA / "waymo"
+    shutil.rmtree(root, ignore_errors=True)
+    for seed, split in enumerate(("train", "val")):
+        seqs, frames = WAYMO_FILES[split]
+        write_waymo_tree(root, {split: seqs}, frames, WAYMO_FILES["points"],
+                         seed=seed)
+    t_write = time.time() - t_phase
+    shm = FILES_DATA / "shm"
+    shutil.rmtree(shm, ignore_errors=True)
+    # the database the port writes (waymo_dataset.yaml names another file)
+    cfg_path, cfg = files_config(
+        "tools/cfgs/waymo_models/mssvt.yaml",
+        {"DATA_PATH": str(root), "USE_SHARED_MEMORY": True,
+         "SHARED_MEMORY_ROOT": str(shm)}, "mssvt_waymo_files", WAYMO_DB)
+    data = cfg["DATA_CONFIG"]
+    t0 = time.time()
+    prep = WaymoDataset(EasyDict(dict(data, USE_SHARED_MEMORY=False)),
+                        CLASSES, training=False, seed=0)
+    prep.set_split("train")
+    prep.include_waymo_data("train")
+    prep.create_groundtruth_database(used_classes=CLASSES, split="train",
+                                     sampled_interval=1)
+    t_db = time.time() - t0
+    with open(root / WAYMO_DB, "rb") as f:
+        db = pickle.load(f)
+    raw = [np.load(root / "waymo_processed_data" / i["point_cloud"][
+        "lidar_sequence"] / f"{i['point_cloud']['sample_idx']:04d}.npy")
+        for i in prep.infos[::5]]
+    kept = [int((r[:, 5] == -1).sum()) for r in raw]
+    log(f"# 11a tree: {sum(len(v[0]) * v[1] for v in (WAYMO_FILES['train'], WAYMO_FILES['val']))} "
+        f"frames written in {t_write:.1f} s; points a frame in the file "
+        f"{min(len(r) for r in raw)}-{max(len(r) for r in raw)}, after the "
+        f"no-label-zone filter {min(kept)}-{max(kept)}; GT database "
+        f"{ {str(k): len(v) for k, v in db.items()} } objects from "
+        f"{len(prep.infos)} frames in {t_db:.1f} s")
+
+    seen = drive_files_entry_points(
+        torch, cfg_path, ROOT / "output" / "chip_smoke" / "files_runs", "11a")
+    for kind, want in (("step", PIPELINE_STEP), ("request", PIPELINE_REQUEST)):
+        if len(seen[kind]) != 2:
+            raise AssertionError(f"11a: {len(seen[kind])} {kind}s (2 due)")
+        for i, (per, *_r) in enumerate(seen[kind]):
+            if per != want:
+                raise AssertionError(f"11a {kind} {i}: launches {per} != "
+                                     f"{want}")
+    loader_line(seen, cfg, "11a", card)
+    loader_breakdown(WaymoDataset(EasyDict(dict(data, USE_SHARED_MEMORY=False)),
+                                  CLASSES, training=True, seed=0),
+                     data, "11a", card)
+
+    with open(seen["result"], "rb") as f:
+        dets = pickle.load(f)
+    val = WaymoDataset(EasyDict(data), CLASSES, training=False, seed=0)
+    if len(dets) != len(val):
+        raise AssertionError(f"11a: {len(dets)} results, {len(val)} frames")
+    gt_annos = []
+    for info in val.infos:
+        a = info["annos"]
+        keep = np.isin(a["name"], CLASSES)
+        gt_annos.append({"boxes": a["gt_boxes_lidar"][keep],
+                         "labels": np.array([CLASSES.index(n) + 1
+                                             for n in a["name"][keep]])})
+    t0 = time.perf_counter()
+    report, official = val.evaluation(
+        WaymoDataset.generate_prediction_dicts(dets, CLASSES), CLASSES,
+        eval_metric="waymo", gt_annos=gt_annos)
+    t_official = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, proxy = val.evaluation(dets, CLASSES, gt_annos=gt_annos)
+    t_proxy = time.perf_counter() - t0
+    keys = [f"OBJECT_TYPE_TYPE_{c}_LEVEL_{lv}/{m}"
+            for c in ("VEHICLE", "PEDESTRIAN", "CYCLIST") for lv in (1, 2)
+            for m in ("AP", "APH")]
+    if sorted(official) != sorted(keys) or not all(
+            math.isfinite(official[k]) and 0 <= official[k] <= 1
+            for k in keys):
+        raise AssertionError(f"11a: official metrics {official}")
+    aps = {k: v for k, v in proxy.items() if "_ap_" in k or k == "mAP"}
+    if len(aps) != 4 or not all(math.isfinite(v) and 0 <= v <= 1
+                                for v in aps.values()):
+        raise AssertionError(f"11a: proxy metrics {proxy}")
+    log(f"# 11a official Waymo eval (numpy protocol, Hungarian matching): "
+        f"{t_official:.2f} s host for {len(dets)} frames of "
+        f"{sum(len(d['scores']) for d in dets)} boxes; the KITTI-style "
+        f"proxy {t_proxy:.2f} s; metrics (seeded weights, 1 epoch: "
+        f"meaningless but finite) "
+        f"{ {k.replace('OBJECT_TYPE_TYPE_', ''): round(v, 4) for k, v in official.items()} }, "
+        f"proxy { {k: round(v, 4) for k, v in aps.items()} }")
+
+    # a fresh instance reads a frame the training run staged, twice (the
+    # shared staging, then its own dict); the file read beside it
+    fresh = WaymoDataset(EasyDict(data), CLASSES, training=True, seed=0)
+    pc = fresh.infos[0]["point_cloud"]
+    seq, idx = pc["lidar_sequence"], pc["sample_idx"]
+    if fresh._lidar_cache:
+        raise AssertionError("11a: a fresh dataset holds cached frames")
+    reads = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        pts = fresh.get_lidar(seq, idx)
+        reads.append((time.perf_counter() - t0) * 1e3)
+    plain = WaymoDataset(EasyDict(dict(data, USE_SHARED_MEMORY=False)),
+                         CLASSES, training=True, seed=0)
+    t0 = time.perf_counter()
+    want = plain.get_lidar(seq, idx)
+    file_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(pts, want):
+        raise AssertionError("11a: the staged frame differs from the file's")
+    staged = {d.name: len(list(d.glob("*.npy")))
+              for d in sorted((shm / "mssvt_waymo_cache").iterdir())}
+    fresh.clean_shared_memory()
+    val.clean_shared_memory()
+    if list(shm.rglob("*.npy")):
+        raise AssertionError("11a: clean_shared_memory left staged files")
+    log(f"# 11a shared-memory cache: frames staged {staged}; a "
+        f"fresh instance's read of {seq}/{idx:04d} ({len(pts)} points) "
+        f"{reads[0]:.2f} ms staged, {reads[1]:.2f} ms from its own dict, "
+        f"against {file_ms:.2f} ms from the file (load, NLZ filter, tanh); "
+        f"cleaned [{card}]")
+    log(f"# 11a: entry points {seen['seconds']:.1f} s; phase "
+        f"{time.time() - t_phase:.1f} s [{card}]")
+    log(f"# 11a launches: {seen['counts']}")
+    return seen["counts"]
+
+
+def kitti_files_path(torch, card):
+    """11b: ``kitti_models/second.yaml`` at its published width, f32, batch
+    4, trained and served from a file-backed ``KittiDataset`` (FOV filter,
+    labels without DontCare, gt_sampling from ``create_kitti_infos``'s
+    database), then the official R40 evaluation of ``result.pkl`` with its
+    camera fields; no step or request launches a kernel of K1-K7."""
+    import math
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from mssvt_tpu_torch.datasets.kitti import (
+        KittiDataset,
+        create_kitti_infos,
+        generate_kitti_prediction_dict,
+    )
+    from mssvt_tpu_torch.datasets.synthetic_files import (
+        KITTI_IMAGE,
+        write_kitti_tree,
+    )
+    from mssvt_tpu_torch.utils.edict import EasyDict
+    from mssvt_tpu_torch.utils.kitti_eval import kitti_official_eval
+
+    t_phase = time.time()
+    root = FILES_DATA / "kitti"
+    shutil.rmtree(root, ignore_errors=True)
+    write_kitti_tree(root, KITTI_FILES["train"], KITTI_FILES["val"],
+                     KITTI_FILES["points"], seed=0)
+    t_write = time.time() - t_phase
+    cfg_path, cfg = files_config("tools/cfgs/kitti_models/second.yaml",
+                                 {"DATA_PATH": str(root)}, "second_kitti_files")
+    data = EasyDict(cfg["DATA_CONFIG"])
+    classes = cfg["CLASS_NAMES"]
+    t0 = time.time()
+    create_kitti_infos(data, classes, root, root)
+    t_infos = time.time() - t0
+    with open(root / "kitti_dbinfos_train.pkl", "rb") as f:
+        db = pickle.load(f)
+    ds = KittiDataset(data, classes, training=False, seed=0)
+    fov = []
+    for idx in ds.sample_id_list:
+        pts = ds.get_lidar(idx)
+        fov.append((len(pts), int(ds._fov_flag(pts, ds.get_calib(idx)).sum())))
+    log(f"# 11b tree: {len(KITTI_FILES['train']) + len(KITTI_FILES['val'])} "
+        f"frames written in {t_write:.1f} s; points a frame in the file "
+        f"{min(f[0] for f in fov)}-{max(f[0] for f in fov)}, in the camera's "
+        f"view {min(f[1] for f in fov)}-{max(f[1] for f in fov)}; infos and "
+        f"GT database ({ {str(k): len(v) for k, v in db.items()} } objects) in "
+        f"{t_infos:.1f} s")
+
+    seen = drive_files_entry_points(
+        torch, cfg_path, ROOT / "output" / "chip_smoke" / "files_runs", "11b")
+    if len(seen["request"]) != 1:
+        raise AssertionError(f"11b: {len(seen['request'])} requests (1 due)")
+    for kind in ("step", "request"):
+        for i, (per, *_r) in enumerate(seen[kind]):
+            if per != KITTI_STEP:
+                raise AssertionError(f"11b {kind} {i}: launches {per}")
+    if seen["counts"] != KITTI_STEP:
+        raise AssertionError(f"11b: launches {seen['counts']}")
+    loader_line(seen, cfg, "11b", card)
+    loader_breakdown(KittiDataset(data, classes, training=True, seed=0),
+                     data, "11b", card)
+
+    with open(seen["result"], "rb") as f:
+        dets = pickle.load(f)
+    with open(root / "kitti_infos_val.pkl", "rb") as f:
+        infos = pickle.load(f)
+    if len(dets) != len(infos):
+        raise AssertionError(f"11b: {len(dets)} results, {len(infos)} frames")
+    det_frames, gt_frames = [], []
+    for det, info in zip(dets, infos):
+        idx = info["point_cloud"]["lidar_idx"]
+        frame = generate_kitti_prediction_dict(
+            det["boxes"], det["scores"], det["labels"], classes,
+            calib=ds.get_calib(idx), image_shape=KITTI_IMAGE)
+        det_frames.append(frame)
+        a = info["annos"]
+        care = a["name"] != "DontCare"
+        gt = {k: a[k][care] for k in ("name", "bbox", "alpha", "occluded",
+                                      "truncated")}
+        gt["boxes"] = a["gt_boxes_lidar"]
+        gt_frames.append(gt)
+    t0 = time.perf_counter()
+    report, official = kitti_official_eval(det_frames, gt_frames,
+                                           classes)
+    t_official = time.perf_counter() - t0
+    need = {f"{c}_{m}/{d}_R40" for c in classes
+            for m in ("bbox", "bev", "3d", "aos")
+            for d in ("easy", "moderate", "hard")}
+    if set(official) != need or not all(math.isfinite(v)
+                                        for v in official.values()):
+        raise AssertionError(f"11b: official metrics {official}")
+    # the evaluator on matched boxes too: the val GT boxes moved by ~5 cm
+    rng = np.random.default_rng(0)
+    near = []
+    for gt, info in zip(gt_frames, infos):
+        boxes = gt["boxes"] + rng.normal(0, 0.05, gt["boxes"].shape)
+        near.append(generate_kitti_prediction_dict(
+            boxes, np.round(rng.uniform(0.2, 1, len(boxes)), 1),
+            np.array([classes.index(n) + 1 for n in gt["name"]]),
+            classes, calib=ds.get_calib(info["point_cloud"]["lidar_idx"]),
+            image_shape=KITTI_IMAGE))
+    t0 = time.perf_counter()
+    _, matched = kitti_official_eval(near, gt_frames, classes)
+    t_matched = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in matched.values()) or \
+            matched["Car_3d/moderate_R40"] <= 0:
+        raise AssertionError(f"11b: official metrics on GT boxes {matched}")
+    log(f"# 11b official KITTI eval (R40; bbox, bev, 3d, aos): "
+        f"{t_official:.2f} s host for {len(dets)} frames of "
+        f"{sum(len(d['scores']) for d in dets)} boxes; moderate "
+        f"{ {k: round(v, 3) for k, v in official.items() if 'moderate' in k} }"
+        f" (seeded weights: meaningless but finite); on the val GT boxes "
+        f"moved ~5 cm ({sum(len(d['score']) for d in near)} boxes) "
+        f"{t_matched:.2f} s, moderate "
+        f"{ {k: round(v, 2) for k, v in matched.items() if 'moderate' in k} }")
+    log(f"# 11b: entry points {seen['seconds']:.1f} s; launches of K1-K7 "
+        f"{sum(seen['counts'].values())}; phase {time.time() - t_phase:.1f} "
+        f"s [{card}]")
+
+
 # --------------------------------------------------------------- phase 5
 def main_path(torch, model, scenes):
     """One warm-up request, then REQUESTS requests cycling the scenes, each
@@ -2440,6 +2915,17 @@ def main(argv):
     # phase 10: SECOND and PointPillar (no kernel of K1-K7 on their path)
     kitti_tiny_reference(torch)
     kitti_pipeline(torch, card)
+    torch.cuda.empty_cache()
+    # phase 11: the file-backed datasets (11a Waymo with mssvt.yaml, 11b
+    # KITTI with SECOND)
+    files_counts = waymo_files_path(torch, card)
+    for name in set(PIPELINE_STEP) | set(PIPELINE_REQUEST):
+        if (PIPELINE_STEP[name] or PIPELINE_REQUEST[name]) and \
+                files_counts[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "file-backed path")
+    torch.cuda.empty_cache()
+    kitti_files_path(torch, card)
     for name, counts_ in (("attention_qk", off_counts),
                           ("attention_qk_bwd", off_counts),
                           ("fps_picks_warp", sampling_counts),

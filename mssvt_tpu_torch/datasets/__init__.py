@@ -1,8 +1,8 @@
 """Datasets of the port (the counterpart of ``mssvt_tpu/datasets``).
 
-``build_dataset`` looks a dataset up by its config name. The port has the
-synthetic dataset; the file-backed ones of the JAX package (Waymo, KITTI,
-Lyft, PandaSet) are queued in ROADMAP.md and raise here.
+``build_dataset`` looks a dataset up by its config name: the synthetic
+dataset, and the file-backed ones (Waymo, KITTI, Lyft, PandaSet), which are
+imported at their first build to keep import costs down.
 """
 
 from .dataset import DatasetTemplate
@@ -11,9 +11,10 @@ from .synthetic import SyntheticDataset
 _DATASETS = {
     "SyntheticDataset": SyntheticDataset,
 }
-_NOT_PORTED = ("WaymoDataset", "KittiDataset", "PandasetDataset",
-               "LyftDataset")
 
+
+def register_dataset(name, cls):
+    _DATASETS[name] = cls
 
 
 def build_dataset(dataset_cfg, class_names, training, root_path=None,
@@ -21,15 +22,28 @@ def build_dataset(dataset_cfg, class_names, training, root_path=None,
     """Dataset construction by registry name (ref: datasets/__init__.py:45-74).
 
     ``seed`` seeds the dataset's ``numpy.random.RandomState`` (augmentation,
-    point shuffling); None seeds it from the OS.
+    point shuffling); None seeds it from the OS. An unknown name raises
+    KeyError.
     """
     name = dataset_cfg["DATASET"]
     if name not in _DATASETS:
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"dataset '{name}' is not ported to mssvt_tpu_torch yet (the "
-                "file-backed datasets are ROADMAP.md Queue 1 item 12); "
-                "SyntheticDataset is")
+        if name == "WaymoDataset":
+            from .waymo import WaymoDataset
+
+            register_dataset("WaymoDataset", WaymoDataset)
+        elif name == "KittiDataset":
+            from .kitti import KittiDataset
+
+            register_dataset("KittiDataset", KittiDataset)
+        elif name == "PandasetDataset":
+            from .pandaset import PandasetDataset
+
+            register_dataset("PandasetDataset", PandasetDataset)
+        elif name == "LyftDataset":
+            from .lyft import LyftDataset
+
+            register_dataset("LyftDataset", LyftDataset)
+    if name not in _DATASETS:
         raise KeyError(f"unknown dataset '{name}'")
     return _DATASETS[name](
         dataset_cfg=dataset_cfg, class_names=class_names, training=training,
@@ -37,4 +51,5 @@ def build_dataset(dataset_cfg, class_names, training, root_path=None,
     )
 
 
-__all__ = ["DatasetTemplate", "SyntheticDataset", "build_dataset"]
+__all__ = ["DatasetTemplate", "SyntheticDataset", "build_dataset",
+           "register_dataset"]

@@ -394,12 +394,19 @@ def test_synthetic_items_and_collate_match_jax(training):
     _equal(td.collate_batch(got), jd.collate_batch(want), "collate")
 
 
-def test_file_backed_datasets_raise_pointing_at_roadmap():
+def test_file_backed_datasets_raise_pointing_at_roadmap(tmp_path):
+    """The file-backed datasets are ported (``test_torch_waymo.py``,
+    ``test_torch_kitti.py``, ``test_torch_lyft_pandaset.py``): a Waymo
+    config builds instead of raising, and an unknown name raises
+    KeyError."""
     from mssvt_tpu_torch.datasets import build_dataset
 
-    cfg = dict(synthetic_cfg(), DATASET="WaymoDataset")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_dataset(cfg, CLASSES, True)
+    cfg = dict(synthetic_cfg(), DATASET="WaymoDataset", DATA_PATH=str(tmp_path),
+               DATA_SPLIT={"train": "train", "test": "val"})
+    ds = build_dataset(cfg, CLASSES, True, seed=0)
+    assert type(ds).__name__ == "WaymoDataset" and len(ds) == 0
+    with pytest.raises(KeyError, match="unknown dataset"):
+        build_dataset(dict(cfg, DATASET="NoSuchDataset"), CLASSES, True)
 
 
 # ------------------------------------------------------------------ loader
