@@ -147,6 +147,23 @@ print the device time of each launch inside one K5 and one K7 call
    the synchronised step, eval ms a frame, the evaluations' host seconds,
    the metrics, the peaks and the phase's seconds (``# 11a``/``# 11b``
    lines).
+12. the two-stage voxel family (the RoI machinery, VoxelRCNN, PartA2,
+   SECONDNetIoU; no kernel of K1-K7 stands on its path, and every step and
+   request is checked to launch none): 12a tiny f32 VoxelRCNN, PartA2 and
+   SECONDNetIoU (``second.yaml`` with a BEV-grid RoI head) on the card
+   against the CPU plain path on the same weights (RoIs and refined boxes
+   as sets within 1e-3; one ``train_step``: loss within 1e-4 relative,
+   gradient norm within 1e-3; the card's gradients bit-identical on a
+   repeated backward); 12b ``voxel_rcnn_car.yaml`` and ``PartA2.yaml`` at
+   their published widths (f32) and the yaml's batch 2 on a KITTI tree of
+   11b's seeded writer (4 train, 2 val frames of 120 000 points,
+   gt_sampling on): ``tools/train_torch.py`` for one epoch (2 steps),
+   ``tools/test_torch.py`` (1 request), the official R40 evaluation of
+   ``result.pkl``; prints voxels a frame against the caps, live RoIs a
+   frame, each synchronised step and request, the proposal NMS's share of
+   a step and a request (host clock, and device time under
+   ``torch.profiler`` beside ``voxel_query``'s and ``roiaware_pool3d``'s),
+   the peaks and the phase's seconds (``# 12a``/``# 12b`` lines).
 
 Its last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -1458,12 +1475,14 @@ def kitti_tiny(name, seed):
                   slots, pts)), scene
 
 
-def kept_box_sets_error(a, b):
+def kept_box_sets_error(a, b, relative=False):
     """(boxes kept a frame in total, largest difference) between two
     detectors' outputs compared as sets a frame: the rows (box, score,
     label) of the kept boxes sorted, since NMS keeps equal-score boxes in
     index order and scores equal within rounding may order either way.
-    Inf when the counts differ."""
+    With ``relative`` each difference is over max(1, |b's value|) (refined
+    boxes of seeded heads reach hundreds of metres). Inf when the counts
+    differ."""
     import numpy as np
 
     worst, total = 0.0, 0
@@ -1480,7 +1499,10 @@ def kept_box_sets_error(a, b):
             return total, float("inf")
         total += len(rows[0])
         if len(rows[0]):
-            worst = max(worst, float(np.abs(rows[0] - rows[1]).max()))
+            d = np.abs(rows[0] - rows[1])
+            if relative:
+                d = d / np.maximum(1.0, np.abs(rows[1]))
+            worst = max(worst, float(d.max()))
     return total, worst
 
 
@@ -1794,12 +1816,13 @@ def files_config(model_yaml, data, name, db_info=None):
     return path, cfg
 
 
-def drive_files_entry_points(torch, cfg_path, out_root, label):
+def drive_files_entry_points(torch, cfg_path, out_root, label, batch=BATCH):
     """``tools/train_torch.py`` for one epoch and ``tools/test_torch.py`` on
-    its checkpoint, in-process on the card, with the launch counts set to 0
-    just before; each step's and request's launches, synchronised seconds
-    and batch, the objects gt_sampling pasted into each training frame, the
-    peaks of training and eval. Returns a dict of those."""
+    its checkpoint at ``batch`` frames, in-process on the card, with the
+    launch counts set to 0 just before; each step's and request's launches,
+    synchronised seconds and batch, the objects gt_sampling pasted into
+    each training frame, the peaks of training and eval, and the models the
+    last step and request ran. Returns a dict of those."""
     import math
     import shutil
 
@@ -1824,6 +1847,7 @@ def drive_files_entry_points(torch, cfg_path, out_root, label):
             batch = args[1] if kind == "step" else args[0]
             seen[kind].append(({n: after[n] - before[n] for n in after},
                                batch, dt))
+            seen[f"{kind}_model"] = model
             return out
         return call
 
@@ -1839,7 +1863,7 @@ def drive_files_entry_points(torch, cfg_path, out_root, label):
     train_utils.train_step = counted("step", train_step)
     eval_utils.eval_step = counted("request", eval_step)
     augmentor.DataBaseSampler.__call__ = pasting
-    common = ["--cfg_file", str(cfg_path), "--batch_size", str(BATCH),
+    common = ["--cfg_file", str(cfg_path), "--batch_size", str(batch),
               "--workers", "1", "--extra_tag", "smoke"]
     try:
         kernels.reset_launch_counts()
@@ -1874,15 +1898,15 @@ def drive_files_entry_points(torch, cfg_path, out_root, label):
     return seen
 
 
-def loader_line(seen, cfg, label, card):
+def loader_line(seen, cfg, label, card, batch=BATCH):
     """The loader against the step, voxels a frame against the caps and the
-    objects pasted a frame (``# 11a``/``# 11b`` lines)."""
+    objects pasted a frame (``# 11a``/``# 11b``/``# 12b`` lines)."""
     run = seen["run"]
     make = run["loader_make_seconds"]
     caps = cfg["DATA_CONFIG"]["DATA_PROCESSOR"][-1]["MAX_NUMBER_OF_VOXELS"]
     for kind, split in (("step", "train"), ("request", "test")):
         vox = [v for _, b, _ in seen[kind]
-               for v in b["voxel_valid"].reshape(BATCH, -1).sum(1).tolist()]
+               for v in b["voxel_valid"].reshape(batch, -1).sum(1).tolist()]
         log(f"# {label} {split}: voxels a frame min {min(vox)}, max "
             f"{max(vox)} against the cap {caps[split]} ({len(vox)} frames)")
     pasted = seen["pasted"]
@@ -2088,23 +2112,12 @@ def kitti_files_path(torch, card):
     labels without DontCare, gt_sampling from ``create_kitti_infos``'s
     database), then the official R40 evaluation of ``result.pkl`` with its
     camera fields; no step or request launches a kernel of K1-K7."""
-    import math
     import pickle
     import shutil
 
-    import numpy as np
-
-    from mssvt_tpu_torch.datasets.kitti import (
-        KittiDataset,
-        create_kitti_infos,
-        generate_kitti_prediction_dict,
-    )
-    from mssvt_tpu_torch.datasets.synthetic_files import (
-        KITTI_IMAGE,
-        write_kitti_tree,
-    )
+    from mssvt_tpu_torch.datasets.kitti import KittiDataset, create_kitti_infos
+    from mssvt_tpu_torch.datasets.synthetic_files import write_kitti_tree
     from mssvt_tpu_torch.utils.edict import EasyDict
-    from mssvt_tpu_torch.utils.kitti_eval import kitti_official_eval
 
     t_phase = time.time()
     root = FILES_DATA / "kitti"
@@ -2147,12 +2160,32 @@ def kitti_files_path(torch, card):
     loader_breakdown(KittiDataset(data, classes, training=True, seed=0),
                      data, "11b", card)
 
-    with open(seen["result"], "rb") as f:
+    kitti_official_check(seen["result"], root, ds, classes, "11b")
+    log(f"# 11b: entry points {seen['seconds']:.1f} s; launches of K1-K7 "
+        f"{sum(seen['counts'].values())}; phase {time.time() - t_phase:.1f} "
+        f"s [{card}]")
+
+
+def kitti_official_check(result, root, ds, classes, label):
+    """The official R40 evaluation (bbox, bev, 3d, aos; finite) of a
+    ``result.pkl`` against the tree's val infos, then of the val GT boxes
+    moved by ~5 cm (nonzero for Car), with its host seconds."""
+    import math
+    import pickle
+
+    import numpy as np
+
+    from mssvt_tpu_torch.datasets.kitti import generate_kitti_prediction_dict
+    from mssvt_tpu_torch.datasets.synthetic_files import KITTI_IMAGE
+    from mssvt_tpu_torch.utils.kitti_eval import kitti_official_eval
+
+    with open(result, "rb") as f:
         dets = pickle.load(f)
     with open(root / "kitti_infos_val.pkl", "rb") as f:
         infos = pickle.load(f)
     if len(dets) != len(infos):
-        raise AssertionError(f"11b: {len(dets)} results, {len(infos)} frames")
+        raise AssertionError(f"{label}: {len(dets)} results, {len(infos)} "
+                             "frames")
     det_frames, gt_frames = [], []
     for det, info in zip(dets, infos):
         idx = info["point_cloud"]["lidar_idx"]
@@ -2175,15 +2208,17 @@ def kitti_files_path(torch, card):
             for d in ("easy", "moderate", "hard")}
     if set(official) != need or not all(math.isfinite(v)
                                         for v in official.values()):
-        raise AssertionError(f"11b: official metrics {official}")
+        raise AssertionError(f"{label}: official metrics {official}")
     # the evaluator on matched boxes too: the val GT boxes moved by ~5 cm
     rng = np.random.default_rng(0)
     near = []
     for gt, info in zip(gt_frames, infos):
-        boxes = gt["boxes"] + rng.normal(0, 0.05, gt["boxes"].shape)
+        keep = np.isin(gt["name"], classes)  # the model's classes
+        boxes = gt["boxes"][keep]
+        boxes = boxes + rng.normal(0, 0.05, boxes.shape)
         near.append(generate_kitti_prediction_dict(
             boxes, np.round(rng.uniform(0.2, 1, len(boxes)), 1),
-            np.array([classes.index(n) + 1 for n in gt["name"]]),
+            np.array([classes.index(n) + 1 for n in gt["name"][keep]]),
             classes, calib=ds.get_calib(info["point_cloud"]["lidar_idx"]),
             image_shape=KITTI_IMAGE))
     t0 = time.perf_counter()
@@ -2191,8 +2226,9 @@ def kitti_files_path(torch, card):
     t_matched = time.perf_counter() - t0
     if not all(math.isfinite(v) for v in matched.values()) or \
             matched["Car_3d/moderate_R40"] <= 0:
-        raise AssertionError(f"11b: official metrics on GT boxes {matched}")
-    log(f"# 11b official KITTI eval (R40; bbox, bev, 3d, aos): "
+        raise AssertionError(f"{label}: official metrics on GT boxes "
+                             f"{matched}")
+    log(f"# {label} official KITTI eval (R40; bbox, bev, 3d, aos): "
         f"{t_official:.2f} s host for {len(dets)} frames of "
         f"{sum(len(d['scores']) for d in dets)} boxes; moderate "
         f"{ {k: round(v, 3) for k, v in official.items() if 'moderate' in k} }"
@@ -2200,9 +2236,351 @@ def kitti_files_path(torch, card):
         f"moved ~5 cm ({sum(len(d['score']) for d in near)} boxes) "
         f"{t_matched:.2f} s, moderate "
         f"{ {k: round(v, 2) for k, v in matched.items() if 'moderate' in k} }")
-    log(f"# 11b: entry points {seen['seconds']:.1f} s; launches of K1-K7 "
-        f"{sum(seen['counts'].values())}; phase {time.time() - t_phase:.1f} "
-        f"s [{card}]")
+
+
+# -------------------------------------------------------------- phase 12
+# the two-stage voxel family (VoxelRCNN, PartA2, SECONDNetIoU): no TPU
+# kernel stands on its path either. 12b trains and serves the two shipped
+# configs at the yaml's batch 2 on a KITTI tree of the same seeded writer as
+# 11b's, 4 train frames (2 steps) and 2 val frames (1 request).
+TWO_STAGE = ("voxel_rcnn_car", "PartA2")
+TWO_STAGE_TINY = ("voxel_rcnn_car", "PartA2", "second_iou")
+TWO_STAGE_FILES = dict(train=[f"{i:06d}" for i in range(4)],
+                       val=[f"{i:06d}" for i in range(4, 6)], points=120_000)
+# the tiny KITTI grid's anchor spacing (4 x 4 BEV cells from x 0, y -6.4,
+# align_center off)
+TINY_ANCHOR_STEP = 12.8 / 3
+
+
+def two_stage_cfg(name):
+    """``kitti_models/<name>.yaml``; for ``second_iou`` (no yaml ships for
+    SECONDNetIoU) ``second.yaml`` with its BEV-grid RoI head, whose NMS and
+    target settings are ``voxel_rcnn_car.yaml``'s, with the corner loss."""
+    if name != "second_iou":
+        return load_cfg(f"tools/cfgs/kitti_models/{name}.yaml")
+    cfg = load_cfg("tools/cfgs/kitti_models/second.yaml")
+    vr = load_cfg("tools/cfgs/kitti_models/voxel_rcnn_car.yaml").MODEL.ROI_HEAD
+    cfg.MODEL.NAME = "SECONDNetIoU"
+    cfg.MODEL.ROI_HEAD = type(vr)({
+        "NAME": "BEVGridRoIHead", "GRID_SIZE": 6, "SHARED_FC": [256, 256],
+        "DP_RATIO": 0.3, "NMS_CONFIG": vr.NMS_CONFIG,
+        "TARGET_CONFIG": vr.TARGET_CONFIG,
+        "LOSS_CONFIG": {"CORNER_LOSS_REGULARIZATION": True,
+                        "LOSS_WEIGHTS": {"rcnn_corner_weight": 1.0}}})
+    return cfg
+
+
+def two_stage_tiny(name, seed):
+    """12a: ``two_stage_cfg(name)`` at narrow widths (DP_RATIO 0: the card's
+    and the CPU's dropout streams differ) on 10a's range and 32^3 grid, and
+    a seeded 2-frame scene with GT boxes 0.2-0.4 m off anchors of their
+    class (foreground RoIs): (config, build args, scene)."""
+    import numpy as np
+
+    (cfg, args), scene = kitti_tiny("second", seed)
+    tiny = cfg.MODEL
+    full = two_stage_cfg(name)
+    m = full.MODEL
+    m.BACKBONE_3D.update(NUM_FILTERS=[8, 16, 16, 16], OUT_CHANNELS=16)
+    m.BACKBONE_2D = tiny.BACKBONE_2D
+    roi = m.ROI_HEAD
+    roi.update(SHARED_FC=[16, 16], DP_RATIO=0.0)
+    for split in ("TRAIN", "TEST"):  # every anchor a candidate (<= 96)
+        roi.NMS_CONFIG[split].update(NMS_PRE_MAXSIZE=128, NMS_POST_MAXSIZE=96)
+    roi.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    if name == "PartA2":
+        m.POINT_HEAD.update(CLS_FC=[8], PART_FC=[8])
+        roi.update(CONV_CHANNELS=[8, 8], ROI_AWARE_POOL={"POOL_SIZE": 4})
+    elif name == "voxel_rcnn_car":
+        roi.GRID_SIZE = 3
+        for layer in roi.ROI_GRID_POOL.POOL_LAYERS.values():
+            layer.update(MLPS=[[8, 8]], NSAMPLE=[8])
+    else:
+        roi.GRID_SIZE = 3
+    classes = list(full.CLASS_NAMES)
+    rng = np.random.default_rng(seed)
+    sizes = {1: (3.9, 1.6, 1.56), 2: (0.8, 0.6, 1.73), 3: (1.76, 0.6, 1.73)}
+    z = {1: -1.0, 2: 0.265, 3: 0.265}  # anchor bottom + half height
+    gt = np.zeros((2, 6, 8), np.float32)
+    for b in range(2):
+        for j in range(4):
+            cls = 1 + j % len(classes)
+            ix, iy = 1 + (j + b) % 2, 1 + (j // 2 + b) % 2
+            gt[b, j] = [ix * TINY_ANCHOR_STEP + rng.uniform(0.2, 0.4),
+                        -6.4 + iy * TINY_ANCHOR_STEP + rng.uniform(0.2, 0.4),
+                        z[cls] + rng.uniform(-0.1, 0.1), *sizes[cls],
+                        rng.uniform(-0.2, 0.2) + 1.57 * (j % 2), cls]
+    scene = dict(scene, gt_boxes=gt)
+    return full, (m, len(classes), classes, *args[3:]), scene
+
+
+def two_stage_tiny_check(torch, name, seed):
+    """12a for one model: tiny, f32, on the card against the CPU plain path
+    on the same weights (``kitti_tiny_models``): the RoIs and the refined
+    boxes of each frame as sets within 1e-3 of max(1, |value|); one
+    ``train_step``: loss within
+    1e-4 relative, gradient norm within 1e-3; the card's gradients
+    bit-identical when its forward and backward repeat from the same
+    weights and batch. Returns the numbers for the log."""
+    import copy
+    import math
+
+    from mssvt_tpu_torch.runtime.optimization import build_optimizer
+    from mssvt_tpu_torch.runtime.train_utils import forward_backward, train_step
+
+    cfg, args, scene = two_stage_tiny(name, seed)
+    models = dict(zip(("cpu", "cuda"),
+                      kitti_tiny_models(torch, args, scene, seed)))
+    res = {}
+    for dev, model in models.items():
+        batch = to_device(torch, scene, dev)
+        with torch.no_grad():
+            out = model(batch, return_intermediates=True)
+        rois = {"final_boxes": out["rois"], "final_mask": out["roi_valid"],
+                "final_scores": out["roi_valid"].float(),
+                "final_labels": out["roi_valid"].long()}
+        snapshot = copy.deepcopy(model)
+        opt, _ = build_optimizer(cfg.OPTIMIZATION, model.named_parameters(),
+                                 total_steps=10, steps_per_epoch=5)
+        loss, tb = train_step(model, opt, batch, torch.Generator(device=dev))
+        grads = [p.grad.clone() for p in model.parameters()]
+        gnorm = math.sqrt(sum(float((g.double() ** 2).sum()) for g in grads))
+        res[dev] = (out, rois, float(loss), gnorm, tb)
+        if dev == "cuda":
+            snapshot.zero_grad()
+            forward_backward(snapshot, batch, torch.Generator(device=dev))
+            same = all(torch.equal(p.grad, g) for p, g in
+                       zip(snapshot.parameters(), grads))
+            if not same:
+                raise AssertionError(f"12a {name}: the repeated backward's "
+                                     "gradients differ")
+    torch.cuda.synchronize()
+    (oc, rc, lc, gc, tbc), (og, rg, lg, gg, _) = res["cpu"], res["cuda"]
+    n_rois, err_rois = kept_box_sets_error(rc, rg, relative=True)
+    n_kept, err = kept_box_sets_error(oc, og, relative=True)
+    if n_rois == 0 or n_kept == 0 or max(err, err_rois) > 1e-3:
+        raise AssertionError(f"12a {name}: {n_rois} RoIs (error {err_rois}),"
+                             f" {n_kept} refined boxes (error {err})")
+    rel, grel = abs(lg - lc) / abs(lc), abs(gg - gc) / gc
+    if rel > 1e-4 or grel > 1e-3 or not math.isfinite(lg):
+        raise AssertionError(f"12a {name}: loss {lg} vs {lc}, gradient "
+                             f"norm {gg} vs {gc}")
+    if float(tbc["rcnn_loss_reg"]) <= 0:
+        raise AssertionError(f"12a {name}: no foreground RoI ({tbc})")
+    return dict(rois=(n_rois, err_rois), kept=(n_kept, err), loss=(lg, lc, rel),
+                gnorm=(gg, gc, grel), detector=type(models["cuda"]).__name__)
+
+
+def two_stage_tiny_reference(torch):
+    """12a: ``two_stage_tiny_check`` for the tiny VoxelRCNN, PartA2 and
+    SECONDNetIoU, with no kernel of K1-K7 launched."""
+    from mssvt_tpu_torch import kernels
+
+    for name in TWO_STAGE_TINY:
+        kernels.reset_launch_counts()
+        r = two_stage_tiny_check(torch, name, seed=23)
+        counts = kernels.launch_counts()
+        if counts != KITTI_STEP:
+            raise AssertionError(f"12a {name}: launches {counts}")
+        log(f"# 12a tiny {r['detector']} (f32): {r['rois'][0]} RoIs and "
+            f"{r['kept'][0]} refined boxes agree as sets within "
+            f"{max(r['rois'][1], r['kept'][1]):.3g} of max(1, |value|); one "
+            f"train_step: loss "
+            f"card {r['loss'][0]:.6f} vs CPU {r['loss'][1]:.6f} (relative "
+            f"{r['loss'][2]:.3g}), gradient norm {r['gnorm'][0]:.6g} vs "
+            f"{r['gnorm'][1]:.6g} (relative {r['gnorm'][2]:.3g}); repeated "
+            "backward bit-identical; launches: none")
+
+
+class Spans:
+    """Host-clock and device-time accounting of the two-stage path's
+    parts: each wrapped call synchronises the card before and after, runs
+    inside ``record_function(label)`` and adds its seconds to ``spent``."""
+
+    def __init__(self, torch):
+        from mssvt_tpu_torch.models.roi_heads import (
+            partA2_head,
+            roi_head_template,
+            voxelrcnn_head,
+        )
+
+        self.torch, self.spent, self.live = torch, {}, []
+        self.sites = [(roi_head_template, "proposal_layer", "proposal NMS"),
+                      (voxelrcnn_head, "voxel_query", "voxel_query"),
+                      (partA2_head, "roiaware_pool3d", "roiaware_pool3d")]
+        self.saved = [getattr(m, f) for m, f, _ in self.sites]
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        torch = self.torch
+        for (mod, fn, label), orig in zip(self.sites, self.saved):
+            def call(*a, _orig=orig, _label=label, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with record_function(_label):
+                    out = _orig(*a, **kw)
+                    torch.cuda.synchronize()
+                self.spent[_label] = self.spent.get(_label, 0.0) + \
+                    time.perf_counter() - t0
+                if _label == "proposal NMS":
+                    self.live.append(out[3].sum(1).tolist())
+                return out
+            setattr(mod, fn, call)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, fn, _), orig in zip(self.sites, self.saved):
+            setattr(mod, fn, orig)
+
+    def take(self):
+        spent, self.spent = self.spent, {}
+        return spent
+
+
+def profile_two_stage(torch, runs, cfg, label, card):
+    """One ``train_step`` (a fresh optimizer) and one request, each of
+    ``runs[kind]``'s (model, batch), under ``torch.profiler``: device time
+    in all, and inside the proposal NMS, ``voxel_query`` and
+    ``roiaware_pool3d`` spans (kernels that started inside each
+    synchronised span)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mssvt_tpu_torch.runtime.eval_utils import eval_step
+    from mssvt_tpu_torch.runtime.optimization import build_optimizer
+    from mssvt_tpu_torch.runtime.train_utils import train_step
+
+    (model, batch), (served, request) = runs["step"], runs["request"]
+    opt, _ = build_optimizer(cfg["OPTIMIZATION"], model.named_parameters(),
+                             total_steps=10, steps_per_epoch=5)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    parts = []
+    for kind, call in (("step", lambda: train_step(model, opt, batch, gen)),
+                       ("request", lambda: eval_step(served.eval(), request))):
+        with Spans(torch) as spans, profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        evs = prof.events()
+        kern = [e for e in evs if "CUDA" in str(getattr(e, "device_type", ""))]
+        total = sum(e.self_device_time_total for e in kern) / 1e3
+        inside = []
+        for _, _, name in spans.sites:  # the host-side span of each call
+            rng_ = [e.time_range for e in evs if e.name == name and
+                    "CPU" in str(getattr(e, "device_type", ""))]
+            ks = [e for e in kern if any(r.start <= e.time_range.start <= r.end
+                                         for r in rng_)]
+            if rng_:
+                inside.append(f"{name} {sum(e.self_device_time_total for e in ks) / 1e3:.3f} ms "
+                              f"({len(ks)} kernels, {len(rng_)} calls, host "
+                              f"{spans.spent.get(name, 0.0):.4f} s)")
+        parts.append(f"{kind}: device kernels {total:.3f} ms over {len(kern)} "
+                     f"kernels; " + "; ".join(inside))
+    log(f"# 12b {label} profiled (torch.profiler, one {parts[0]}; one "
+        f"{parts[1]} [{card}]")
+
+
+def two_stage_files_path(torch, card):
+    """12b: ``voxel_rcnn_car.yaml`` and ``PartA2.yaml`` at their published
+    widths (f32) and batch (2), trained for one epoch (2 steps) and served
+    (1 request) through the entry points from a file-backed KITTI tree with
+    gt_sampling on, then the official R40 evaluation of ``result.pkl``; no
+    step or request launches a kernel of K1-K7. Prints voxels a frame
+    against the caps, live RoIs a frame, each synchronised step and
+    request with the proposal NMS's share, the profiled step and request,
+    the peaks and the phase's seconds."""
+    import shutil
+
+    from mssvt_tpu_torch.datasets.kitti import KittiDataset, create_kitti_infos
+    from mssvt_tpu_torch.datasets.synthetic_files import write_kitti_tree
+    from mssvt_tpu_torch.utils.edict import EasyDict
+
+    t_phase = time.time()
+    root = FILES_DATA / "kitti_two_stage"
+    shutil.rmtree(root, ignore_errors=True)
+    write_kitti_tree(root, TWO_STAGE_FILES["train"], TWO_STAGE_FILES["val"],
+                     TWO_STAGE_FILES["points"], seed=0)
+    prepared = False
+    for name in TWO_STAGE:
+        t_model = time.time()
+        cfg_path, cfg = files_config(f"tools/cfgs/kitti_models/{name}.yaml",
+                                     {"DATA_PATH": str(root)},
+                                     f"{name}_kitti_files")
+        data, classes = EasyDict(cfg["DATA_CONFIG"]), cfg["CLASS_NAMES"]
+        if not prepared:  # the infos and GT database hold every class
+            create_kitti_infos(data, ["Car", "Pedestrian", "Cyclist"], root,
+                               root)
+            prepared = True
+        bsz = int(cfg["OPTIMIZATION"]["BATCH_SIZE_PER_GPU"])
+        label = f"12b {name}"
+        with Spans(torch) as spans:
+            seen = drive_files_entry_points(
+                torch, cfg_path,
+                ROOT / "output" / "chip_smoke" / "two_stage_runs" / name,
+                label, batch=bsz)
+        live = spans.live
+        if len(seen["request"]) != 1:
+            raise AssertionError(f"{label}: {len(seen['request'])} requests")
+        for kind in ("step", "request"):
+            for i, (per, *_r) in enumerate(seen[kind]):
+                if per != KITTI_STEP:
+                    raise AssertionError(f"{label} {kind} {i}: launches {per}")
+        if seen["counts"] != KITTI_STEP:
+            raise AssertionError(f"{label}: launches {seen['counts']}")
+        loader_line(seen, cfg, label, card, batch=bsz)
+        nms_cfg = cfg["MODEL"]["ROI_HEAD"]["NMS_CONFIG"]
+        log(f"# {label}: live RoIs a frame after the proposal NMS, train "
+            f"{live[:len(seen['step'])]} (post {nms_cfg['TRAIN']['NMS_POST_MAXSIZE']}"
+            f" of {nms_cfg['TRAIN']['NMS_PRE_MAXSIZE']} candidates), test "
+            f"{live[len(seen['step']):]} (post "
+            f"{nms_cfg['TEST']['NMS_POST_MAXSIZE']} of "
+            f"{nms_cfg['TEST']['NMS_PRE_MAXSIZE']})")
+        ds = KittiDataset(data, classes, training=False, seed=0)
+        kitti_official_check(seen["result"], root, ds, classes, label)
+        # the NMS's share by the host clock: the last step's and request's
+        # model and batch again, its proposal_layer calls timed inside
+        runs = {kind: (seen[f"{kind}_model"], seen[kind][-1][1])
+                for kind in ("step", "request")}
+        shares = [nms_share(torch, *runs[kind], cfg, kind) for kind in runs]
+        log(f"# {label}: proposal NMS share by the host clock, "
+            + "; ".join(shares) + f" [{card}]")
+        profile_two_stage(torch, runs, cfg, name, card)
+        log(f"# {label}: entry points {seen['seconds']:.1f} s; model "
+            f"{time.time() - t_model:.1f} s [{card}]")
+        del runs, seen
+        torch.cuda.empty_cache()
+    log(f"# 12b: phase {time.time() - t_phase:.1f} s [{card}]")
+
+
+def nms_share(torch, model, batch, cfg, kind):
+    """Two synchronised steps (a fresh optimizer) or requests of ``model``
+    on ``batch``, with the proposal NMS timed inside: 'kind s [...] of
+    which NMS [...] = [...]%'."""
+    from mssvt_tpu_torch.runtime.eval_utils import eval_step
+    from mssvt_tpu_torch.runtime.optimization import build_optimizer
+    from mssvt_tpu_torch.runtime.train_utils import train_step
+
+    if kind == "step":
+        opt, _ = build_optimizer(cfg["OPTIMIZATION"], model.named_parameters(),
+                                 total_steps=10, steps_per_epoch=5)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        call = lambda: train_step(model, opt, batch, gen)
+    else:
+        model.eval()
+        call = lambda: eval_step(model, batch)
+    walls, nms = [], []
+    with Spans(torch) as spans:
+        for _ in range(2):
+            spans.take()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            nms.append(spans.take().get("proposal NMS", 0.0))
+    return (f"{kind} {[round(w, 4) for w in walls]} s, of which NMS "
+            f"{[round(x, 4) for x in nms]} s = "
+            f"{[round(100 * x / w, 1) for x, w in zip(nms, walls)]}%")
 
 
 # --------------------------------------------------------------- phase 5
@@ -2926,6 +3304,10 @@ def main(argv):
                                  "file-backed path")
     torch.cuda.empty_cache()
     kitti_files_path(torch, card)
+    torch.cuda.empty_cache()
+    # phase 12: the two-stage voxel family (no kernel of K1-K7 on its path)
+    two_stage_tiny_reference(torch)
+    two_stage_files_path(torch, card)
     for name, counts_ in (("attention_qk", off_counts),
                           ("attention_qk_bwd", off_counts),
                           ("fps_picks_warp", sampling_counts),

@@ -6,7 +6,8 @@ the port's modules, whose submodules carry the flax path names, so the walk
 is mechanical. Layout rules:
 
 - Dense kernel (in, out) -> ``Linear.weight`` (out, in);
-- Conv kernel HWIO -> OIHW;
+- Conv kernel HWIO -> OIHW, and a 3D one (``Conv3d``, the PartA2 head's)
+  DHWIO -> OIDHW;
 - ConvTranspose kernel (kh, kw, in, out) -> (in, out, kh, kw), flipped
   spatially (flax's transposed convolution does not flip its kernel,
   PyTorch's does);
@@ -14,7 +15,13 @@ is mechanical. Layout rules:
   ``scale``/``bias``; BatchNorm ``mean``/``var`` from ``batch_stats``
   (``MaskedBatchNorm`` and the VFEs' channels-last BatchNorm alike);
 - sparse-conv kernel (K, Cin, Cout) -> ``weight`` as it is (a node of the
-  sparse-conv layers holds its ``kernel`` beside its ``bn`` subtree).
+  sparse-conv layers holds its ``kernel`` beside its ``bn`` subtree);
+- a bare parameter of a flax module (UNetV2's ``up{lvl}_inv_kernel``,
+  (K, Cin, Cout)) -> the port module's parameter of the same name, as it
+  is.
+
+The RoI heads' submodules carry their flax names too
+(``{stage}_sa_{i}/mlp/mlp_j``, ``shared_fc_i``, ``conv3d_i``, ...).
 
 MixedScaleAttention's per-group ``to_q_i``/``to_kv_i``/``proj_i`` are
 stored as they are (the block-diagonal folding happens at call time), and
@@ -38,10 +45,14 @@ from .models.backbones_3d.spconv_backbone import SparseConvKernel
 from .models.model_utils.layers import (
     BatchNorm,
     Conv2d,
+    Conv3d,
     ConvTranspose2d,
     Dense,
     LayerNorm,
 )
+
+_LEAF_MODULES = (Dense, Conv2d, Conv3d, ConvTranspose2d, SparseConvKernel,
+                 LayerNorm, BatchNorm)
 
 
 def _tensor(a, like: torch.Tensor, name: str) -> torch.Tensor:
@@ -60,6 +71,8 @@ def from_flax_layout(mod: nn.Module, key: str, val) -> np.ndarray:
         return val
     if isinstance(mod, ConvTranspose2d):
         return val[::-1, ::-1].transpose(2, 3, 0, 1)
+    if isinstance(mod, Conv3d):
+        return val.transpose(4, 3, 0, 1, 2)
     if val.ndim == 4:
         return val.transpose(3, 2, 0, 1)
     if val.ndim == 2:
@@ -77,6 +90,9 @@ def _load_leaf(mod: nn.Module, leaf: Dict, path: str) -> int:
             elif key == "scale":
                 tgt = mod.scale if isinstance(mod, BatchNorm) else mod.weight
             elif key in ("bias", "mean", "var"):
+                tgt = getattr(mod, key)
+            elif not isinstance(mod, _LEAF_MODULES) and isinstance(
+                    getattr(mod, key, None), nn.Parameter):
                 tgt = getattr(mod, key)
             else:
                 raise KeyError(f"{path}/{key}: unknown flax leaf")
@@ -124,6 +140,8 @@ def to_flax_layout(mod: nn.Module, key: str, t: torch.Tensor) -> np.ndarray:
         return a
     if isinstance(mod, ConvTranspose2d):
         return a.transpose(2, 3, 0, 1)[::-1, ::-1].copy()
+    if isinstance(mod, Conv3d):
+        return a.transpose(2, 3, 4, 1, 0).copy()
     if a.ndim == 4:
         return a.transpose(2, 3, 1, 0).copy()
     if a.ndim == 3:  # sparse-conv (K, Cin, Cout): the flax layout
@@ -142,15 +160,17 @@ def to_flax_tree(model: nn.Module, collection: str = "params",
             if not isinstance(mod, BatchNorm):
                 continue
             leaves = {"mean": mod.mean, "var": mod.var}
-        elif isinstance(mod, (Dense, Conv2d, ConvTranspose2d)):
+        elif isinstance(mod, (Dense, Conv2d, Conv3d, ConvTranspose2d)):
             leaves = {"kernel": mod.weight, "bias": mod.bias}
         elif isinstance(mod, SparseConvKernel):
             leaves = {"kernel": mod.weight}
         elif isinstance(mod, (LayerNorm, BatchNorm)):
             leaves = {"scale": mod.weight if isinstance(mod, LayerNorm)
                       else mod.scale, "bias": mod.bias}
-        else:
-            continue
+        else:  # a module's bare parameters (UNetV2's inverse kernels)
+            leaves = dict(mod.named_parameters(recurse=False))
+            if not leaves:
+                continue
         node = tree
         for part in name.split(".") if name else ():
             node = node.setdefault(part, {})

@@ -105,6 +105,17 @@ def build_dense_row_table(coords, valid, spatial_shape, batch_size: int):
     return table[:n_cells]
 
 
+def lookup_dense(table, query_keys):
+    """Row of each query key (any shape) in a :func:`build_dense_row_table`
+    table: -1 for an empty cell, a negative or out-of-range key, or
+    INVALID_KEY."""
+    n_cells = table.shape[0]
+    q = query_keys.long()
+    oob = (q < 0) | (q >= n_cells) | (q == INVALID_KEY)
+    got = table[q.clamp(0, n_cells - 1)]
+    return torch.where(oob, -1, got).to(torch.int32)
+
+
 @dataclass(frozen=True)
 class VoxelIndex:
     """Sorted (key, row) pairs over the padded voxel set of a whole batch:

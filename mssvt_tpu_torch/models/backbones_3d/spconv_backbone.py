@@ -169,6 +169,8 @@ class VoxelBackBone8x(nn.Module):
                                 residual=residual, dtype=dtype)
         shape = tuple(int(g) for g in grid_size)
         c_in = f[0]
+        # the width of each returned stage (the VoxelRCNN head's inputs)
+        self.stage_channels = {f"x_conv{i + 1}": c for i, c in enumerate(f)}
         for i, (c, cap) in enumerate(zip(f[1:], caps[1:4]), start=2):
             # padding tuples are (x, y, z); ref conv4 zero-pads z only
             pad = (1, 1, 1) if i < 4 else (1, 1, 0)

@@ -1,10 +1,12 @@
 """Per-family module registries (torch counterpart of
 ``mssvt_tpu/models/builders.py``), holding the names of the ported
 families: the MsSVT CenterPoint path (MeanVFE -> MixedScaleSparseTransformer
--> HeightCompression -> BaseBEVBackbone -> CenterHead) and the SECOND and
+-> HeightCompression -> BaseBEVBackbone -> CenterHead), the SECOND and
 PointPillar families (the Pillar/Hard/Dynamic VFEs, the sparse-conv
-backbones, PointPillarScatter, AnchorHeadSingle). Any other name raises and
-points at ROADMAP.md, where the rest of the zoo is queued.
+backbones, PointPillarScatter, AnchorHeadSingle) and the two-stage voxel
+family's UNetV2 (the RoI and point heads are built by their detectors, as
+in the JAX package). Any other name raises and points at ROADMAP.md, where
+the rest of the zoo is queued.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from .backbones_2d.base_bev_backbone import BaseBEVBackbone
 from .backbones_2d.map_to_bev import HeightCompression, PointPillarScatter
 from .backbones_3d.mssvt import MixedScaleSparseTransformer
 from .backbones_3d.spconv_backbone import VoxelBackBone8x, VoxelResBackBone8x
+from .backbones_3d.spconv_unet import UNetV2
 from .backbones_3d.vfe import DynamicVFE, HardVFE, MeanVFE, PillarVFE
 from .dense_heads.anchor_head import AnchorHeadSingle
 from .dense_heads.center_head import CenterHead
@@ -102,6 +105,12 @@ BACKBONE_3D = {
         in_features=ctx.num_point_features, dtype=ctx.dtype),
     "VoxelBackBone8x": _spconv8x(VoxelBackBone8x),
     "VoxelResBackBone8x": _spconv8x(VoxelResBackBone8x),
+    "UNetV2": lambda cfg, ctx: UNetV2(
+        in_channels=ctx.num_point_features,
+        input_capacity=ctx.max_voxels * ctx.batch_size,
+        grid_size=tuple(ctx.grid_size),
+        num_filters=tuple(cfg.get("NUM_FILTERS", [16, 32, 64, 64])),
+        out_channels=int(cfg.get("OUT_CHANNELS", 128)), dtype=ctx.dtype),
 }
 
 MAP_TO_BEV = {

@@ -1,11 +1,16 @@
 import torch
 
 from .centerpoint import CenterPoint
+from .part_a2 import PartA2Net
 from .pointpillar import PointPillar
 from .second_net import SECONDNet
+from .second_net_iou import SECONDNetIoU
+from .voxel_rcnn import VoxelRCNN
 
-__all__ = {"CenterPoint": CenterPoint, "PointPillar": PointPillar,
-           "SECOND": SECONDNet, "SECONDNet": SECONDNet}
+__all__ = {"CenterPoint": CenterPoint, "PartA2": PartA2Net,
+           "PointPillar": PointPillar, "SECOND": SECONDNet,
+           "SECONDNet": SECONDNet, "SECONDNetIoU": SECONDNetIoU,
+           "VoxelRCNN": VoxelRCNN}
 
 _DTYPES = {
     "float32": torch.float32, "fp32": torch.float32,

@@ -1,7 +1,7 @@
 """Detection losses (torch counterpart of ``mssvt_tpu/models/losses.py``;
-ref: pcdet/utils/loss_utils.py): CenterPoint's CenterNet losses and the
-anchor heads' focal, smooth-L1, L1 and cross-entropy losses, pure
-functions over padded, masked tensors."""
+ref: pcdet/utils/loss_utils.py): CenterPoint's CenterNet losses, the
+anchor heads' focal, smooth-L1, L1 and cross-entropy losses and the RoI
+heads' corner loss, pure functions over padded, masked tensors."""
 
 from __future__ import annotations
 
@@ -86,3 +86,42 @@ def reg_loss_centernet(pred_bhwc, mask, ind, target):
     num = mask.to(pred.dtype).sum()
     loss = torch.abs(pred * m - target * m)
     return loss.sum(dim=(0, 1)) / (num + 1e-4)
+
+
+_CORNERS = ((1, 1, -1), (1, -1, -1), (-1, -1, -1), (-1, 1, -1),
+            (1, 1, 1), (1, -1, 1), (-1, -1, 1), (-1, 1, 1))
+
+
+def _boxes_to_corners_3d(boxes):
+    """(N, 7) -> (N, 8, 3) corners in the reference's order (x-major, the
+    bottom face first; ref: box_utils.py boxes_to_corners_3d)."""
+    template = torch.tensor(_CORNERS, dtype=boxes.dtype,
+                            device=boxes.device) / 2
+    corners = boxes[:, None, 3:6] * template[None]
+    cosa = torch.cos(boxes[:, 6])[:, None]
+    sina = torch.sin(boxes[:, 6])[:, None]
+    x = corners[..., 0] * cosa - corners[..., 1] * sina
+    y = corners[..., 0] * sina + corners[..., 1] * cosa
+    return torch.stack([x, y, corners[..., 2]], dim=-1) + boxes[:, None, 0:3]
+
+
+def _safe_norm(v):
+    """L2 norm over the last axis with a zero gradient where it is 0 (padded
+    RoIs give coincident corners, where sqrt's derivative is infinite)."""
+    s = (v * v).sum(dim=2)
+    nz = s > 1e-12
+    return torch.sqrt(torch.where(nz, s, 1.0)) * nz
+
+
+def get_corner_loss_lidar(pred_bbox3d, gt_bbox3d):
+    """Corner-distance smooth-L1 (beta 1) against the GT box and its
+    pi-flipped twin, the smaller of the two a corner, averaged over the 8
+    corners (ref: loss_utils.py:209-233): (N, 7) x (N, 7) -> (N,)."""
+    pred_c = _boxes_to_corners_3d(pred_bbox3d)
+    gt_c = _boxes_to_corners_3d(gt_bbox3d)
+    flip = torch.cat([gt_bbox3d[:, :6], gt_bbox3d[:, 6:7] + torch.pi,
+                      gt_bbox3d[:, 7:]], dim=1)
+    gt_c_flip = _boxes_to_corners_3d(flip)
+    d = torch.minimum(_safe_norm(pred_c - gt_c), _safe_norm(pred_c - gt_c_flip))
+    loss = torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+    return loss.mean(dim=1)

@@ -156,6 +156,32 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), b)
 
 
+class Conv3d(nn.Conv3d):
+    """flax ``nn.Conv`` over (N, D, H, W, C) channels-last grids with its
+    default ``SAME`` padding (the lower side gets the smaller half, as
+    XLA pads), computing in ``dtype`` (the bridge converts DHWIO kernels to
+    OIDHW)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 bias=True, dtype=torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding=0, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        pads = []
+        for d in range(3):
+            n, k, s = x.shape[1 + d], self.kernel_size[d], self.stride[d]
+            total = max((-(-n // s) - 1) * s + k - n, 0)
+            pads.append((total // 2, total - total // 2))
+        x = x.to(dt).permute(0, 4, 1, 2, 3)
+        x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
+        b = None if self.bias is None else self.bias.to(dt)
+        y = F.conv3d(x, self.weight.to(dt), b, self.stride)
+        return y.permute(0, 2, 3, 4, 1)
+
+
 class ConvTranspose2d(nn.ConvTranspose2d):
     """Stride-s, kernel-s transposed convolution in ``dtype`` (flax
     ``nn.ConvTranspose``; the bridge flips flax's kernel spatially)."""

@@ -19,14 +19,20 @@ from torch import nn
 
 from .backbones_3d.spconv_backbone import SparseConvKernel
 from .detectors import build_detector
-from .model_utils.layers import BatchNorm, Conv2d, ConvTranspose2d, Dense
+from .model_utils.layers import (
+    BatchNorm,
+    Conv2d,
+    Conv3d,
+    ConvTranspose2d,
+    Dense,
+)
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, m in model.named_modules():
-            if isinstance(m, (Dense, Conv2d, ConvTranspose2d)):
+            if isinstance(m, (Dense, Conv2d, Conv3d, ConvTranspose2d)):
                 w = m.weight
                 if isinstance(m, ConvTranspose2d):  # (in, out, kh, kw)
                     fan_in = w.shape[0] * w.shape[2] * w.shape[3]

@@ -27,6 +27,13 @@ these, bit for bit from one run to the next:
   ``index_select`` (backward ``index_add_``) sum with float atomics on
   CUDA, in an order that changes between runs, so the training path does
   not use them where a row can be picked twice.
+- Where one row may collect thousands of live picks (the RoI heads' grid
+  points over overlapping RoIs, ``voxel_query``'s padding), the gather is
+  :func:`gather_rows`, whose backward is :func:`segment_sum`: a stable
+  sort of the picks by row, then sums over fixed blocks of the sorted
+  picks by one batched product with each block's same-row mask, the
+  block-crossing partials carried to the next level; a fixed tree of
+  parallel sums, the same order on every run.
 """
 
 from __future__ import annotations
@@ -185,3 +192,73 @@ def writeback_inverse_paired(upd_fea, shortcut, ind, win_row, slot,
     :func:`group_features_paired`)."""
     return _WritebackInversePaired.apply(upd_fea, shortcut, ind, win_row,
                                          slot, inv_valid)
+
+
+SEGMENT_BLOCK = 32  # sorted picks a block of :func:`segment_sum`
+
+
+def segment_sum(rows, values, num_rows: int):
+    """Sum (N, C) ``values`` into (num_rows, C) by their (N,) ``rows`` (each
+    in [0, num_rows)), deterministically and without a serial loop over a
+    row's picks: a stable sort by row, then levels of blocks of
+    :data:`SEGMENT_BLOCK` sorted picks. In a block, one product with the
+    same-row mask gives every pick its row's sum within the block; a row
+    whose picks all lie inside one block, past its first row and before
+    its last, is written out, and each block carries its first and its last
+    row's partial sums (in order, so still sorted) to the next level, until
+    one block holds them all. Summed in f32 at least."""
+    t = SEGMENT_BLOCK
+    dt = torch.promote_types(values.dtype, torch.float32)
+    c = values.shape[1]
+    rows = rows.reshape(-1).long()
+    order = torch.sort(rows, stable=True)[1]
+    keys, vals = rows[order], values.reshape(-1, c)[order].to(dt)
+    out = vals.new_zeros((num_rows + 1, c))  # num_rows: the dump row
+    while keys.shape[0]:
+        n = keys.shape[0]
+        pad = (-n) % t
+        if pad:
+            keys = torch.cat([keys, keys.new_full((pad,), num_rows)])
+            vals = torch.cat([vals, vals.new_zeros((pad, c))])
+        nb = keys.shape[0] // t
+        k = keys.view(nb, t)
+        same = (k[:, :, None] == k[:, None, :]).to(dt)
+        s = torch.bmm(same, vals.view(nb, t, c))  # (nb, t, c)
+        first = torch.ones_like(k, dtype=torch.bool)
+        first[:, 1:] = k[:, 1:] != k[:, :-1]
+        head, tail = k[:, :1], k[:, -1:]
+        if nb == 1:  # every row complete: write each at its first pick
+            done = first
+        else:
+            done = first & (k != head) & (k != tail)
+        out[torch.where(done, k, num_rows).reshape(-1)] = s.reshape(-1, c)
+        if nb == 1:
+            break
+        single = head[:, 0] == tail[:, 0]
+        keys = torch.stack([head[:, 0], tail[:, 0]], 1).reshape(-1)
+        vals = torch.stack([s[:, 0], torch.where(single[:, None], 0.0,
+                                                 s[:, -1])], 1).reshape(-1, c)
+    return out[:num_rows]
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, idx):
+        ctx.save_for_backward(idx)
+        ctx.meta = (values.shape[0], values.dtype)
+        return values[idx.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        v, dtype = ctx.meta
+        c = g.shape[-1]
+        dx = segment_sum(idx, g.reshape(-1, c), v)
+        return dx.to(dtype), None
+
+
+def gather_rows(values, idx):
+    """Rows of (V, C) ``values`` at (...) indices in [0, V) -> (..., C).
+    The backward sums each row's picks with :func:`segment_sum`
+    (deterministic, parallel however many picks a row collects)."""
+    return _GatherRows.apply(values, idx)

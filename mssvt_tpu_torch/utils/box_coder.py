@@ -1,5 +1,7 @@
-"""The anchor heads' box coder (torch counterpart of ``ResidualCoder`` in
-``mssvt_tpu/utils/box_coder.py``; ref: pcdet/utils/box_coder_utils.py:5-77).
+"""Box coders (torch counterparts of ``ResidualCoder`` and the two legacy
+``PreviousResidual*Decoder``s of ``mssvt_tpu/utils/box_coder.py``; ref:
+pcdet/utils/box_coder_utils.py:5-141). ``PointResidualCoder`` is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -68,3 +70,43 @@ class ResidualCoder:
         extra_list = [extras[..., i:i + 1] + anchors[..., 7 + i:8 + i]
                       for i in range(extras.shape[-1])]
         return torch.cat([xg, yg, zg, dxg, dyg, dzg, rg, *extra_list], dim=-1)
+
+
+class PreviousResidualDecoder:
+    """Legacy decoder of old checkpoints (ref: box_coder_utils.py:78-107):
+    encodings (x, y, z, w, l, h, r) with the w/l swap ``dxg = exp(lt) *
+    dxa``, ``dyg = exp(wt) * dya`` and no clip on the exponents."""
+
+    def __init__(self, code_size=7, **kwargs):
+        self.code_size = code_size
+
+    @staticmethod
+    def decode(box_encodings, anchors):
+        xa, ya, za, dxa, dya, dza, ra = _split(anchors[..., :7], 7)
+        xt, yt, zt, wt, lt, ht, rt = _split(box_encodings[..., :7], 7)
+        cas = _split(anchors[..., 7:], anchors.shape[-1] - 7)
+        cts = _split(box_encodings[..., 7:], box_encodings.shape[-1] - 7)
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        xg = xt * diagonal + xa
+        yg = yt * diagonal + ya
+        zg = zt * dza + za
+        dxg = torch.exp(lt) * dxa
+        dyg = torch.exp(wt) * dya
+        dzg = torch.exp(ht) * dza
+        rg = rt + ra
+        cgs = [t + a for t, a in zip(cts, cas)]
+        return torch.cat([xg, yg, zg, dxg, dyg, dzg, rg, *cgs], dim=-1)
+
+
+class PreviousResidualRoIDecoder:
+    """Legacy RoI decoder: :class:`PreviousResidualDecoder` with the heading
+    decoded as ``ra - rt`` (ref: box_coder_utils.py:110-141)."""
+
+    def __init__(self, code_size=7, **kwargs):
+        self.code_size = code_size
+
+    @staticmethod
+    def decode(box_encodings, anchors):
+        out = PreviousResidualDecoder.decode(box_encodings, anchors)
+        rg = anchors[..., 6:7] - box_encodings[..., 6:7]
+        return torch.cat([out[..., :6], rg, out[..., 7:]], dim=-1)

@@ -823,3 +823,118 @@ def test_tiny_kitti_detectors_on_card_match_cpu(dev, name, monkeypatch):
     assert abs(gg.norm() - gc.norm()) <= 1e-3 * gc.norm()
     assert (gg - gc).abs().max() <= 1e-3 * gc.norm()
     assert not any(kernels.launch_counts().values())
+
+
+# ------------------------------------------ the two-stage voxel family
+# No kernel of K1-K7 either: the RoI machinery's gathers and pools on the
+# card, whose backward sums must repeat bit for bit.
+@pytest.mark.cuda
+def test_voxel_query_on_card_matches_cpu(dev):
+    """``voxel_query`` at VoxelRCNN's (4, 4, 4) neighbourhood on a stage
+    grid of 2 x 176 x 200 x 5 cells: rows and emptiness equal to the CPU's,
+    and again on a repeat."""
+    from mssvt_tpu_torch.ops.voxel_query import voxel_query
+
+    rng = np.random.default_rng(4)
+    grid, vs, pcr = (176, 200, 5), (0.4, 0.4, 0.8), (0, -40, -3, 70.4, 40, 1)
+    n = 6000
+    cells = np.unique(np.stack([rng.integers(0, 2, n), rng.integers(0, 5, n),
+                                rng.integers(0, 200, n),
+                                rng.integers(0, 176, n)], 1), axis=0)
+    coords = np.full((8192, 4), -1, np.int32)
+    coords[:len(cells)] = cells
+    valid = np.arange(8192) < len(cells)
+    q = np.stack([rng.uniform(0, 70.4, (2, 4000)), rng.uniform(-40, 40, (2, 4000)),
+                  rng.uniform(-3, 1, (2, 4000))], -1).astype(np.float32)
+    args = (grid, vs, pcr, (4, 4, 4), 1.6, 16, 2)
+    want = voxel_query(torch.as_tensor(q), torch.as_tensor(coords),
+                       torch.as_tensor(valid), *args)
+    got = [voxel_query(torch.as_tensor(q, device=dev),
+                       torch.as_tensor(coords, device=dev),
+                       torch.as_tensor(valid, device=dev), *args)
+           for _ in range(2)]
+    for g in got:
+        assert torch.equal(g[0].cpu(), want[0]) and torch.equal(g[1].cpu(),
+                                                                want[1])
+    assert 0 < int(want[1].sum()) < want[1].numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["max", "avg"])
+def test_roiaware_pool_on_card_matches_cpu(dev, pool):
+    """``roiaware_pool3d`` at PartA2's 12^3 grid, 64 RoIs over 8 000
+    points a frame: values and the features' cotangent within 1e-6 of the
+    CPU's largest magnitude (the average's sums in another order), and bit
+    for bit on a repeat."""
+    from mssvt_tpu_torch.ops.roiaware_pool import roiaware_pool3d
+
+    rng = np.random.default_rng(5)
+    b, n, r, c = 2, 8000, 64, 16
+    pts = rng.uniform(-20, 20, (b, n, 3)).astype(np.float32)
+    pts[..., 2] = rng.uniform(-2, 2, (b, n))
+    feats = np.round(rng.normal(size=(b, n, c)), 1).astype(np.float32)
+    rois = np.concatenate([rng.uniform(-15, 15, (b, r, 2)),
+                           rng.uniform(-1, 1, (b, r, 1)),
+                           rng.uniform(2, 6, (b, r, 3)),
+                           rng.uniform(-3, 3, (b, r, 1))], -1).astype(np.float32)
+    valid = rng.random((b, n)) < 0.9
+    rvalid = rng.random((b, r)) < 0.9
+    cot = rng.normal(size=(b, r, 12, 12, 12, c)).astype(np.float32)
+    res = []
+    for d in ("cpu", dev, dev):
+        f = torch.as_tensor(feats, device=d).requires_grad_(True)
+        out, empty = roiaware_pool3d(*(torch.as_tensor(x, device=d) for x in (
+            pts,)), f, torch.as_tensor(valid, device=d),
+            torch.as_tensor(rois, device=d), torch.as_tensor(rvalid, device=d),
+            12, pool)
+        out.backward(torch.as_tensor(cot, device=d))
+        res.append((out.detach().cpu(), empty.cpu(), f.grad.cpu()))
+    (oc, ec, gc), (o1, e1, g1), (o2, e2, g2) = res
+    assert torch.equal(ec, e1) and 0 < int((~ec).sum()) < ec.numel()
+    assert (o1 - oc).abs().max() <= 1e-6 * oc.abs().max()
+    assert (g1 - gc).abs().max() <= 1e-6 * gc.abs().max()
+    assert torch.equal(o1, o2) and torch.equal(g1, g2)
+
+
+@pytest.mark.cuda
+def test_gather_rows_backward_on_card(dev):
+    """``gather_rows`` with one row picked 200 000 times and the rest a few
+    times each: the backward within 1e-5 of the CPU's float64 ``index_add_``
+    (relative to each row's magnitude sum), bit for bit on a repeat."""
+    from mssvt_tpu_torch.ops.sampling import gather_rows
+
+    gen = torch.Generator().manual_seed(6)
+    v, n, c = 5000, 400_000, 32
+    idx = torch.randint(0, v, (n,), generator=gen)
+    idx[:200_000] = 7
+    idx = idx[torch.randperm(n, generator=gen)].view(-1, 16)
+    g = torch.randn(n // 16, 16, c, generator=gen)
+    want = torch.zeros(v, c, dtype=torch.float64).index_add_(
+        0, idx.reshape(-1), g.reshape(-1, c).double())
+    scale = torch.zeros(v, c, dtype=torch.float64).index_add_(
+        0, idx.reshape(-1), g.reshape(-1, c).double().abs())
+    grads = []
+    for _ in range(2):
+        x = torch.zeros(v, c, device=dev, requires_grad=True)
+        gather_rows(x, idx.to(dev)).backward(g.to(dev))
+        grads.append(x.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+    assert ((grads[0].double() - want).abs() <= 1e-5 * scale + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["voxel_rcnn_car", "PartA2", "second_iou"])
+def test_tiny_two_stage_detectors_on_card_match_cpu(dev, name, monkeypatch):
+    """chip_smoke 12a as a test: the tiny two-stage model on the card
+    against the CPU on the same weights: RoIs and refined boxes as sets
+    within 1e-3 of max(1, |value|), the training loss within 1e-4
+    relative, the gradient norm
+    within 1e-3, the card's gradients bit-identical on a repeat; no kernel
+    launched."""
+    import chip_smoke
+    from mssvt_tpu_torch import kernels
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    kernels.reset_launch_counts()
+    chip_smoke.two_stage_tiny_check(torch, name, seed=31)
+    assert not any(kernels.launch_counts().values())

@@ -115,7 +115,7 @@ def test_unported_names_raise_pointing_at_roadmap():
     from mssvt_tpu_torch.models.model_utils.attention import MixedScaleAttention
 
     ctx = BuildCtx(3, ("a", "b", "c"), (8, 8, 8), (1, 1, 1), (0,) * 6, 1, 8, 5)
-    for name in ("UNetV2", "PointNet2MSG"):  # VoxelBackBone8x is ported
+    for name in ("PointNet2MSG",):  # VoxelBackBone8x and UNetV2 are ported
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_backbone_3d({"NAME": name}, ctx)
     # attention dropout > 0 in training is ported (the per-group einsum,
