@@ -164,6 +164,25 @@ print the device time of each launch inside one K5 and one K7 call
    a step and a request (host clock, and device time under
    ``torch.profiler`` beside ``voxel_query``'s and ``roiaware_pool3d``'s),
    the peaks and the phase's seconds (``# 12a``/``# 12b`` lines).
+13. the point-based two-stage family (PV-RCNN, PV-RCNN++, PointRCNN; K2c
+   on PV-RCNN's keypoint FPS and PointRCNN's set abstractions over more
+   than 256 points, K2b on its last, none on PV-RCNN++'s plain sector
+   FPS): 13a the JAX suite's tiny f32 models on the card against the CPU
+   plain path on the same weights (refined boxes as sets within 1e-3; one
+   ``train_step``: loss within 1e-4 relative, gradient norm within 1e-3;
+   a bit-identical repeated backward; exactly the expected kernels
+   launched); 13b ``pv_rcnn.yaml``, ``pv_rcnn_plusplus.yaml`` and
+   ``pointrcnn.yaml`` at their published widths (f32) and batch 2 on a
+   KITTI tree of 11b's seeded writer, each step and request checked for
+   its K2c/K2b launches: the entry points, the official R40 evaluation,
+   the picks of every K2c/K2b call of a request (PV-RCNN's 2 x 16 384 ->
+   2 048, PointRCNN's four levels) against ``fps_plain`` on the same card
+   planes (timed); prints raw points and live RoIs a frame, each
+   synchronised step and request, the proposal NMS's share, the sector
+   FPS's host seconds, K2c's, K2b's, the groupings', the 3-NN's, the
+   interpolation's and the RoI point pool's device time under
+   ``torch.profiler``, the peaks and the phase's seconds (``# 13a``/``#
+   13b`` lines).
 
 Its last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -1635,9 +1654,13 @@ def profile_kitti_request(torch, model, batch, name, card):
     finally:
         generic_post.post_process_anchor = post
     evs = prof.events()
-    kern = [e for e in evs if "CUDA" in str(getattr(e, "device_type", ""))]
+    # the range's device-side annotation spans its kernels: no kernel
+    kern = [e for e in evs if "CUDA" in str(getattr(e, "device_type", ""))
+            and e.name != "anchor_post_process"
+            and not getattr(e, "is_user_annotation", False)]
     dev_all = sum(e.self_device_time_total for e in kern) / 1e3
-    spans_ = [e.time_range for e in evs if e.name == "anchor_post_process"]
+    spans_ = [e.time_range for e in evs if e.name == "anchor_post_process"
+              and "CPU" in str(getattr(e, "device_type", ""))]
     if spans_:  # kernels that started inside the synchronised span
         inside = [e for e in kern
                   if spans_[0].start <= e.time_range.start <= spans_[0].end]
@@ -2250,6 +2273,7 @@ TWO_STAGE_FILES = dict(train=[f"{i:06d}" for i in range(4)],
 # the tiny KITTI grid's anchor spacing (4 x 4 BEV cells from x 0, y -6.4,
 # align_center off)
 TINY_ANCHOR_STEP = 12.8 / 3
+PROFILE_WARM = 64  # trivial launches opening each profiled session
 
 
 def two_stage_cfg(name):
@@ -2395,9 +2419,11 @@ def two_stage_tiny_reference(torch):
 class Spans:
     """Host-clock and device-time accounting of the two-stage path's
     parts: each wrapped call synchronises the card before and after, runs
-    inside ``record_function(label)`` and adds its seconds to ``spent``."""
+    inside ``record_function(label)`` and adds its seconds to ``spent``.
+    ``sites`` lists (module, function name, label); by default the voxel
+    family's."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, sites=None):
         from mssvt_tpu_torch.models.roi_heads import (
             partA2_head,
             roi_head_template,
@@ -2405,9 +2431,10 @@ class Spans:
         )
 
         self.torch, self.spent, self.live = torch, {}, []
-        self.sites = [(roi_head_template, "proposal_layer", "proposal NMS"),
-                      (voxelrcnn_head, "voxel_query", "voxel_query"),
-                      (partA2_head, "roiaware_pool3d", "roiaware_pool3d")]
+        self.sites = sites or [
+            (roi_head_template, "proposal_layer", "proposal NMS"),
+            (voxelrcnn_head, "voxel_query", "voxel_query"),
+            (partA2_head, "roiaware_pool3d", "roiaware_pool3d")]
         self.saved = [getattr(m, f) for m, f, _ in self.sites]
 
     def __enter__(self):
@@ -2438,13 +2465,21 @@ class Spans:
         return spent
 
 
-def profile_two_stage(torch, runs, cfg, label, card):
+def profile_two_stage(torch, runs, cfg, label, card, sites=None,
+                      phase="12b", kernel_names=()):
     """One ``train_step`` (a fresh optimizer) and one request, each of
     ``runs[kind]``'s (model, batch), under ``torch.profiler``: device time
-    in all, and inside the proposal NMS, ``voxel_query`` and
-    ``roiaware_pool3d`` spans (kernels that started inside each
-    synchronised span)."""
-    from torch.profiler import ProfilerActivity, profile
+    in all, inside the spans of ``sites`` (``Spans``; by default the
+    proposal NMS, ``voxel_query`` and ``roiaware_pool3d``: kernels that
+    started inside each synchronised span), and of the kernels whose name
+    holds each of ``kernel_names`` ((label, substring) pairs). A session
+    opened late in a process that has profiled before can miss its first
+    ~20–30 launches, so each session first launches ``PROFILE_WARM``
+    trivial kernels (the log says how many the trace holds) and counts
+    only the kernels that start inside the measured window; the device-side
+    annotations of the ``record_function`` ranges are no kernels and are
+    left out of every sum."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from mssvt_tpu_torch.runtime.eval_utils import eval_step
     from mssvt_tpu_torch.runtime.optimization import build_optimizer
@@ -2457,15 +2492,33 @@ def profile_two_stage(torch, runs, cfg, label, card):
     parts = []
     for kind, call in (("step", lambda: train_step(model, opt, batch, gen)),
                        ("request", lambda: eval_step(served.eval(), request))):
-        with Spans(torch) as spans, profile(activities=[
+        with Spans(torch, sites) as spans, profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            call()
+            warm = torch.zeros(1, device="cuda")
+            for _ in range(PROFILE_WARM):
+                warm.add_(1.0)
             torch.cuda.synchronize()
+            time.sleep(0.05)
+            with record_function("profiled window"):
+                call()
+                torch.cuda.synchronize()
         evs = prof.events()
-        kern = [e for e in evs if "CUDA" in str(getattr(e, "device_type", ""))]
+        # each record_function range also appears on the device as a user
+        # annotation spanning its kernels: not a kernel, never summed
+        labels = {"profiled window", *(lb for _, _, lb in spans.sites)}
+        on_device = [e for e in evs
+                     if "CUDA" in str(getattr(e, "device_type", ""))]
+        device = [e for e in on_device if e.name not in labels and
+                  not getattr(e, "is_user_annotation", False)]
+        start = min(e.time_range.start for e in evs
+                    if e.name == "profiled window" and
+                    "CPU" in str(getattr(e, "device_type", "")))
+        kern = [e for e in device if e.time_range.start >= start]
+        seen_warm = len(device) - len(kern)
         total = sum(e.self_device_time_total for e in kern) / 1e3
         inside = []
-        for _, _, name in spans.sites:  # the host-side span of each call
+        # the host-side span of each call (a label may name several sites)
+        for name in dict.fromkeys(lb for _, _, lb in spans.sites):
             rng_ = [e.time_range for e in evs if e.name == name and
                     "CPU" in str(getattr(e, "device_type", ""))]
             ks = [e for e in kern if any(r.start <= e.time_range.start <= r.end
@@ -2474,9 +2527,16 @@ def profile_two_stage(torch, runs, cfg, label, card):
                 inside.append(f"{name} {sum(e.self_device_time_total for e in ks) / 1e3:.3f} ms "
                               f"({len(ks)} kernels, {len(rng_)} calls, host "
                               f"{spans.spent.get(name, 0.0):.4f} s)")
+        for klabel, sub in kernel_names:
+            ks = [e for e in kern if sub in e.name]
+            inside.append(f"{klabel} {sum(e.self_device_time_total for e in ks) / 1e3:.3f} ms "
+                          f"({len(ks)} launches)")
         parts.append(f"{kind}: device kernels {total:.3f} ms over {len(kern)} "
-                     f"kernels; " + "; ".join(inside))
-    log(f"# 12b {label} profiled (torch.profiler, one {parts[0]}; one "
+                     f"kernels (the trace holds {seen_warm} of "
+                     f"{PROFILE_WARM} warm-up launches; "
+                     f"{len(on_device) - len(device)} range annotations "
+                     "left out); " + "; ".join(inside))
+    log(f"# {phase} {label} profiled (torch.profiler, one {parts[0]}; one "
         f"{parts[1]} [{card}]")
 
 
@@ -2552,10 +2612,10 @@ def two_stage_files_path(torch, card):
     log(f"# 12b: phase {time.time() - t_phase:.1f} s [{card}]")
 
 
-def nms_share(torch, model, batch, cfg, kind):
+def nms_share(torch, model, batch, cfg, kind, sites=None):
     """Two synchronised steps (a fresh optimizer) or requests of ``model``
-    on ``batch``, with the proposal NMS timed inside: 'kind s [...] of
-    which NMS [...] = [...]%'."""
+    on ``batch``, with the proposal NMS timed inside (``Spans(torch,
+    sites)``): 'kind s [...] of which NMS [...] = [...]%'."""
     from mssvt_tpu_torch.runtime.eval_utils import eval_step
     from mssvt_tpu_torch.runtime.optimization import build_optimizer
     from mssvt_tpu_torch.runtime.train_utils import train_step
@@ -2569,7 +2629,7 @@ def nms_share(torch, model, batch, cfg, kind):
         model.eval()
         call = lambda: eval_step(model, batch)
     walls, nms = [], []
-    with Spans(torch) as spans:
+    with Spans(torch, sites) as spans:
         for _ in range(2):
             spans.take()
             torch.cuda.synchronize()
@@ -2581,6 +2641,432 @@ def nms_share(torch, model, batch, cfg, kind):
     return (f"{kind} {[round(w, 4) for w in walls]} s, of which NMS "
             f"{[round(x, 4) for x in nms]} s = "
             f"{[round(100 * x / w, 1) for x, w in zip(nms, walls)]}%")
+
+
+# -------------------------------------------------------------- phase 13
+# the point-based two-stage family (PV-RCNN, PV-RCNN++, PointRCNN). K2c runs
+# PV-RCNN's keypoint FPS (2 x 16 384 -> 2 048) and PointRCNN's set
+# abstractions over more than 256 points (16 384 -> 4 096, 4 096 -> 1 024,
+# 1 024 -> 256), K2b PointRCNN's last one (256 -> 64); PV-RCNN++ samples its
+# keypoints with the masked sector FPS, plain on the card, and launches no
+# kernel. 13b trains and serves the three shipped configs at the yaml's
+# batch 2 on a KITTI tree of 11b's seeded writer, 4 train frames (2 steps)
+# and 2 val frames (1 request).
+POINT_TINY = ("pvrcnn", "pvrcnn_plusplus", "pointrcnn")
+POINT_YAMLS = ("pv_rcnn", "pv_rcnn_plusplus", "pointrcnn")
+POINT_LAUNCHES = {  # each step and request of 13b
+    "pv_rcnn": launches(fps_picks_block=1),
+    "pv_rcnn_plusplus": launches(),
+    "pointrcnn": launches(fps_picks_block=3, fps_picks_warp=1)}
+POINT_FILES = dict(train=[f"{i:06d}" for i in range(4)],
+                   val=[f"{i:06d}" for i in range(4, 6)], points=120_000)
+POINT_TINY_RANGE = (0.0, -6.4, -2.0, 12.8, 6.4, 2.0)
+POINT_TINY_ROWS = 512  # raw point rows a frame of 13a
+
+
+def point_tiny_cfg(name):
+    """13a's configs: the JAX suite's tiny PV-RCNN (FPS keypoints),
+    PV-RCNN++ (SPC keypoints, the vector pool) and PointRCNN
+    (``tests/test_pvrcnn_pointrcnn.py``), DP_RATIO 0 (the card's and the
+    CPU's dropout streams differ); PointRCNN's proposal NMS takes every
+    point as a candidate and keeps every box it does not suppress (its
+    foreground boxes, at copies of one point, must not fall past a cut by
+    score), with the adam_onecycle recipe of ``pv_rcnn.yaml``."""
+    from mssvt_tpu_torch.utils.edict import EasyDict
+
+    nms = {"TRAIN": {"NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.8,
+                     "NMS_PRE_MAXSIZE": 64, "NMS_POST_MAXSIZE": 16},
+           "TEST": {"NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.7,
+                    "NMS_PRE_MAXSIZE": 64, "NMS_POST_MAXSIZE": 16}}
+    opt = load_cfg("tools/cfgs/kitti_models/pv_rcnn.yaml").OPTIMIZATION
+    if name == "pointrcnn":
+        for split in nms.values():
+            split.update(NMS_PRE_MAXSIZE=POINT_TINY_ROWS,
+                         NMS_POST_MAXSIZE=POINT_TINY_ROWS)
+        model = {
+            "NAME": "PointRCNN", "MAX_POINTS": POINT_TINY_ROWS,
+            "BACKBONE_3D": {"NAME": "PointNet2MSG", "SA_CONFIG": {
+                "NPOINTS": [128, 32], "RADIUS": [[0.4, 0.8], [0.8, 1.6]],
+                "NSAMPLE": [[8, 8], [8, 8]],
+                "MLPS": [[[8, 8], [8, 8]], [[16, 16], [16, 16]]]},
+                "FP_MLPS": [[16, 16], [16, 16]]},
+            "POINT_HEAD": {"NAME": "PointHeadBox", "CLS_FC": [16],
+                           "REG_FC": [16], "MEAN_SIZES": [[3.9, 1.6, 1.56]]},
+            "ROI_HEAD": {"NAME": "PointRCNNHead", "NUM_SAMPLED_POINTS": 32,
+                         "XYZ_UP_LAYER": [[16, 16]], "SHARED_FC": [32],
+                         "NMS_CONFIG": nms,
+                         "TARGET_CONFIG": {"ROI_PER_IMAGE": 16}},
+            "POST_PROCESSING": {"SCORE_THRESH": 0.1}}
+        return EasyDict({"MODEL": model, "OPTIMIZATION": opt})
+    anchor = {"class_name": "Car", "anchor_sizes": [[3.9, 1.6, 1.56]],
+              "anchor_rotations": [0, 1.57], "anchor_bottom_heights": [-1.78],
+              "align_center": False, "feature_map_stride": 8,
+              "matched_threshold": 0.6, "unmatched_threshold": 0.45}
+    source = {"POOL_RADIUS": [1.6], "NSAMPLE": [8], "MLPS": [[16, 16]]}
+    if name == "pvrcnn_plusplus":
+        source = {"NAME": "VectorPoolAggregationModuleMSG", "GRID_SIZE": 2,
+                  "POOL_RADIUS": [1.6], "NSAMPLE": [16], "MLPS": [[16, 16]]}
+    model = {
+        "NAME": "PVRCNNPlusPlus" if name == "pvrcnn_plusplus" else "PVRCNN",
+        "MAX_POINTS": POINT_TINY_ROWS, "VFE": {"NAME": "MeanVFE"},
+        "BACKBONE_3D": {"NAME": "VoxelBackBone8x",
+                        "NUM_FILTERS": [8, 16, 16, 16], "OUT_CHANNELS": 32},
+        "BACKBONE_2D": {"NAME": "BaseBEVBackbone", "LAYER_NUMS": [2, 2],
+                        "LAYER_STRIDES": [1, 2], "NUM_FILTERS": [16, 32],
+                        "UPSAMPLE_STRIDES": [1, 2],
+                        "NUM_UPSAMPLE_FILTERS": [16, 16]},
+        "DENSE_HEAD": {
+            "NAME": "AnchorHeadSingle", "CLASS_AGNOSTIC": False,
+            "USE_DIRECTION_CLASSIFIER": True, "DIR_OFFSET": 0.78539,
+            "NUM_DIR_BINS": 2, "ANCHOR_GENERATOR_CONFIG": [anchor],
+            "LOSS_CONFIG": {"LOSS_WEIGHTS": {
+                "cls_weight": 1.0, "loc_weight": 2.0, "dir_weight": 0.2,
+                "code_weights": [1.0] * 7}}},
+        "PFE": {"NAME": "VoxelSetAbstraction", "NUM_KEYPOINTS": 64,
+                "NUM_OUTPUT_FEATURES": 32,
+                "SAMPLE_METHOD": "FPS" if name == "pvrcnn" else "SPC",
+                "SPC_SAMPLING": {"NUM_SECTORS": 4,
+                                 "SAMPLE_RADIUS_WITH_ROI": 2.4},
+                "SA_LAYER": {"raw_points": {"POOL_RADIUS": [0.8],
+                                            "NSAMPLE": [8], "MLPS": [[8, 8]]},
+                             "x_conv_out": source}},
+        "POINT_HEAD": {"NAME": "PointHeadSimple", "CLS_FC": [16]},
+        "ROI_HEAD": {"NAME": "PVRCNNHead", "GRID_SIZE": 3, "SHARED_FC": [32],
+                     "DP_RATIO": 0.0,
+                     "ROI_GRID_POOL": {"POOL_RADIUS": [0.8], "NSAMPLE": [8],
+                                       "MLPS": [[16, 16]]},
+                     "NMS_CONFIG": nms, "TARGET_CONFIG": {"ROI_PER_IMAGE": 16}},
+        "POST_PROCESSING": {"SCORE_THRESH": 0.1}}
+    return EasyDict({"MODEL": model, "OPTIMIZATION": opt})
+
+
+def point_tiny(name, seed):
+    """13a: (config, build args, scene): the JAX suite's tiny grid (32^3
+    cells of 0.4 x 0.4 x 0.125 m over a 12.8 m range), up to 256 seeded
+    voxels and 512 raw point rows a frame (17 padding rows in the second),
+    two Car GT boxes a frame. PV-RCNN's boxes lie 0.2-0.4 m off anchors
+    (foreground RoIs); PointRCNN's 0.15 m off a point that the frame holds
+    8 copies of (its box, the class mean size at the point, is then a
+    foreground candidate, and the copies tie exactly on either device, so
+    the NMS keeps the first of them on both)."""
+    import numpy as np
+
+    cfg = point_tiny_cfg(name)
+    pcr = POINT_TINY_RANGE
+    grid, vs, bsz, slots = (32, 32, 32), (0.4, 0.4, 0.125), 2, 256
+    rng = np.random.default_rng(seed)
+    cells = np.unique(np.stack([
+        rng.integers(0, bsz, 2 * bsz * slots), rng.integers(0, 32, 2 * bsz * slots),
+        rng.integers(0, 16, 2 * bsz * slots),
+        rng.integers(0, 16, 2 * bsz * slots)], 1), axis=0)
+    coords = np.full((bsz * slots, 4), -1, np.int32)
+    valid = np.zeros(bsz * slots, bool)
+    for b in range(bsz):
+        cb = cells[cells[:, 0] == b][:slots]
+        coords[b * slots:b * slots + len(cb)] = cb
+        valid[b * slots:b * slots + len(cb)] = True
+    voxels = (rng.normal(size=(bsz * slots, 4, 4)) * valid[:, None, None]
+              ).astype(np.float32)
+    rows = POINT_TINY_ROWS
+    pts = np.zeros((bsz * rows, 4), np.float32)
+    pvalid = np.zeros(bsz * rows, bool)
+    gt = np.zeros((bsz, 6, 8), np.float32)
+    for b in range(bsz):
+        n, lo = rows - 17 * b, b * rows
+        pts[lo:lo + n, :3] = rng.uniform(pcr[:3], pcr[3:], (n, 3))
+        pts[lo:lo + n, 3] = rng.uniform(0, 1, n)
+        pvalid[lo:lo + n] = True
+        for j in range(2):
+            if name == "pointrcnn":
+                p = pts[lo + 100 * (j + 1)].copy()
+                pts[lo + 100 * (j + 1):lo + 100 * (j + 1) + 8] = p
+                ctr = p[:3] + np.array([0.15, -0.1, 0.05])
+            else:
+                ix, iy = 1 + (j + b) % 2, 1 + (j + b + 1) % 2
+                ctr = [ix * TINY_ANCHOR_STEP + rng.uniform(0.2, 0.4),
+                       -6.4 + iy * TINY_ANCHOR_STEP + rng.uniform(0.2, 0.4),
+                       -1.0 + rng.uniform(-0.1, 0.1)]
+            gt[b, j] = [*ctr, 3.9, 1.6, 1.56,
+                        rng.uniform(-0.1, 0.1) + (1.57 if j and name != "pointrcnn"
+                                                  else 0.0), 1]
+    scene = {"voxels": voxels,
+             "voxel_num_points": np.full(bsz * slots, 3.0, np.float32) * valid,
+             "voxel_coords": coords, "voxel_valid": valid, "points": pts,
+             "points_valid": pvalid, "gt_boxes": gt}
+    args = (cfg.MODEL, 1, ["Car"], grid, vs, pcr, bsz, slots, 4)
+    return cfg, args, scene
+
+
+def point_tiny_models(torch, args, scene, seed):
+    """13a's model on the CPU and on the card with equal seeded weights:
+    BatchNorm statistics from one train-mode forward of the scene (as
+    ``kitti_tiny_models``), the anchor head's class bias zero; PointRCNN's
+    box output kernel scaled by 0.01 with a cos bias of 1 (boxes of the
+    class mean size at each point, heading ~0)."""
+    from mssvt_tpu_torch.models import build_network
+    from mssvt_tpu_torch.models.model_utils.layers import BatchNorm
+
+    cpu = build_network(*args, num_point_features=4, device="cpu", seed=seed)
+    bns = [m for m in cpu.modules() if isinstance(m, BatchNorm)]
+    moms = [m.momentum for m in bns]
+    with torch.no_grad():
+        if hasattr(cpu, "dense_head"):
+            cpu.dense_head.conv_cls.bias.zero_()
+        else:
+            out = cpu.point_head.reg_out
+            out.weight.mul_(0.01)
+            out.bias.zero_()
+            out.bias[6] = 1.0
+        for m in bns:
+            m.momentum = 0.0
+        cpu.train()(to_device(torch, scene, "cpu"))
+    for m, mom in zip(bns, moms):
+        m.momentum = mom
+    card = build_network(*args, num_point_features=4, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    return cpu.eval(), card
+
+
+def point_tiny_check(torch, name, seed):
+    """13a for one model: tiny, f32, on the card against the CPU plain path
+    on the same weights: the refined boxes of each frame as sets within
+    1e-3 of max(1, |value|); one ``train_step``: loss within 1e-4
+    relative, gradient norm within 1e-3, foreground RoIs; the card's
+    gradients bit-identical when its forward and backward repeat from the
+    same weights and batch. Returns the numbers for the log."""
+    import copy
+    import math
+
+    from mssvt_tpu_torch.runtime.optimization import build_optimizer
+    from mssvt_tpu_torch.runtime.train_utils import forward_backward, train_step
+
+    cfg, args, scene = point_tiny(name, seed)
+    models = dict(zip(("cpu", "cuda"),
+                      point_tiny_models(torch, args, scene, seed)))
+    res = {}
+    for dev, model in models.items():
+        batch = to_device(torch, scene, dev)
+        with torch.no_grad():
+            out = model(batch)
+        snapshot = copy.deepcopy(model)
+        opt, _ = build_optimizer(cfg.OPTIMIZATION, model.named_parameters(),
+                                 total_steps=10, steps_per_epoch=5)
+        loss, tb = train_step(model, opt, batch, torch.Generator(device=dev))
+        grads = [p.grad.clone() for p in model.parameters()]
+        gnorm = math.sqrt(sum(float((g.double() ** 2).sum()) for g in grads))
+        res[dev] = (out, float(loss), gnorm, tb)
+        if dev == "cuda":
+            snapshot.zero_grad()
+            forward_backward(snapshot, batch, torch.Generator(device=dev))
+            if not all(torch.equal(p.grad, g) for p, g in
+                       zip(snapshot.parameters(), grads)):
+                raise AssertionError(f"13a {name}: the repeated backward's "
+                                     "gradients differ")
+    torch.cuda.synchronize()
+    (oc, lc, gc, tbc), (og, lg, gg, _) = res["cpu"], res["cuda"]
+    n_kept, err = kept_box_sets_error(oc, og, relative=True)
+    if n_kept == 0 or err > 1e-3:
+        raise AssertionError(f"13a {name}: {n_kept} refined boxes (error "
+                             f"{err})")
+    rel, grel = abs(lg - lc) / abs(lc), abs(gg - gc) / gc
+    if rel > 1e-4 or grel > 1e-3 or not math.isfinite(lg):
+        raise AssertionError(f"13a {name}: loss {lg} vs {lc}, gradient "
+                             f"norm {gg} vs {gc}")
+    if float(tbc["rcnn_loss_reg"]) <= 0:
+        raise AssertionError(f"13a {name}: no foreground RoI ({tbc})")
+    return dict(kept=(n_kept, err), loss=(lg, lc, rel), gnorm=(gg, gc, grel),
+                detector=type(models["cuda"]).__name__)
+
+
+def point_tiny_reference(torch):
+    """13a: ``point_tiny_check`` for the tiny PV-RCNN, PV-RCNN++ and
+    PointRCNN: K2c launched by PV-RCNN and PointRCNN, K2b by PointRCNN, no
+    other kernel of K1-K7 by any."""
+    from mssvt_tpu_torch import kernels
+
+    for name in POINT_TINY:
+        kernels.reset_launch_counts()
+        r = point_tiny_check(torch, name, seed=23)
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        want = {"pvrcnn": {"fps_picks_block"}, "pvrcnn_plusplus": set(),
+                "pointrcnn": {"fps_picks_block", "fps_picks_warp"}}[name]
+        if set(counts) != want:
+            raise AssertionError(f"13a {name}: launches {counts}")
+        log(f"# 13a tiny {name} ({r['detector']}, f32): {r['kept'][0]} "
+            f"refined boxes agree as sets within {r['kept'][1]:.3g} of "
+            f"max(1, |value|); one train_step: loss card {r['loss'][0]:.6f} "
+            f"vs CPU {r['loss'][1]:.6f} (relative {r['loss'][2]:.3g}), "
+            f"gradient norm {r['gnorm'][0]:.6g} vs {r['gnorm'][1]:.6g} "
+            f"(relative {r['gnorm'][2]:.3g}); repeated backward "
+            f"bit-identical; launches (eval, step, repeat) {counts or 'none'}")
+
+
+def point_sites():
+    """``Spans`` sites of 13b: the proposal NMS (PV-RCNN's through
+    ``propose``, PointRCNN's own), the ball-query groupings, the vector
+    pool, the sector FPS, the 3-NN and the interpolation, and the RoI point
+    pool."""
+    from mssvt_tpu_torch.models.backbones_3d import pfe, pointnet2_backbone
+    from mssvt_tpu_torch.models.detectors import point_rcnn
+    from mssvt_tpu_torch.models.roi_heads import pvrcnn_head, roi_head_template
+
+    return [(roi_head_template, "proposal_layer", "proposal NMS"),
+            (point_rcnn, "proposal_layer", "proposal NMS"),
+            (pfe, "query_and_group", "query_and_group"),
+            (pvrcnn_head, "query_and_group", "query_and_group"),
+            (pointnet2_backbone, "query_and_group", "query_and_group"),
+            (pfe, "vector_pool", "vector_pool"),
+            (pfe, "sector_fps", "sector_fps"),
+            (pointnet2_backbone, "three_nn", "three_nn"),
+            (pointnet2_backbone, "three_interpolate", "three_interpolate"),
+            (point_rcnn, "roipoint_pool3d", "roipoint_pool3d")]
+
+
+def request_fps_check(torch, model, batch, name, card):
+    """13b: every FPS call of one request of ``model`` on a full-width
+    request's own points (PV-RCNN's keypoints, 2 x 16 384 -> 2 048; PointRCNN's
+    four set abstractions, 16 384 -> 4 096, 4 096 -> 1 024, 1 024 -> 256 on
+    K2c and 256 -> 64 on K2b) recorded as the model makes it; each call's
+    picks, which the kernel made, equal to ``fps_plain``'s on the same card
+    planes, and both timed (CUDA events), with the kernel's bound (the planes
+    read once, the picks written once, vs ~10 f32 operations a point and
+    iteration). One line a call."""
+    from mssvt_tpu_torch.kernels import fps
+    from mssvt_tpu_torch.models.backbones_3d import pfe, pointnet2_backbone
+    from mssvt_tpu_torch.runtime.eval_utils import eval_step
+
+    calls, sites = [], (pfe, pointnet2_backbone)
+    original = pfe.farthest_point_sample
+
+    def recorded(xyz, npoint):
+        picks = original(xyz, npoint)
+        calls.append((xyz.detach().float(), int(npoint), picks))
+        return picks
+
+    try:
+        for mod in sites:
+            mod.farthest_point_sample = recorded
+        model.eval()
+        eval_step(model, batch)
+    finally:
+        for mod in sites:
+            mod.farthest_point_sample = original
+    want = {"pv_rcnn": [(16384, 2048)],
+            "pointrcnn": [(16384, 4096), (4096, 1024), (1024, 256),
+                          (256, 64)]}[name]
+    got = [(xyz.shape[1], npoint) for xyz, npoint, _ in calls]
+    if got != want:
+        raise AssertionError(f"13b {name}: FPS calls (N, npoint) {got} != "
+                             f"{want}")
+    for xyz, npoint, picks in calls:
+        x, y, z = (xyz[..., i].contiguous() for i in range(3))
+        b, n = x.shape
+        kernel = "K2b" if n <= fps.MAX_N else "K2c"
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        plain = fps.fps_plain(x, y, z, (), npoint)[0]
+        end.record()
+        torch.cuda.synchronize()
+        if not torch.equal(picks, plain):
+            raise AssertionError(f"13b {name}: {kernel}'s picks at {b} x {n} "
+                                 f"-> {npoint} != fps_plain's")
+        ms = time_ms(torch, lambda: fps.fps_picks(x, y, z, npoint), reps=5)
+        t_by = (3 * b * n * 4 + b * npoint * 4) / MEM_BPS
+        t_op = b * (npoint - 1) * n * 10 / F32_FLOPS
+        log(f"# 13b {name} {kernel} on the request's own points ({b} x {n} "
+            f"-> {npoint}): picks equal fps_plain's; ms={ms:.4f} "
+            f"plain_ms={start.elapsed_time(end):.4f} "
+            f"bound_ms={max(t_by, t_op) * 1e3:.4f} "
+            f"({'bytes' if t_by >= t_op else 'operations'}) [{card}]")
+
+
+def point_files_path(torch, card):
+    """13b: ``pv_rcnn.yaml``, ``pv_rcnn_plusplus.yaml`` and ``pointrcnn.yaml``
+    at their published widths (f32) and batch (2), trained for one epoch
+    (2 steps) and served (1 request) through the entry points from a
+    file-backed KITTI tree with gt_sampling on, then the official R40
+    evaluation of ``result.pkl``. Each step and request launches K2c/K2b
+    as ``POINT_LAUNCHES`` says and nothing else. Prints points a frame
+    against MAX_POINTS, live RoIs a frame, each synchronised step and
+    request with the proposal NMS's share, the profiled step and request
+    of PV-RCNN and PointRCNN (K2c's and K2b's device time, the groupings,
+    the 3-NN, the interpolation, the RoI point pool; PV-RCNN++'s ~90 000
+    launches a step and a request cost ~25 s to profile, and its sector
+    FPS is timed by the host clock), the peaks and the phase's seconds."""
+    import shutil
+
+    from mssvt_tpu_torch.datasets.kitti import KittiDataset, create_kitti_infos
+    from mssvt_tpu_torch.datasets.synthetic_files import write_kitti_tree
+    from mssvt_tpu_torch.utils.edict import EasyDict
+
+    t_phase = time.time()
+    root = FILES_DATA / "kitti_point"
+    shutil.rmtree(root, ignore_errors=True)
+    write_kitti_tree(root, POINT_FILES["train"], POINT_FILES["val"],
+                     POINT_FILES["points"], seed=0)
+    sites = point_sites()
+    kernel_names = (("K2c", "fps_block_kernel"), ("K2b", "fps_kernel"))
+    prepared = False
+    for name in POINT_YAMLS:
+        t_model = time.time()
+        cfg_path, cfg = files_config(f"tools/cfgs/kitti_models/{name}.yaml",
+                                     {"DATA_PATH": str(root)},
+                                     f"{name}_kitti_files")
+        data, classes = EasyDict(cfg["DATA_CONFIG"]), cfg["CLASS_NAMES"]
+        if not prepared:
+            create_kitti_infos(data, ["Car", "Pedestrian", "Cyclist"], root,
+                               root)
+            prepared = True
+        bsz = int(cfg["OPTIMIZATION"]["BATCH_SIZE_PER_GPU"])
+        label = f"13b {name}"
+        with Spans(torch, sites) as spans:
+            seen = drive_files_entry_points(
+                torch, cfg_path,
+                ROOT / "output" / "chip_smoke" / "point_runs" / name, label,
+                batch=bsz)
+        want = POINT_LAUNCHES[name]
+        if len(seen["request"]) != 1:
+            raise AssertionError(f"{label}: {len(seen['request'])} requests")
+        for kind in ("step", "request"):
+            for i, (per, *_r) in enumerate(seen[kind]):
+                if per != want:
+                    raise AssertionError(f"{label} {kind} {i}: launches {per}"
+                                         f" != {want}")
+        loader_line(seen, cfg, label, card, batch=bsz)
+        max_points = int(cfg["MODEL"]["MAX_POINTS"])
+        pts = [int(v) for kind in ("step", "request") for _, b, _ in seen[kind]
+               for v in b["points_valid"].reshape(bsz, -1).sum(1).tolist()]
+        live = spans.live
+        nms_cfg = cfg["MODEL"]["ROI_HEAD"]["NMS_CONFIG"]
+        log(f"# {label}: raw points a frame {pts} against MAX_POINTS "
+            f"{max_points}; live RoIs a frame after the proposal NMS, train "
+            f"{live[:len(seen['step'])]} (post "
+            f"{nms_cfg['TRAIN']['NMS_POST_MAXSIZE']} of "
+            f"{nms_cfg['TRAIN']['NMS_PRE_MAXSIZE']} candidates), test "
+            f"{live[len(seen['step']):]} (post "
+            f"{nms_cfg['TEST']['NMS_POST_MAXSIZE']} of "
+            f"{nms_cfg['TEST']['NMS_PRE_MAXSIZE']}); launches a step and a "
+            f"request { {k: v for k, v in want.items() if v} or 'none'}; "
+            f"sector_fps host {spans.spent.get('sector_fps', 0.0):.4f} s over "
+            f"the entry points [{card}]")
+        ds = KittiDataset(data, classes, training=False, seed=0)
+        kitti_official_check(seen["result"], root, ds, classes, label)
+        runs = {kind: (seen[f"{kind}_model"], seen[kind][-1][1])
+                for kind in ("step", "request")}
+        if name != "pv_rcnn_plusplus":  # its keypoints: the masked FPS
+            request_fps_check(torch, *runs["request"], name, card)
+        shares = [nms_share(torch, *runs[kind], cfg, kind, sites)
+                  for kind in runs]
+        log(f"# {label}: proposal NMS share by the host clock, "
+            + "; ".join(shares) + f" [{card}]")
+        if name != "pv_rcnn_plusplus":  # its sector FPS: ~90 000 launches
+            profile_two_stage(torch, runs, cfg, name, card, sites=sites,
+                              phase="13b", kernel_names=kernel_names)
+        log(f"# {label}: entry points {seen['seconds']:.1f} s; model "
+            f"{time.time() - t_model:.1f} s [{card}]")
+        del runs, seen
+        torch.cuda.empty_cache()
+    log(f"# 13b: phase {time.time() - t_phase:.1f} s [{card}]")
 
 
 # --------------------------------------------------------------- phase 5
@@ -3308,6 +3794,12 @@ def main(argv):
     # phase 12: the two-stage voxel family (no kernel of K1-K7 on its path)
     two_stage_tiny_reference(torch)
     two_stage_files_path(torch, card)
+    torch.cuda.empty_cache()
+    # phase 13: the point-based two-stage family (K2c and K2b on its FPS)
+    t13 = time.time()
+    point_tiny_reference(torch)
+    point_files_path(torch, card)
+    log(f"# 13: phase {time.time() - t13:.1f} s [{card}]")
     for name, counts_ in (("attention_qk", off_counts),
                           ("attention_qk_bwd", off_counts),
                           ("fps_picks_warp", sampling_counts),

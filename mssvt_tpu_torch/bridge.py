@@ -21,7 +21,13 @@ is mechanical. Layout rules:
   is.
 
 The RoI heads' submodules carry their flax names too
-(``{stage}_sa_{i}/mlp/mlp_j``, ``shared_fc_i``, ``conv3d_i``, ...).
+(``{stage}_sa_{i}/mlp/mlp_j``, ``shared_fc_i``, ``conv3d_i``, ...), and so
+do the point-based family's: the PFE's ``raw_mlp_{i}``, ``{src}_mlp_{i}``,
+``{src}_vp_fc_{i}`` / ``{src}_vp_bn_{i}``, ``vsa_point_fc`` and ``vsa_bn``;
+the PV-RCNN head's ``pool_mlp_{i}``, ``shared_fc_{i}`` / ``shared_bn_{i}``,
+``cls_out`` and ``reg_out``; the point heads' ``cls_fc_{i}`` /
+``cls_bn_{i}`` and ``reg_fc_{i}`` / ``reg_bn_{i}``; PointNet2MSG's
+``sa_{i}/mlp_g{j}`` and ``fp_{i}/mlp``; PointRCNN's RoI head ``up_{i}``.
 
 MixedScaleAttention's per-group ``to_q_i``/``to_kv_i``/``proj_i`` are
 stored as they are (the block-diagonal folding happens at call time), and

@@ -57,12 +57,11 @@ class SparseVoxels:
 
     def metric_centers(self) -> torch.Tensor:
         """(max_voxels, 3) metric x, y, z of each voxel's centre."""
-        dev = self.coords.device
-        vs = torch.tensor(self.voxel_size, dtype=torch.float32, device=dev)
-        mins = torch.tensor(self.point_cloud_range[:3], dtype=torch.float32,
-                            device=dev)
         xyz = self.coords[:, [3, 2, 1]].to(torch.float32)
-        return (xyz + 0.5) * vs + mins
+        # python scalars (cast to f32 in the kernel): no host copy, no sync
+        return torch.stack([(xyz[:, i] + 0.5) * self.voxel_size[i]
+                            + self.point_cloud_range[i] for i in range(3)],
+                           dim=-1)
 
     def per_sample(self, max_per_sample=None):
         """The flat rows re-laid out per frame: (xyz (B, M, 3) metric

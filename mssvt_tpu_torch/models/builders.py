@@ -3,9 +3,9 @@
 families: the MsSVT CenterPoint path (MeanVFE -> MixedScaleSparseTransformer
 -> HeightCompression -> BaseBEVBackbone -> CenterHead), the SECOND and
 PointPillar families (the Pillar/Hard/Dynamic VFEs, the sparse-conv
-backbones, PointPillarScatter, AnchorHeadSingle) and the two-stage voxel
-family's UNetV2 (the RoI and point heads are built by their detectors, as
-in the JAX package). Any other name raises and points at ROADMAP.md, where
+backbones, PointPillarScatter, AnchorHeadSingle), the two-stage voxel
+family's UNetV2 and PointRCNN's PointNet2MSG (the PFE, the RoI and point
+heads are built by their detectors, as in the JAX package). Any other name raises and points at ROADMAP.md, where
 the rest of the zoo is queued.
 """
 
@@ -19,6 +19,7 @@ import torch
 from .backbones_2d.base_bev_backbone import BaseBEVBackbone
 from .backbones_2d.map_to_bev import HeightCompression, PointPillarScatter
 from .backbones_3d.mssvt import MixedScaleSparseTransformer
+from .backbones_3d.pointnet2_backbone import PointNet2MSG
 from .backbones_3d.spconv_backbone import VoxelBackBone8x, VoxelResBackBone8x
 from .backbones_3d.spconv_unet import UNetV2
 from .backbones_3d.vfe import DynamicVFE, HardVFE, MeanVFE, PillarVFE
@@ -112,6 +113,11 @@ BACKBONE_3D = {
         num_filters=tuple(cfg.get("NUM_FILTERS", [16, 32, 64, 64])),
         out_channels=int(cfg.get("OUT_CHANNELS", 128)), dtype=ctx.dtype),
 }
+# the raw points' features past xyz feed the first set abstraction
+BACKBONE_3D["PointNet2MSG"] = BACKBONE_3D["PointNet2Backbone"] = \
+    lambda cfg, ctx: PointNet2MSG(
+        model_cfg=cfg, input_channels=ctx.num_point_features - 3,
+        dtype=ctx.dtype)
 
 MAP_TO_BEV = {
     "HeightCompression": lambda cfg, ctx: HeightCompression(

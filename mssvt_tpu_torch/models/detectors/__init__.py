@@ -1,14 +1,21 @@
+import inspect
+
 import torch
 
 from .centerpoint import CenterPoint
 from .part_a2 import PartA2Net
+from .point_rcnn import PointRCNN
 from .pointpillar import PointPillar
+from .pv_rcnn import PVRCNN
 from .second_net import SECONDNet
 from .second_net_iou import SECONDNetIoU
 from .voxel_rcnn import VoxelRCNN
 
+# PVRCNNPlusPlus is PVRCNN with SPC keypoint sampling and the vector-pool
+# source, both chosen by its PFE config (as the JAX registry maps it)
 __all__ = {"CenterPoint": CenterPoint, "PartA2": PartA2Net,
-           "PointPillar": PointPillar, "SECOND": SECONDNet,
+           "PointPillar": PointPillar, "PointRCNN": PointRCNN,
+           "PVRCNN": PVRCNN, "PVRCNNPlusPlus": PVRCNN, "SECOND": SECONDNet,
            "SECONDNet": SECONDNet, "SECONDNetIoU": SECONDNetIoU,
            "VoxelRCNN": VoxelRCNN}
 
@@ -20,11 +27,16 @@ _DTYPES = {
 
 def build_detector(model_cfg, **kw):
     """Registry lookup of ``MODEL.NAME``; ``MODEL.DTYPE`` sets the compute
-    dtype (parameters stay float32)."""
+    dtype (parameters stay float32); ``MODEL.MAX_POINTS`` is the raw-point
+    rows a frame of the point-based detectors."""
     name = model_cfg["NAME"]
     if name not in __all__:
         raise NotImplementedError(
             f"detector '{name}' is not ported to mssvt_tpu_torch yet "
             "(see ROADMAP.md)")
     dtype = _DTYPES[str(model_cfg.get("DTYPE", "float32")).lower()]
-    return __all__[name](model_cfg=model_cfg, dtype=dtype, **kw)
+    cls = __all__[name]
+    if "max_points" in inspect.signature(cls).parameters and \
+            "MAX_POINTS" in model_cfg:
+        kw["max_points"] = int(model_cfg["MAX_POINTS"])
+    return cls(model_cfg=model_cfg, dtype=dtype, **kw)

@@ -28,6 +28,16 @@ def apply_vfe(vfe, batch):
     raise NotImplementedError(f"VFE {type(vfe).__name__} (see ROADMAP.md)")
 
 
+def per_sample_points(batch, batch_size: int, max_points: int):
+    """The flat ``points`` (B * P, C) rows as (xyz (B, P, 3), features (B,
+    P, C - 3) or None, valid (B, P)), padding rows zeroed (at the origin)."""
+    pts = batch["points"].reshape(batch_size, max_points, -1).float()
+    valid = batch["points_valid"].reshape(batch_size, max_points)
+    m = valid[..., None].to(pts.dtype)
+    feat = pts[..., 3:] * m
+    return pts[..., :3] * m, (feat if feat.shape[-1] else None), valid
+
+
 def apply_backbone_3d(b3d, sp, generator=None):
     """The 3D backbone on ``sp`` (DropPath and dropout draw from
     ``generator`` where the family has them)."""

@@ -1,13 +1,32 @@
-"""PointNet++ primitives (torch counterpart of ``mssvt_tpu/ops/pointnet2.py``).
+"""PointNet++ primitives (torch counterpart of ``mssvt_tpu/ops/pointnet2.py``;
+ref: pcdet/ops/pointnet2/ and ops/roipoint_pool3d/), on padded batch
+tensors with validity masks, plain PyTorch on both devices.
 
-Only :func:`points_in_boxes` is ported so far (PartA2's point targets);
-``ball_query``, ``query_and_group``, ``roipoint_pool3d`` and
-``vector_pool`` wait for PV-RCNN and PointRCNN (ROADMAP.md).
+- :func:`ball_query`, :func:`query_and_group`: the first ``nsample``
+  support points within a radius of each query, in index order, slot 0
+  replicated into the unfilled slots (ball_query_gpu.cu).
+- :func:`points_in_boxes`, :func:`roipoint_pool3d`: the first
+  ``num_sampled_points`` points inside each box, wrapped modulo the count
+  where fewer (roipoint_pool3d_kernel.cu:38-103).
+- :func:`vector_pool`: PV-RCNN++'s local-grid mean pooling
+  (vector_pool_gpu.cu).
+
+The first-k fill is a search, not a scatter: the running count of hits
+along the support axis (int32) is nondecreasing, so the j-th hit is the
+first position where the count reaches j + 1 (``torch.searchsorted``).
+Every slot is written once, so the result is the same on every run, and
+no (..., 3) difference tensor is built: the squared distances come from
+the coordinate planes in JAX's order of operations. The gathers of
+features go through ``sampling.gather_batch_rows`` (a deterministic
+backward, however many picks a row collects: an empty query picks row 0
+``nsample`` times).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .sampling import gather_batch_rows
 
 
 def points_in_boxes(points, boxes):
@@ -23,3 +42,103 @@ def points_in_boxes(points, boxes):
     half = boxes[..., None, :, 3:6] / 2
     return ((lx.abs() <= half[..., 0]) & (ly.abs() <= half[..., 1])
             & (lz.abs() <= half[..., 2]))
+
+
+def first_hits(mask, k: int):
+    """(..., N) bool -> (..., k) int32: the indices of the first ``k`` set
+    entries in index order, -1 past the last one."""
+    n = mask.shape[-1]
+    count = torch.cumsum(mask, dim=-1, dtype=torch.int32)
+    want = torch.arange(1, k + 1, dtype=torch.int32, device=mask.device)
+    pos = torch.searchsorted(count, want.expand(mask.shape[:-1] + (k,))
+                             .contiguous(), out_int32=True)
+    return torch.where(pos < n, pos, -1)
+
+
+def ball_query(radius: float, nsample: int, xyz, new_xyz, xyz_valid=None):
+    """(B, N, 3) support points, (B, M, 3) queries -> idx (B, M, nsample)
+    int32 (the first ``nsample`` support points with squared distance below
+    ``radius ** 2``, in index order; the rest of the slots repeat slot 0,
+    0 when none), empty (B, M) bool."""
+    d2 = None
+    for i in range(3):
+        d = new_xyz[..., i].detach()[:, :, None] - xyz[..., i].detach()[:, None, :]
+        d2 = d * d if d2 is None else d2 + d * d
+    del d
+    in_ball = d2 < radius ** 2  # the bound rounded to f32, as JAX's
+    del d2
+    if xyz_valid is not None:
+        in_ball &= xyz_valid[:, None, :]
+    idx = first_hits(in_ball, nsample)
+    empty = idx[..., 0] < 0
+    first = torch.where(empty, 0, idx[..., 0])
+    return torch.where(idx >= 0, idx, first[..., None]), empty
+
+
+def query_and_group(radius, nsample, xyz, new_xyz, features=None,
+                    xyz_valid=None, use_xyz=True):
+    """:func:`ball_query` and the grouped (B, M, nsample, 3 [+ C]) rows:
+    each neighbour's xyz relative to its query, then its features; zero
+    for an empty query. Returns (grouped, empty)."""
+    idx, empty = ball_query(radius, nsample, xyz, new_xyz, xyz_valid)
+    parts = []
+    if use_xyz:
+        parts.append(gather_batch_rows(xyz, idx) - new_xyz[:, :, None, :])
+    if features is not None:
+        parts.append(gather_batch_rows(features, idx))
+    return torch.cat(parts, dim=-1) * (~empty)[..., None, None], empty
+
+
+def roipoint_pool3d(points, point_features, boxes, num_sampled_points: int,
+                    points_valid=None):
+    """(B, N, 3) points, (B, N, C) features, (B, M, 7) boxes -> pooled (B,
+    M, num_sampled_points, 3 + C) (the first points inside each box in
+    index order, the slots past the box's count wrapping modulo it; zero
+    for an empty box), empty (B, M) bool."""
+    k = num_sampled_points
+    inside = points_in_boxes(points.detach(), boxes.detach())  # (B, N, M)
+    if points_valid is not None:
+        inside &= points_valid[:, :, None]
+    inside = inside.transpose(1, 2)  # (B, M, N)
+    idx = first_hits(inside, k)
+    count = torch.clamp(inside.sum(-1, dtype=torch.int32), max=k)
+    empty = count == 0
+    slot = torch.arange(k, device=idx.device, dtype=torch.int32)
+    wrapped = slot % torch.clamp(count[..., None], min=1)
+    idx = torch.where(idx >= 0, idx, torch.gather(idx, -1, wrapped.long()))
+    idx = torch.clamp(idx, min=0)
+    feat = torch.cat([points, point_features.to(points.dtype)], dim=-1)
+    pooled = gather_batch_rows(feat, idx)  # (B, M, k, 3 + C)
+    return pooled * (~empty)[..., None, None], empty
+
+
+def vector_pool(queries_xyz, support_xyz, support_feat, support_valid,
+                radius: float, nsample: int, grid: int = 2):
+    """PV-RCNN++'s vector pool (ref: vector_pool_gpu.cu:19-433): each
+    query's ball neighbours (:func:`ball_query`) fall into a ``grid`` ^ 3
+    local grid over [-radius, radius] ^ 3; each cell's mean relative xyz
+    and mean features, concatenated (zero where the cell is empty) ->
+    pooled (B, M, grid ^ 3 * (3 + C)) f32, empty (B, M) bool."""
+    idx, empty = ball_query(radius, nsample, support_xyz, queries_xyz,
+                            support_valid)
+    g = int(grid)
+    rel = gather_batch_rows(support_xyz, idx) - queries_xyz[:, :, None, :]
+    nb_feat = gather_batch_rows(support_feat, idx)
+    # the replicated slots count once: slot j is real iff it is not slot 0's
+    real = torch.cat([torch.ones_like(idx[..., :1], dtype=torch.bool),
+                      idx[..., 1:] != idx[..., :1]], dim=-1) \
+        & (~empty)[..., None]
+    u = torch.clamp(((rel / radius + 1.0) * 0.5 * g).to(torch.int32), 0,
+                    g - 1)
+    cell = (u[..., 0] * g + u[..., 1]) * g + u[..., 2]
+    cells = torch.arange(g ** 3, device=idx.device, dtype=torch.int32)
+    onehot = ((cell[..., None] == cells) & real[..., None]).to(rel.dtype)
+    cnt = onehot.sum(dim=2)  # (B, M, G3)
+    inv = 1.0 / torch.clamp(cnt, min=1.0)
+    mean_rel = torch.einsum("bmsg,bmsc->bmgc", onehot, rel) * inv[..., None]
+    mean_feat = torch.einsum("bmsg,bmsc->bmgc", onehot.to(nb_feat.dtype),
+                             nb_feat) * inv[..., None].to(nb_feat.dtype)
+    out = torch.cat([mean_rel, mean_feat.to(rel.dtype)], dim=-1) \
+        * (cnt > 0)[..., None]
+    b, m = queries_xyz.shape[:2]
+    return out.reshape(b, m, -1).float(), empty

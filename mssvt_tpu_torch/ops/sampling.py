@@ -3,8 +3,11 @@
 
 The FPS of the MsSVT blocks runs as the K2 kernel
 (:func:`farthest_point_sample_planes_select` -> ``kernels/fps.py``), the
-selection-free :func:`farthest_point_sample_planes` as K2b/K2c; the rest
-are plain tensor ops.
+selection-free :func:`farthest_point_sample_planes` (and the point
+detectors' :func:`farthest_point_sample` over it) as K2b/K2c; the rest are
+plain tensor ops, the padding-aware :func:`farthest_point_sample_masked`
+too (no kernel computes it: its invalid rows keep min-distance -1 and its
+first pick is the first valid row).
 
 Backward forms. The JAX package's gradients are deterministic, and so are
 these, bit for bit from one run to the next:
@@ -38,6 +41,8 @@ these, bit for bit from one run to the next:
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..kernels import fps as fps_kernel
@@ -50,6 +55,142 @@ def farthest_point_sample_planes(x, y, z, npoint: int):
     version."""
     return fps_kernel.fps_picks(x.float().contiguous(), y.float().contiguous(),
                                 z.float().contiguous(), npoint)
+
+
+def farthest_point_sample(xyz, npoint: int):
+    """FPS over (B, N, 3) points (padding rows included: JAX's semantics,
+    they sit at the origin) -> (B, npoint) int32, through
+    :func:`farthest_point_sample_planes`: K2b for N <= 256, K2c for N <=
+    16 384 on the card; above K2c's limit a CUDA tensor raises (K2c's
+    wrapper names the limit; no quiet fallback to the plain loop)."""
+    x, y, z = xyz.detach().float().unbind(-1)
+    return farthest_point_sample_planes(x, y, z, npoint)
+
+
+def farthest_point_sample_masked(xyz, valid, npoint: int):
+    """FPS that prefers valid rows: invalid rows keep min-distance -1, the
+    first pick is the first valid row; past the valid rows the tail repeats
+    indices the caller masks with ``valid[idx]``. (B, N, 3), (B, N) bool ->
+    (B, npoint) int32. A plain loop of a few small launches an iteration on
+    either device."""
+    x, y, z = xyz.detach().float().unbind(-1)
+    b, n = x.shape
+    first = valid.to(torch.uint8).argmax(dim=1, keepdim=True)  # first valid
+    neg = torch.full((), -1.0, device=x.device)
+    min_dist = torch.where(valid, torch.full((), 1e10, device=x.device), neg)
+    last = first
+    picks = [first]
+    for _ in range(1, npoint):
+        dx = x - x.gather(1, last)
+        dy = y - y.gather(1, last)
+        dz = z - z.gather(1, last)
+        d = dx * dx + dy * dy + dz * dz
+        min_dist = torch.minimum(min_dist, torch.where(valid, d, neg))
+        last = torch.argmax(min_dist, dim=1, keepdim=True)
+        picks.append(last)
+    return torch.cat(picks, dim=1).to(torch.int32)
+
+
+def sample_points_with_roi(points_xyz, points_valid, rois, roi_valid,
+                           sample_radius: float):
+    """The (B, N) validity of the points within ``sample_radius`` plus the
+    half-diagonal of a valid RoI's centre (ref:
+    voxel_set_abstraction.py:78-121); a frame without a valid RoI keeps
+    its mask. Distances from the coordinate planes (no (B, N, R, 3)
+    temporary)."""
+    d2 = None
+    for i in range(3):
+        d = points_xyz[..., i][:, :, None] - rois[..., i][:, None, :]
+        d2 = d * d if d2 is None else d2 + d * d
+    half = torch.sqrt(rois[..., 3] * rois[..., 3] + rois[..., 4] * rois[..., 4]
+                      + rois[..., 5] * rois[..., 5]) / 2
+    near = (torch.sqrt(d2) < (half[:, None, :] + sample_radius)) \
+        & roi_valid[:, None, :]
+    has_roi = roi_valid.any(dim=-1, keepdim=True)
+    return points_valid & torch.where(has_roi, near.any(dim=-1), True)
+
+
+def sector_fps(points_xyz, points_valid, npoint: int, num_sectors: int):
+    """Sectorised FPS (ref: voxel_set_abstraction.py:45-75): a masked FPS
+    of ``ceil(npoint / num_sectors)`` picks in each azimuth sector, then
+    one over the union cut to ``npoint`` -> (B, npoint) int32. The sectors'
+    FPS loops run as one, the sectors stacked along the batch axis (each
+    row is independent, so the picks are those of one loop a sector)."""
+    if num_sectors <= 1:
+        return farthest_point_sample_masked(points_xyz, points_valid, npoint)
+    b, n, _ = points_xyz.shape
+    s = int(num_sectors)
+    quota = -(-npoint // s)
+    xyz = points_xyz.detach().float()
+    az = torch.atan2(xyz[..., 1], xyz[..., 0])
+    sector = torch.clamp(((az + math.pi) / (2 * math.pi) * s).to(torch.int32),
+                         0, s - 1)
+    arange = torch.arange(s, device=xyz.device, dtype=torch.int32)
+    v = points_valid[None] & (sector[None] == arange[:, None, None])
+    idx = farthest_point_sample_masked(
+        xyz[None].expand(s, b, n, 3).reshape(s * b, n, 3), v.reshape(s * b, n),
+        quota).reshape(s, b, quota)
+    cvalid = torch.gather(v, 2, idx.long())
+    cand = idx.permute(1, 0, 2).reshape(b, s * quota)
+    cvalid = cvalid.permute(1, 0, 2).reshape(b, s * quota)
+    final = farthest_point_sample_masked(gather_batch_rows(xyz, cand), cvalid,
+                                         npoint)
+    return torch.gather(cand, 1, final.long())
+
+
+def three_nn(unknown, known, known_valid=None):
+    """The 3 nearest ``known`` points of each ``unknown`` point: squared
+    distances (B, n, 3) ascending, ties to the lower index, and their
+    indices (B, n, 3) int32 (ref: interpolate_gpu.cu:16-57; fewer than 3
+    candidates pad with index 0 at 1e38).
+
+    JAX's formula, |u|^2 + |k|^2 - 2 u.k clamped at 0, each three-term sum
+    in f32 left to right from the coordinate planes: never a matmul, so no
+    TF32 on the card, and the same bits on the CPU and the card. XLA rounds
+    its dot and its sums in orders of its own, which depend on the fusion
+    around them, so a pick may differ from JAX's where two candidates lie
+    within rounding of each other (a near-tie). The expansion cancels where
+    an unknown point is a known one (a feature propagation's points hold
+    the coarser level's): here |u|^2 and u.u round alike and d2 is exactly
+    0, as pcdet's kernel (which subtracts) gives, where XLA leaves rounding
+    noise of ~1e-7 |u|^2 whose inverse square root weighs that neighbour."""
+    ux, uy, uz = unknown.detach().float().unbind(-1)
+    kx, ky, kz = known.detach().float().unbind(-1)
+    u2 = ux * ux + uy * uy + uz * uz
+    k2 = kx * kx + ky * ky + kz * kz
+    cross = (ux[:, :, None] * kx[:, None, :] + uy[:, :, None] * ky[:, None, :]
+             + uz[:, :, None] * kz[:, None, :])
+    work = torch.clamp(u2[:, :, None] + k2[:, None, :] - 2.0 * cross, min=0.0)
+    del cross
+    if known_valid is not None:
+        work = torch.where(known_valid[:, None, :], work,
+                           torch.full((), float("inf"), device=work.device))
+    n_pick = min(3, known.shape[1])
+    picked_d, picked_i = [], []
+    for j in range(n_pick):
+        i_j = torch.argmin(work, dim=-1, keepdim=True)  # the first minimum
+        picked_d.append(work.gather(-1, i_j))
+        picked_i.append(i_j)
+        if j < n_pick - 1:
+            work = work.scatter(-1, i_j, float("inf"))
+    for _ in range(3 - n_pick):
+        picked_d.append(torch.full_like(picked_d[0], 1e38))
+        picked_i.append(torch.zeros_like(picked_i[0]))
+    return (torch.cat(picked_d, dim=-1),
+            torch.cat(picked_i, dim=-1).to(torch.int32))
+
+
+def three_interpolate(features, idx, weight):
+    """Weighted sum of 3 neighbours' features: (B, m, C) features at (B, n,
+    3) indices with (B, n, 3) weights -> (B, n, C) (ref:
+    interpolate_gpu.cu:84-107). A gather form (JAX builds a dense (B, n, m)
+    weight matrix): the three rows summed in pick order, the features'
+    backward through :func:`gather_batch_rows` (deterministic, however many
+    picks a row collects)."""
+    rows = gather_batch_rows(features, idx)  # (B, n, 3, C)
+    w = weight.to(rows.dtype)
+    return (rows[:, :, 0] * w[:, :, 0, None] + rows[:, :, 1] * w[:, :, 1, None]
+            + rows[:, :, 2] * w[:, :, 2, None])
 
 
 def farthest_point_sample_planes_select(x, y, z, aux, npoint: int,
@@ -90,10 +231,31 @@ def three_interp_weights_planes(ux, uy, uz, kx, ky, kz, dtype=torch.float32):
     return w3.scatter(-1, idx, val)  # the three indices are distinct
 
 
+def gather_batch_rows(values, idx):
+    """(B, N, ...) values at (B, ...) indices in [0, N) -> (B, ..., ...)
+    through :func:`gather_rows` (the backward a deterministic
+    :func:`segment_sum`, parallel however many picks a row collects): the
+    training gathers of the point detectors, whose rows may collect
+    thousands of picks."""
+    b, n = values.shape[:2]
+    flat = values.reshape(b * n, -1)
+    base = torch.arange(b, device=idx.device).view((b,) + (1,) * (idx.ndim - 1))
+    out = gather_rows(flat, idx.long() + base * n)
+    return out.reshape(tuple(idx.shape) + tuple(values.shape[2:]))
+
+
 def gather_along_batch(values, idx):
     """(B, N, ...) values by (B, M) indices -> (B, M, ...). Advanced
     indexing: its backward is the sorted, deterministic ``index_put_``
-    (see the module note)."""
+    (see the module note), one kernel that sums a row's picks serially.
+    Only for gathers whose rows collect a bounded few picks: the MsSVT
+    blocks' window takes (a window's FPS picks repeat a slot at most
+    ``key_num_sample`` times; the even-cell run's clamped tail at most
+    ``nq``). Where a row may collect thousands (the point detectors'
+    groupings, padding picks of row 0), use :func:`gather_batch_rows`,
+    whose :func:`segment_sum` backward adds a sort and a blocked product
+    to every call but stays parallel. Moving the MsSVT takes to it is not
+    measured yet (ROADMAP Queue 3)."""
     rows = torch.arange(values.shape[0], device=values.device)[:, None]
     return values[rows, idx.long()]
 

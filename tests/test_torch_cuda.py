@@ -938,3 +938,184 @@ def test_tiny_two_stage_detectors_on_card_match_cpu(dev, name, monkeypatch):
     kernels.reset_launch_counts()
     chip_smoke.two_stage_tiny_check(torch, name, seed=31)
     assert not any(kernels.launch_counts().values())
+
+
+# -------------------------------------- the point-based two-stage family
+# K2c and K2b on the FPS of PV-RCNN's keypoints and PointRCNN's set
+# abstractions; the rest plain PyTorch, whose gathers' backward sums must
+# repeat bit for bit.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,npoint,kernel", [
+    (2, 16384, 2048, "fps_picks_block"),  # PV-RCNN keypoints, SA level 0
+    (2, 1024, 256, "fps_picks_block"),    # SA level 2
+    (2, 256, 64, "fps_picks_warp")])      # SA level 3
+def test_farthest_point_sample_launches_k2c_k2b(dev, b, n, npoint, kernel):
+    """``ops.sampling.farthest_point_sample`` on a card tensor launches K2c
+    (N > 256) or K2b (N <= 256) once and nothing else, and its picks equal
+    ``fps_plain``'s on the same card planes; above K2c's 16 384 it
+    raises."""
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.ops.sampling import farthest_point_sample
+
+    rng = np.random.default_rng(n)
+    xyz = np.stack([rng.uniform(0, 70.4, (b, n)), rng.uniform(-40, 40, (b, n)),
+                    rng.uniform(-3, 1, (b, n))], -1).astype(np.float32)
+    xyz[:, n - 37:] = 0.0  # padding rows at the origin
+    t = torch.as_tensor(xyz, device=dev)
+    kernels.reset_launch_counts()
+    got = farthest_point_sample(t, npoint)
+    counts = kernels.launch_counts()
+    assert counts[kernel] == 1 and sum(counts.values()) == 1, counts
+    want = fps.fps_plain(t[..., 0].contiguous(), t[..., 1].contiguous(),
+                         t[..., 2].contiguous(), (), npoint)[0]
+    assert torch.equal(got, want)
+    if n == 16384:
+        with pytest.raises(ValueError, match="16384"):
+            farthest_point_sample(torch.zeros((1, 16385, 3), device=dev), 8)
+
+
+@pytest.mark.cuda
+def test_ball_query_on_card_matches_cpu(dev):
+    """``ball_query`` at PV-RCNN head scale (a frame's 8 000 grid points
+    against 2 048 keypoints, 2 frames, 16 slots; masked raw points of
+    PointRCNN's level 0 at 4 096 x 16 384): indices and emptiness equal to
+    the CPU's, and on a repeat."""
+    from mssvt_tpu_torch.ops.pointnet2 import ball_query
+
+    rng = np.random.default_rng(7)
+    for m, n, radius, valid_rows in ((8000, 2048, 1.6, None),
+                                     (4096, 16384, 0.5, 15000)):
+        pts = np.stack([rng.uniform(0, 70.4, (2, n)),
+                        rng.uniform(-40, 40, (2, n)),
+                        rng.uniform(-3, 1, (2, n))], -1).astype(np.float32)
+        pts[:, :n // 2] = pts[:, :n // 2] * 0.1 + [20, 0, -1]
+        q = pts[:, rng.integers(0, n, m)] + rng.normal(
+            size=(2, m, 3)).astype(np.float32) * radius
+        valid = None if valid_rows is None else np.arange(n)[None].repeat(
+            2, 0) < valid_rows
+        args = lambda d: (torch.as_tensor(pts, device=d),  # noqa: E731
+                          torch.as_tensor(q, device=d),
+                          None if valid is None else torch.as_tensor(
+                              valid, device=d))
+        want = ball_query(radius, 16, *args("cpu"))
+        for _ in range(2):
+            got = ball_query(radius, 16, *args(dev))
+            assert torch.equal(got[0].cpu(), want[0])
+            assert torch.equal(got[1].cpu(), want[1])
+        assert 0 < int(want[1].sum()) < want[1].numel()
+
+
+@pytest.mark.cuda
+def test_point_gathers_backward_on_card(dev):
+    """The training gathers of the point detectors on the card against the
+    CPU and again on a repeat: ``query_and_group`` (PV-RCNN head scale,
+    empty grid points picking keypoint 0 sixteen times; the cotangents of
+    the features and the query centres), ``three_interpolate`` (FP level 0:
+    16 384 x 3 picks onto 4 096 rows) and ``roipoint_pool3d`` (128 RoIs of
+    512 slots a frame over 16 384 points, wrapped slots): values and
+    cotangents within 1e-5 of the CPU's largest magnitude, and bit for bit
+    on a repeat."""
+    from mssvt_tpu_torch.ops.pointnet2 import query_and_group, roipoint_pool3d
+    from mssvt_tpu_torch.ops.sampling import three_interpolate, three_nn
+
+    rng = np.random.default_rng(8)
+
+    def kitti(n):
+        return np.stack([rng.uniform(0, 70.4, (2, n)),
+                         rng.uniform(-40, 40, (2, n)),
+                         rng.uniform(-3, 1, (2, n))], -1).astype(np.float32)
+
+    kp, grid = kitti(2048), kitti(8000)
+    grid[:, :4000] = kp[:, :4000 // 2].repeat(2, 1) + 0.3
+    kf = rng.normal(size=(2, 2048, 32)).astype(np.float32)
+    unknown, known = kitti(16384), kitti(4096)
+    known_f = rng.normal(size=(2, 4096, 64)).astype(np.float32)
+    pts, pf = kitti(16384), rng.normal(size=(2, 16384, 16)).astype(np.float32)
+    rois = np.concatenate([pts[:, :128] + 0.2, rng.uniform(2, 6, (2, 128, 3)),
+                           rng.uniform(-3, 3, (2, 128, 1))], -1).astype(
+        np.float32)
+
+    def run(d):
+        t = lambda a, g=False: torch.as_tensor(a, device=d).requires_grad_(g)  # noqa: E731
+        tkf, tgrid, tkn, tpf = t(kf, True), t(grid, True), t(known_f, True), \
+            t(pf, True)
+        out1, e1 = query_and_group(1.6, 16, t(kp), tgrid, tkf)
+        d2, idx = three_nn(t(unknown), t(known))
+        w = 1.0 / (torch.sqrt(d2) + 1e-8)
+        out2 = three_interpolate(tkn, idx, w / w.sum(-1, keepdim=True))
+        out3, e3 = roipoint_pool3d(t(pts), tpf, t(rois), 512)
+        loss = sum((o * torch.sin(torch.arange(o.numel(), device=d,
+                                               dtype=o.dtype).view(o.shape)
+                                  )).sum() for o in (out1, out2, out3))
+        loss.backward()
+        return [x.detach().cpu() for x in (out1, out2, out3, e1, e3, idx,
+                                           tkf.grad, tgrid.grad, tkn.grad,
+                                           tpf.grad)]
+
+    want = run("cpu")
+    got1, got2 = run(dev), run(dev)
+    for a, b in zip(got1, got2):
+        assert torch.equal(a, b)
+    for g, w in zip(got1, want):
+        if w.dtype == torch.bool or not w.is_floating_point():
+            assert torch.equal(g, w)
+        else:
+            assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+    assert bool(want[3].any()) and not bool(want[3].all())
+
+
+def _kitti_kw(name):
+    from mssvt_tpu_torch.config import cfg_from_yaml_file
+    from mssvt_tpu_torch.utils.edict import EasyDict
+
+    root = __import__("pathlib").Path(__file__).resolve().parent.parent
+    cfg = cfg_from_yaml_file(str(root / f"tools/cfgs/kitti_models/{name}.yaml"),
+                             EasyDict())
+    dc = cfg.DATA_CONFIG
+    pcr = tuple(dc.POINT_CLOUD_RANGE)
+    vox = dc.DATA_PROCESSOR[-1]
+    vs = tuple(vox.VOXEL_SIZE)
+    grid = tuple(int(round((pcr[i + 3] - pcr[i]) / vs[i])) for i in range(3))
+    return dict(model_cfg=cfg.MODEL, num_class=len(cfg.CLASS_NAMES),
+                class_names=cfg.CLASS_NAMES, grid_size=grid, voxel_size=vs,
+                point_cloud_range=pcr, batch_size=2,
+                max_voxels=vox.MAX_NUMBER_OF_VOXELS["train"],
+                max_points_per_voxel=vox.MAX_POINTS_PER_VOXEL,
+                num_point_features=len(
+                    dc.POINT_FEATURE_ENCODING.used_feature_list))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cls", [("pv_rcnn", "PVRCNN"),
+                                      ("pv_rcnn_plusplus", "PVRCNN"),
+                                      ("pointrcnn", "PointRCNN")])
+def test_point_kitti_configs_build_on_cuda_by_default(dev, name, cls):
+    """The three yamls at their published widths build on the card when no
+    device is named, with the yaml's raw-point rows."""
+    from mssvt_tpu_torch.models import build_network
+
+    model = build_network(**_kitti_kw(name))
+    assert type(model).__name__ == cls and model.max_points == 16384
+    assert all(p.device.type == "cuda" for p in model.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pvrcnn", "pvrcnn_plusplus", "pointrcnn"])
+def test_tiny_point_detectors_on_card_match_cpu(dev, name, monkeypatch):
+    """chip_smoke 13a as a test: the tiny model on the card against the CPU
+    on the same weights (refined boxes as sets within 1e-3, loss within
+    1e-4 relative, gradient norm within 1e-3, a repeated backward
+    bit-identical), launching K2c (PV-RCNN, PointRCNN) and K2b (PointRCNN)
+    on its FPS and no other kernel (PV-RCNN++'s sector FPS is plain)."""
+    import chip_smoke
+    from mssvt_tpu_torch import kernels
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    kernels.reset_launch_counts()
+    r = chip_smoke.point_tiny_check(torch, name, seed=31)
+    launched = {k for k, v in kernels.launch_counts().items() if v}
+    assert launched == {"pvrcnn": {"fps_picks_block"},
+                        "pvrcnn_plusplus": set(),
+                        "pointrcnn": {"fps_picks_block",
+                                      "fps_picks_warp"}}[name]
+    assert r["kept"][0] > 0

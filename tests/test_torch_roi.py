@@ -463,19 +463,23 @@ def build_kw(classes=1):
                 max_voxels=MAX_VOXELS, max_points_per_voxel=4)
 
 
-def make_pair(cfg, classes, roi_inputs, seed=0):
+def make_pair(cfg, classes, roi_inputs, seed=0, batch=None, tweak=None):
     """JAX's tiny detector of ``cfg`` (plain dicts; DP_RATIO set to 0),
     initialised by flax with random BatchNorm statistics and a zero
-    classification bias, its eval and train results on a seeded batch,
-    and the port's model on the same variables.
+    classification bias, its eval and train results on a seeded batch
+    (``batch``, a dict of numpy arrays, replaces it), and the port's model
+    on the same variables; ``tweak(params)`` edits the flax parameters
+    (numpy, in place) before either runs.
 
-    ``roi_inputs(m, jb)`` (a JAX method) returns the RoI stage's inputs of
-    a train-mode forward: (head features, rois, roi_valid)."""
+    ``roi_inputs(m, jb)`` (a JAX method, or None to skip it) returns the
+    RoI stage's inputs of a train-mode forward: (head features, rois,
+    roi_valid)."""
     cfg = json.loads(json.dumps(cfg))
     cfg["ROI_HEAD"]["DP_RATIO"] = 0.0
     kw = build_kw(classes)
     jm = j_build(model_cfg=JDict(cfg), **kw)
-    batch = make_batch(np.random.default_rng(seed), classes)
+    if batch is None:
+        batch = make_batch(np.random.default_rng(seed), classes)
     jb = jax.tree_util.tree_map(jnp.asarray, batch)
     key = jax.random.PRNGKey(0)
     variables = jax.jit(lambda k, b: jm.init({"params": k, "dropout": k}, b,
@@ -486,7 +490,10 @@ def make_pair(cfg, classes, roi_inputs, seed=0):
         lambda p, x: (rng.uniform(0.5, 2.0, x.shape) if p[-1].key == "var"
                       else rng.normal(size=x.shape) * 0.1).astype(np.float32),
         variables["batch_stats"])
-    variables["params"]["dense_head"]["conv_cls"]["bias"][:] = 0.0
+    if "dense_head" in variables["params"]:
+        variables["params"]["dense_head"]["conv_cls"]["bias"][:] = 0.0
+    if tweak is not None:
+        tweak(variables["params"])
     evals = jax.jit(lambda v, b: jm.apply(v, b, train=False))(variables, jb)
 
     def loss_fn(params):
@@ -496,8 +503,10 @@ def make_pair(cfg, classes, roi_inputs, seed=0):
 
     (loss, (tb, stats)), grads = jax.jit(jax.value_and_grad(
         loss_fn, has_aux=True))(variables["params"])
-    (x, rois, rvalid), _ = jax.jit(lambda v: jm.apply(
-        v, jb, method=roi_inputs, mutable=["batch_stats"]))(variables)
+    x = rois = rvalid = None
+    if roi_inputs is not None:
+        (x, rois, rvalid), _ = jax.jit(lambda v: jm.apply(
+            v, jb, method=roi_inputs, mutable=["batch_stats"]))(variables)
     tm = t_build(TDict(cfg), **kw, num_point_features=4, device="cpu")
     load_flax_variables(tm, variables)
     return dict(jm=jm, cfg=cfg, variables=variables, jb=jb, evals=evals,
