@@ -183,6 +183,22 @@ print the device time of each launch inside one K5 and one K7 call
    interpolation's and the RoI point pool's device time under
    ``torch.profiler``, the peaks and the phase's seconds (``# 13a``/``#
    13b`` lines).
+14. the last three families (no kernel of K1-K7 on their path, and every
+   step and request is checked to launch none): 14a the JAX suite's tiny
+   f32 CaDDN, CT3D_3CAT and SECOND with AnchorHeadMulti/ATSS on the card
+   against the CPU plain path on the same weights (as 13a); 14b
+   ``ct3d_3cat.yaml`` at its published widths (f32) and batch 2 on a KITTI
+   tree of 11b's seeded writer, ``MODEL.MAX_POINTS`` passed to the
+   DATA_CONFIG: the entry points (2 steps, 1 request), the official R40
+   evaluation, raw points and live RoIs a frame, the proposal NMS's share,
+   the device time of the NMS, the RoI point sampling and the transformer;
+   14c ``CaDDN.yaml`` at its published widths (280 x 376 x 25 voxels, 64
+   channels, 80 bins, 375 x 1242 images; its BEV backbone's first stride 2,
+   see ``caddn_config``), f32, batch 4, on seeded in-memory camera batches
+   (the KITTI tree's calibration, sparse depth maps, 2D boxes): 2 steps and
+   1 request, the parts' host and device time (DepthFFN, the sampler, the
+   collapse, the BEV backbone, the head, the post-processing), the peaks
+   and the phase's seconds (``# 14a``/``# 14b``/``# 14c`` lines).
 
 Its last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -2466,7 +2482,7 @@ class Spans:
 
 
 def profile_two_stage(torch, runs, cfg, label, card, sites=None,
-                      phase="12b", kernel_names=()):
+                      phase="12b", kernel_names=(), top=0):
     """One ``train_step`` (a fresh optimizer) and one request, each of
     ``runs[kind]``'s (model, batch), under ``torch.profiler``: device time
     in all, inside the spans of ``sites`` (``Spans``; by default the
@@ -2478,7 +2494,8 @@ def profile_two_stage(torch, runs, cfg, label, card, sites=None,
     trivial kernels (the log says how many the trace holds) and counts
     only the kernels that start inside the measured window; the device-side
     annotations of the ``record_function`` ranges are no kernels and are
-    left out of every sum."""
+    left out of every sum. With ``top`` it also prints the ``top`` kernel
+    names of each by their summed device time."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from mssvt_tpu_torch.runtime.eval_utils import eval_step
@@ -2531,6 +2548,14 @@ def profile_two_stage(torch, runs, cfg, label, card, sites=None,
             ks = [e for e in kern if sub in e.name]
             inside.append(f"{klabel} {sum(e.self_device_time_total for e in ks) / 1e3:.3f} ms "
                           f"({len(ks)} launches)")
+        if top:
+            by_name = {}
+            for e in kern:
+                t, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (t + e.self_device_time_total / 1e3, n + 1)
+            ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+            inside.append("top kernels " + "; ".join(
+                f"{name[:60]} {t:.3f} ms x{n}" for name, (t, n) in ranked))
         parts.append(f"{kind}: device kernels {total:.3f} ms over {len(kern)} "
                      f"kernels (the trace holds {seen_warm} of "
                      f"{PROFILE_WARM} warm-up launches; "
@@ -2798,11 +2823,11 @@ def point_tiny(name, seed):
 
 
 def point_tiny_models(torch, args, scene, seed):
-    """13a's model on the CPU and on the card with equal seeded weights:
-    BatchNorm statistics from one train-mode forward of the scene (as
-    ``kitti_tiny_models``), the anchor head's class bias zero; PointRCNN's
-    box output kernel scaled by 0.01 with a cos bias of 1 (boxes of the
-    class mean size at each point, heading ~0)."""
+    """13a's and 14a's model on the CPU and on the card with equal seeded
+    weights: BatchNorm statistics from one train-mode forward of the scene
+    (as ``kitti_tiny_models``), every class bias of the dense head zero;
+    PointRCNN's box output kernel scaled by 0.01 with a cos bias of 1
+    (boxes of the class mean size at each point, heading ~0)."""
     from mssvt_tpu_torch.models import build_network
     from mssvt_tpu_torch.models.model_utils.layers import BatchNorm
 
@@ -2811,7 +2836,9 @@ def point_tiny_models(torch, args, scene, seed):
     moms = [m.momentum for m in bns]
     with torch.no_grad():
         if hasattr(cpu, "dense_head"):
-            cpu.dense_head.conv_cls.bias.zero_()
+            for n, p in cpu.dense_head.named_parameters():
+                if n.endswith("cls.bias"):
+                    p.zero_()
         else:
             out = cpu.point_head.reg_out
             out.weight.mul_(0.01)
@@ -2827,11 +2854,13 @@ def point_tiny_models(torch, args, scene, seed):
     return cpu.eval(), card
 
 
-def point_tiny_check(torch, name, seed):
-    """13a for one model: tiny, f32, on the card against the CPU plain path
-    on the same weights: the refined boxes of each frame as sets within
-    1e-3 of max(1, |value|); one ``train_step``: loss within 1e-4
-    relative, gradient norm within 1e-3, foreground RoIs; the card's
+def tiny_card_check(torch, phase, name, cfg, args, scene, seed, need):
+    """``phase`` (13a, 14a) for one tiny model of build ``args``: f32, on
+    the card against the CPU plain path on the same weights
+    (``point_tiny_models``): the detections of each frame as sets within
+    1e-3 of max(1, |value|); one ``train_step`` on ``scene``: loss within
+    1e-4 relative, gradient norm within 1e-3, the ``tb_dict`` term
+    ``need`` positive (foreground RoIs, the depth loss); the card's
     gradients bit-identical when its forward and backward repeat from the
     same weights and batch. Returns the numbers for the log."""
     import copy
@@ -2840,7 +2869,6 @@ def point_tiny_check(torch, name, seed):
     from mssvt_tpu_torch.runtime.optimization import build_optimizer
     from mssvt_tpu_torch.runtime.train_utils import forward_backward, train_step
 
-    cfg, args, scene = point_tiny(name, seed)
     models = dict(zip(("cpu", "cuda"),
                       point_tiny_models(torch, args, scene, seed)))
     res = {}
@@ -2860,22 +2888,30 @@ def point_tiny_check(torch, name, seed):
             forward_backward(snapshot, batch, torch.Generator(device=dev))
             if not all(torch.equal(p.grad, g) for p, g in
                        zip(snapshot.parameters(), grads)):
-                raise AssertionError(f"13a {name}: the repeated backward's "
-                                     "gradients differ")
+                raise AssertionError(f"{phase} {name}: the repeated "
+                                     "backward's gradients differ")
     torch.cuda.synchronize()
     (oc, lc, gc, tbc), (og, lg, gg, _) = res["cpu"], res["cuda"]
     n_kept, err = kept_box_sets_error(oc, og, relative=True)
     if n_kept == 0 or err > 1e-3:
-        raise AssertionError(f"13a {name}: {n_kept} refined boxes (error "
+        raise AssertionError(f"{phase} {name}: {n_kept} detections (error "
                              f"{err})")
     rel, grel = abs(lg - lc) / abs(lc), abs(gg - gc) / gc
     if rel > 1e-4 or grel > 1e-3 or not math.isfinite(lg):
-        raise AssertionError(f"13a {name}: loss {lg} vs {lc}, gradient "
+        raise AssertionError(f"{phase} {name}: loss {lg} vs {lc}, gradient "
                              f"norm {gg} vs {gc}")
-    if float(tbc["rcnn_loss_reg"]) <= 0:
-        raise AssertionError(f"13a {name}: no foreground RoI ({tbc})")
+    if float(tbc.get(need, 0.0)) <= 0:
+        raise AssertionError(f"{phase} {name}: {need} is not positive "
+                             f"({tbc})")
     return dict(kept=(n_kept, err), loss=(lg, lc, rel), gnorm=(gg, gc, grel),
                 detector=type(models["cuda"]).__name__)
+
+
+def point_tiny_check(torch, name, seed):
+    """13a for one model (``tiny_card_check``, with foreground RoIs)."""
+    cfg, args, scene = point_tiny(name, seed)
+    return tiny_card_check(torch, "13a", name, cfg, args, scene, seed,
+                           "rcnn_loss_reg")
 
 
 def point_tiny_reference(torch):
@@ -3067,6 +3103,429 @@ def point_files_path(torch, card):
         del runs, seen
         torch.cuda.empty_cache()
     log(f"# 13b: phase {time.time() - t_phase:.1f} s [{card}]")
+
+
+# -------------------------------------------------------------- phase 14
+# the last three families: CaDDN (the camera branch: DepthFFN, the
+# frustum-to-voxel sampler, Conv2DCollapse), CT3D_3CAT (the CT3D head's
+# point sampling and transformer) and AnchorHeadMulti with ATSS. No TPU
+# kernel stands on their path, and every step and request is checked to
+# launch none. 14a: the JAX suite's tiny models on the card against the
+# CPU; 14b: ct3d_3cat.yaml at published width on a KITTI tree of 11b's
+# seeded writer; 14c: CaDDN.yaml at published width on seeded in-memory
+# camera batches (neither package reads images from files).
+LATE_TINY = ("caddn", "ct3d", "second_multi")
+LATE_FILES = dict(train=[f"{i:06d}" for i in range(4)],
+                  val=[f"{i:06d}" for i in range(4, 6)], points=120_000)
+CADDN_IMAGE = (375, 1242)  # KITTI's image rows and columns
+CADDN_GRID = (280, 376, 25)  # CaDDN.yaml's range over its 0.16 m voxels
+CADDN_BATCH = 4  # CaDDN.yaml's BATCH_SIZE_PER_GPU
+CADDN_DEPTH_PIXELS = 20_000  # seeded depth pixels a frame (~4% of them)
+
+
+def late_tiny(name, seed):
+    """14a: (config with MODEL and OPTIMIZATION, build args, scene). caddn:
+    ``tests/test_model_forward.py``'s tiny CaDDN on two frames of a camera
+    looking down lidar +x (the second yawed), depth maps with holes, GT
+    boxes and 2D boxes; ct3d: ``tests/test_ct3d.py``'s tiny CT3D_3CAT on
+    13a's scene (512 raw points a frame, GT boxes near anchors);
+    second_multi: 10a's tiny SECOND with an AnchorHeadMulti of two groups
+    (Car; Pedestrian and Cyclist) and the ATSS assigner, a Car and a
+    Pedestrian a frame each holding an anchor centre."""
+    import numpy as np
+
+    from mssvt_tpu_torch.utils.edict import EasyDict
+
+    rng = np.random.default_rng(seed)
+    if name == "second_multi":
+        (cfg, args), scene = kitti_tiny("second", seed)
+        head = cfg.MODEL.DENSE_HEAD
+        cfg.MODEL.DENSE_HEAD = EasyDict({
+            "NAME": "AnchorHeadMulti", "USE_DIRECTION_CLASSIFIER": True,
+            "DIR_OFFSET": 0.78539, "NUM_DIR_BINS": 2,
+            "SHARED_CONV_NUM_FILTER": 16,
+            "RPN_HEAD_CFGS": [{"HEAD_CLS_NAME": ["Car"]},
+                              {"HEAD_CLS_NAME": ["Pedestrian", "Cyclist"]}],
+            "TARGET_ASSIGNER_CONFIG": {"NAME": "ATSSTargetAssigner",
+                                       "TOPK": 9},
+            "ANCHOR_GENERATOR_CONFIG": head.ANCHOR_GENERATOR_CONFIG,
+            "LOSS_CONFIG": head.LOSS_CONFIG})
+        gt = np.zeros_like(scene["gt_boxes"])
+        for b in range(2):
+            off = rng.uniform(-0.1, 0.1, 2)
+            gt[b, 0] = [4.5 + off[0], 2.3 + off[1], -1.0, 3.9, 1.6, 1.56,
+                        0.3, 1]
+            gt[b, 1] = [8.7 + off[1], -2.0 + off[0], 0.265, 0.8, 0.6, 1.73,
+                        -0.5, 2]
+        return cfg, args, dict(scene, gt_boxes=gt)
+    if name == "ct3d":
+        _, _, scene = point_tiny("pvrcnn", seed)
+        nms = {"TRAIN": {"NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.8,
+                         "NMS_PRE_MAXSIZE": 64, "NMS_POST_MAXSIZE": 16},
+               "TEST": {"NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.7,
+                        "NMS_PRE_MAXSIZE": 64, "NMS_POST_MAXSIZE": 16}}
+        tiny = point_tiny_cfg("pvrcnn").MODEL
+        model = {
+            "NAME": "CT3D_3CAT", "MAX_POINTS": POINT_TINY_ROWS,
+            "VFE": {"NAME": "MeanVFE"}, "BACKBONE_3D": tiny.BACKBONE_3D,
+            "BACKBONE_2D": tiny.BACKBONE_2D, "DENSE_HEAD": tiny.DENSE_HEAD,
+            "ROI_HEAD": {
+                "NAME": "CT3DHead",
+                "Transformer": {"num_queries": 1, "hidden_dim": 32,
+                                "num_points": 16, "nheads": 2,
+                                "enc_layers": 1, "dec_layers": 1,
+                                "dim_feedforward": 32, "dropout": 0.0},
+                "NMS_CONFIG": nms, "TARGET_CONFIG": {"ROI_PER_IMAGE": 16},
+                "LOSS_CONFIG": {"CORNER_LOSS_REGULARIZATION": True,
+                                "LOSS_WEIGHTS": {"rcnn_corner_weight": 1.0}}},
+            "POST_PROCESSING": {"SCORE_THRESH": 0.1, "CAT_THRE": {
+                "Car": 0.0, "Ped": 0.0, "Cyc": 0.0}}}
+        opt = load_cfg("tools/cfgs/kitti_models/ct3d_3cat.yaml").OPTIMIZATION
+        args = (EasyDict(model), 1, ["Car"], (32, 32, 32), (0.4, 0.4, 0.125),
+                POINT_TINY_RANGE, 2, 256, 4)
+        return EasyDict({"MODEL": model, "OPTIMIZATION": opt}), args, scene
+    anchor = {"class_name": "Car", "anchor_sizes": [[3.9, 1.6, 1.56]],
+              "anchor_rotations": [0, 1.57], "anchor_bottom_heights": [-1.78],
+              "align_center": False, "feature_map_stride": 1,
+              "matched_threshold": 0.6, "unmatched_threshold": 0.45}
+    model = {
+        "NAME": "CaDDN",
+        "VFE": {"NAME": "ImageVFE",
+                "FFN": {"DDN_CFG": {"NUM_CHANNELS": 8, "NUM_BLOCKS": 2}},
+                "DISCRETIZE": {"DEPTH_MIN": 2.0, "DEPTH_MAX": 20.0,
+                               "NUM_BINS": 16}, "LOSS_WEIGHT": 3.0},
+        "MAP_TO_BEV": {"NAME": "Conv2DCollapse", "NUM_BEV_FEATURES": 16},
+        "BACKBONE_2D": {"NAME": "BaseBEVBackbone", "LAYER_NUMS": [2],
+                        "LAYER_STRIDES": [2], "NUM_FILTERS": [16],
+                        "UPSAMPLE_STRIDES": [2], "NUM_UPSAMPLE_FILTERS": [16]},
+        "DENSE_HEAD": {"NAME": "AnchorHeadSingle",
+                       "USE_DIRECTION_CLASSIFIER": False,
+                       "ANCHOR_GENERATOR_CONFIG": [anchor],
+                       "LOSS_CONFIG": {"LOSS_WEIGHTS": {
+                           "cls_weight": 1.0, "loc_weight": 2.0,
+                           "code_weights": [1.0] * 7}}},
+        "POST_PROCESSING": {"SCORE_THRESH": 0.1, "NMS_CONFIG": {
+            "NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.7, "NMS_PRE_MAXSIZE": 32,
+            "NMS_POST_MAXSIZE": 16}}}
+    l2c = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    c2i = np.zeros((2, 3, 4), np.float32)
+    for i in range(2):
+        a = 0.15 * i
+        yaw = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                        [0, 0, 1]], np.float32)
+        l2c[i, :3, :3] = np.array([[0, -1, 0], [0, 0, -1], [1, 0, 0]],
+                                  np.float32) @ yaw
+        c2i[i, 0, 0] = c2i[i, 1, 1] = 30.0
+        c2i[i, :2, 2] = (32.0, 24.0)
+        c2i[i, 2, 2] = 1.0
+    depth = rng.uniform(2, 18, (2, 48, 64)).astype(np.float32)
+    depth[:, ::3] = 0.0
+    gt = np.zeros((2, 3, 8), np.float32)
+    gt[0, 0] = [6, 0, -1, 3.9, 1.6, 1.56, 0.2, 1]
+    gt[0, 1] = [9.5, 3.0, -1, 3.9, 1.6, 1.56, 1.4, 1]
+    gt[1, 0] = [4.3, -2.2, -1, 3.9, 1.6, 1.56, -0.3, 1]
+    scene = {"images": rng.uniform(0, 1, (2, 48, 64, 3)).astype(np.float32),
+             "trans_lidar_to_cam": l2c, "trans_cam_to_img": c2i,
+             "depth_maps": depth, "gt_boxes": gt,
+             "gt_boxes2d": np.array([[[10, 8, 40, 30], [30, 2, 60, 20]],
+                                     [[0, 0, 20, 47], [0, 0, 0, 0]]],
+                                    np.float32)}
+    opt = load_cfg("tools/cfgs/kitti_models/CaDDN.yaml").OPTIMIZATION
+    args = (EasyDict(model), 1, ["Car"], (16, 16, 4), (0.8, 0.8, 1.0),
+            (0.0, -6.4, -2.0, 12.8, 6.4, 2.0), 2, 64, 1)
+    return EasyDict({"MODEL": model, "OPTIMIZATION": opt}), args, scene
+
+
+def late_tiny_check(torch, name, seed):
+    """14a for one model (``tiny_card_check``): CT3D with foreground RoIs,
+    CaDDN with its depth loss, the multi head's second group with a
+    loss."""
+    cfg, args, scene = late_tiny(name, seed)
+    need = {"ct3d": "rcnn_loss_reg", "caddn": "depth_loss",
+            "second_multi": "rpn_head1_loss"}[name]
+    return tiny_card_check(torch, "14a", name, cfg, args, scene, seed, need)
+
+
+def late_tiny_reference(torch):
+    """14a: ``late_tiny_check`` for the tiny CaDDN, CT3D_3CAT and SECOND
+    with AnchorHeadMulti/ATSS, with no kernel of K1-K7 launched."""
+    from mssvt_tpu_torch import kernels
+
+    for name in LATE_TINY:
+        kernels.reset_launch_counts()
+        r = late_tiny_check(torch, name, seed=23)
+        counts = kernels.launch_counts()
+        if counts != KITTI_STEP:
+            raise AssertionError(f"14a {name}: launches {counts}")
+        log(f"# 14a tiny {name} ({r['detector']}, f32): {r['kept'][0]} "
+            f"detections agree as sets within {r['kept'][1]:.3g} of max(1, "
+            f"|value|); one train_step: loss card {r['loss'][0]:.6f} vs CPU "
+            f"{r['loss'][1]:.6f} (relative {r['loss'][2]:.3g}), gradient "
+            f"norm {r['gnorm'][0]:.6g} vs {r['gnorm'][1]:.6g} (relative "
+            f"{r['gnorm'][2]:.3g}); repeated backward bit-identical; "
+            "launches: none")
+
+
+def ct3d_sites():
+    """``Spans`` sites of 14b: the proposal NMS, the CT3D head's RoI point
+    sampling and its transformer."""
+    from mssvt_tpu_torch.models.model_utils import ctrans
+    from mssvt_tpu_torch.models.roi_heads import ct3d_head, roi_head_template
+
+    return [(roi_head_template, "proposal_layer", "proposal NMS"),
+            (ct3d_head, "sample_roi_points", "sample_roi_points"),
+            (ctrans.CTransformer, "forward", "CTransformer")]
+
+
+def ct3d_files_path(torch, card):
+    """14b: ``ct3d_3cat.yaml`` at its published widths (f32) at batch 2 (the
+    yaml says 4; 12b's and 13b's batch), with ``MODEL.MAX_POINTS`` (16 384)
+    passed to the DATA_CONFIG as ``pv_rcnn.yaml`` sets it (the yaml leaves
+    it out, so its dataset would yield no raw points), trained for one
+    epoch (2 steps) and served (1 request) through the entry points from a
+    file-backed KITTI tree with gt_sampling on, then the official R40
+    evaluation of ``result.pkl``; no step or request launches a kernel of
+    K1-K7. Prints raw points and live RoIs a frame, each synchronised step
+    and request with the proposal NMS's share, the profiled step and
+    request (the NMS, the RoI point sampling and the transformer), the
+    peaks and the phase's seconds."""
+    import shutil
+
+    from mssvt_tpu_torch.datasets.kitti import KittiDataset, create_kitti_infos
+    from mssvt_tpu_torch.datasets.synthetic_files import write_kitti_tree
+    from mssvt_tpu_torch.utils.edict import EasyDict
+
+    t_phase = time.time()
+    root = FILES_DATA / "kitti_ct3d"
+    shutil.rmtree(root, ignore_errors=True)
+    write_kitti_tree(root, LATE_FILES["train"], LATE_FILES["val"],
+                     LATE_FILES["points"], seed=0)
+    model_yaml = "tools/cfgs/kitti_models/ct3d_3cat.yaml"
+    max_points = int(load_cfg(model_yaml).MODEL.MAX_POINTS)
+    cfg_path, cfg = files_config(model_yaml, {"DATA_PATH": str(root),
+                                              "MAX_POINTS": max_points},
+                                 "ct3d_3cat_kitti_files")
+    data, classes = EasyDict(cfg["DATA_CONFIG"]), cfg["CLASS_NAMES"]
+    create_kitti_infos(data, ["Car", "Pedestrian", "Cyclist"], root, root)
+    label, bsz, sites = "14b ct3d_3cat", 2, ct3d_sites()
+    with Spans(torch, sites) as spans:
+        seen = drive_files_entry_points(
+            torch, cfg_path, ROOT / "output" / "chip_smoke" / "ct3d_runs",
+            label, batch=bsz)
+    if len(seen["request"]) != 1:
+        raise AssertionError(f"{label}: {len(seen['request'])} requests")
+    for kind in ("step", "request"):
+        for i, (per, *_r) in enumerate(seen[kind]):
+            if per != KITTI_STEP:
+                raise AssertionError(f"{label} {kind} {i}: launches {per}")
+    loader_line(seen, cfg, label, card, batch=bsz)
+    pts = [int(v) for kind in ("step", "request") for _, b, _ in seen[kind]
+           for v in b["points_valid"].reshape(bsz, -1).sum(1).tolist()]
+    live, nms_cfg = spans.live, cfg["MODEL"]["ROI_HEAD"]["NMS_CONFIG"]
+    log(f"# {label}: raw points a frame {pts} against MAX_POINTS "
+        f"{max_points}; live RoIs a frame after the proposal NMS, train "
+        f"{live[:len(seen['step'])]} (post "
+        f"{nms_cfg['TRAIN']['NMS_POST_MAXSIZE']} of "
+        f"{nms_cfg['TRAIN']['NMS_PRE_MAXSIZE']} candidates), test "
+        f"{live[len(seen['step']):]} (post "
+        f"{nms_cfg['TEST']['NMS_POST_MAXSIZE']} of "
+        f"{nms_cfg['TEST']['NMS_PRE_MAXSIZE']}); host seconds over the "
+        "entry points: " + ", ".join(f"{k} {v:.4f}"
+                                     for k, v in spans.spent.items())
+        + f" [{card}]")
+    ds = KittiDataset(data, classes, training=False, seed=0)
+    kitti_official_check(seen["result"], root, ds, classes, label)
+    runs = {kind: (seen[f"{kind}_model"], seen[kind][-1][1])
+            for kind in ("step", "request")}
+    shares = [nms_share(torch, *runs[kind], cfg, kind, sites)
+              for kind in runs]
+    log(f"# {label}: proposal NMS share by the host clock, "
+        + "; ".join(shares) + f" [{card}]")
+    profile_two_stage(torch, runs, cfg, "ct3d_3cat", card, sites=sites,
+                      phase="14b", top=5)
+    log(f"# 14b: phase {time.time() - t_phase:.1f} s (entry points "
+        f"{seen['seconds']:.1f} s) [{card}]")
+    del runs, seen
+    torch.cuda.empty_cache()
+
+
+def caddn_config():
+    """``CaDDN.yaml`` with its BEV backbone's first stride 2 (pcdet's
+    CaDDN.yaml's, LAYER_STRIDES [2, 2]): as shipped, strides [1, 2] with
+    upsampling [1, 2] leave the map at stride 1 (376 x 280 x 6 = 631 680
+    predictions) while the anchors are laid at stride 2 (157 920), and both
+    packages fail at the decode (tests/test_torch_caddn.py). Every width
+    stays the yaml's."""
+    cfg = load_cfg("tools/cfgs/kitti_models/CaDDN.yaml")
+    cfg.MODEL.BACKBONE_2D.LAYER_STRIDES = [2, 2]
+    return cfg
+
+
+def caddn_batches(np, n, seed, bsz=CADDN_BATCH):
+    """``n`` seeded in-memory CaDDN batches of ``bsz`` frames: images;
+    the KITTI tree's calibration (``synthetic_files.KITTI_CALIB``: R0_rect
+    x Tr_velo_to_cam, and P2); 8 GT boxes a frame in front of the camera
+    (the three classes' sizes) and their 2D boxes
+    (``kitti.boxes_camera_to_imageboxes``); a sparse depth map of
+    CADDN_DEPTH_PIXELS seeded pixels a frame from 1 to 60 m (some outside
+    [DEPTH_MIN, DEPTH_MAX])."""
+    from mssvt_tpu_torch.datasets.kitti import (
+        Calibration,
+        boxes_camera_to_imageboxes,
+        boxes_lidar_to_camera,
+    )
+    from mssvt_tpu_torch.datasets.synthetic_files import KITTI_CALIB
+
+    path = FILES_DATA / "caddn" / "calib.txt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(KITTI_CALIB)
+    calib = Calibration(path)
+    r0 = np.eye(4)
+    r0[:3, :3] = calib.R0
+    v2c = np.vstack([calib.V2C, [0, 0, 0, 1]])
+    l2c = (r0 @ v2c).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    h, w = CADDN_IMAGE
+    sizes = {1: (3.9, 1.6, 1.56), 2: (0.8, 0.6, 1.73), 3: (1.76, 0.6, 1.73)}
+    out = []
+    for _ in range(n):
+        gt = np.zeros((bsz, 8, 8), np.float32)
+        box2d = np.zeros((bsz, 8, 4), np.float32)
+        depth = np.zeros((bsz, h, w), np.float32)
+        for b in range(bsz):
+            for j in range(8):
+                c = 1 + j % 3
+                x = rng.uniform(6, 40)
+                gt[b, j] = [x, rng.uniform(-0.3, 0.3) * x,
+                            sizes[c][2] / 2 - 1.7, *sizes[c],
+                            rng.uniform(-np.pi, np.pi), c]
+            box2d[b] = boxes_camera_to_imageboxes(
+                boxes_lidar_to_camera(gt[b, :, :7], calib), calib,
+                CADDN_IMAGE)
+            px = rng.integers(0, h * w, CADDN_DEPTH_PIXELS)
+            depth[b].reshape(-1)[px] = rng.uniform(1.0, 60.0, len(px))
+        out.append({
+            "images": rng.uniform(0, 1, (bsz, h, w, 3)).astype(np.float32),
+            "trans_lidar_to_cam": np.tile(l2c, (bsz, 1, 1)),
+            "trans_cam_to_img": np.tile(calib.P2.astype(np.float32),
+                                        (bsz, 1, 1)),
+            "depth_maps": depth, "gt_boxes": gt, "gt_boxes2d": box2d})
+    return out
+
+
+def caddn_sites():
+    """``Spans`` sites of 14c: the camera branch's DepthFFN and sampler
+    (per frame), the collapse, the BEV backbone, the anchor head's maps
+    and the post-processing (the score threshold and NMS)."""
+    from mssvt_tpu_torch.models.backbones_2d import base_bev_backbone, map_to_bev
+    from mssvt_tpu_torch.models.backbones_3d import image_vfe
+    from mssvt_tpu_torch.models.dense_heads import anchor_head
+    from mssvt_tpu_torch.models.detectors import generic_post
+
+    return [(image_vfe.DepthFFN, "forward", "DepthFFN"),
+            (image_vfe.ImageVFE, "sample_frame", "sampler"),
+            (map_to_bev.Conv2DCollapse, "forward", "Conv2DCollapse"),
+            (base_bev_backbone.BaseBEVBackbone, "forward", "BEV backbone"),
+            (anchor_head.AnchorHeadSingle, "forward", "anchor head"),
+            (generic_post, "post_process_anchor", "post_process_anchor")]
+
+
+def caddn_path(torch, card):
+    """14c: ``CaDDN.yaml`` (``caddn_config``) at its published widths (a
+    280 x 376 x 25 camera grid, 64 FFN channels, 80 depth bins, 375 x 1242
+    images), f32, at the yaml's batch 4, seeded weights (for the request
+    the class bias zero, as 10a's, so that anchors pass the score
+    threshold and the NMS takes NMS_PRE_MAXSIZE candidates, as a trained
+    model's would): 2 ``train_step``s
+    and 1 request (``eval_step``) on seeded in-memory batches, each
+    checked to launch no kernel of K1-K7; finite losses (with the depth
+    loss) and detections of the expected shapes. Prints each synchronised
+    step and request, the parts' host seconds, the profiled step and
+    request (the parts' device time: their forward kernels), the peaks and
+    the phase's seconds."""
+    import math
+
+    import numpy as np
+
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.models import build_network
+    from mssvt_tpu_torch.runtime.eval_utils import eval_step
+    from mssvt_tpu_torch.runtime.optimization import build_optimizer
+    from mssvt_tpu_torch.runtime.train_utils import train_step
+
+    t_phase = time.time()
+    label = "14c CaDDN"
+    cfg = caddn_config()
+    dc = cfg.DATA_CONFIG
+    pcr = tuple(dc.POINT_CLOUD_RANGE)
+    vs = tuple(dc.DATA_PROCESSOR[-1].VOXEL_SIZE)
+    grid = tuple(int(round((pcr[i + 3] - pcr[i]) / vs[i])) for i in range(3))
+    if grid != CADDN_GRID:
+        raise AssertionError(f"{label}: grid {grid}")
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.CLASS_NAMES,
+                          grid, vs, pcr, CADDN_BATCH, 16_000, 5,
+                          num_point_features=4, device="cuda", seed=0)
+    batches = [to_device(torch, b, "cuda")
+               for b in caddn_batches(np, 3, seed=0)]
+    opt, _ = build_optimizer(cfg.OPTIMIZATION, model.named_parameters(),
+                             total_steps=10, steps_per_epoch=5)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    steps, losses, spent = [], [], []
+    sites = caddn_sites()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with Spans(torch, sites) as spans:
+        for batch in batches[:2]:
+            spans.take()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, tb = train_step(model, opt, batch, gen)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            losses.append({k: round(float(v), 5) for k, v in
+                           dict(tb, loss=loss).items()})
+            spent.append(spans.take())
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        model.eval()
+        with torch.no_grad():  # scores ~0.5: the NMS takes its candidates
+            model.dense_head.conv_cls.bias.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        boxes, scores, labels_, mask = eval_step(model, batches[2])
+        torch.cuda.synchronize()
+        request = time.perf_counter() - t0
+        spent.append(spans.take())
+    eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = kernels.launch_counts()
+    if counts != KITTI_STEP:
+        raise AssertionError(f"{label}: launches {counts}")
+    if not all(math.isfinite(v) for rec in losses for v in rec.values()) or \
+            not all(rec["depth_loss"] > 0 for rec in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    post = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    if boxes.shape != (CADDN_BATCH, post, 7) or \
+            not bool(torch.isfinite(boxes).all()) or \
+            not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"{label}: detections {tuple(boxes.shape)}")
+    log(f"# {label}: grid {grid} x {model.vfe.ffn.feat_head.out_channels} "
+        f"channels, {model.vfe.n_bins} bins, images {CADDN_IMAGE}, batch "
+        f"{CADDN_BATCH}, BEV backbone strides "
+        f"{list(cfg.MODEL.BACKBONE_2D.LAYER_STRIDES)}, anchors "
+        f"{model.dense_head.anchors.shape[0]}; synchronised steps "
+        f"{[round(s, 4) for s in steps]} s, request {request:.4f} s; losses "
+        f"{losses}; detections kept a frame {mask.sum(1).tolist()}; launches "
+        f"none; peak device memory train {train_peak:.2f} GiB, request "
+        f"{eval_peak:.2f} GiB [{card}]")
+    for kind, rec in zip(("step 1", "step 2", "request"), spent):
+        log(f"# {label} {kind} host seconds inside the parts (synchronised): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in rec.items()) + f" [{card}]")
+    runs = {"step": (model, batches[0]), "request": (model, batches[2])}
+    profile_two_stage(torch, runs, cfg, "CaDDN", card, sites=sites,
+                      phase="14c", top=8)
+    log(f"# 14c: phase {time.time() - t_phase:.1f} s [{card}]")
+    del model, opt, batches, runs
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------- phase 5
@@ -3800,6 +4259,14 @@ def main(argv):
     point_tiny_reference(torch)
     point_files_path(torch, card)
     log(f"# 13: phase {time.time() - t13:.1f} s [{card}]")
+    torch.cuda.empty_cache()
+    # phase 14: CaDDN, CT3D_3CAT and AnchorHeadMulti/ATSS (no kernel of
+    # K1-K7 on their path)
+    t14 = time.time()
+    late_tiny_reference(torch)
+    ct3d_files_path(torch, card)
+    caddn_path(torch, card)
+    log(f"# 14: phase {time.time() - t14:.1f} s [{card}]")
     for name, counts_ in (("attention_qk", off_counts),
                           ("attention_qk_bwd", off_counts),
                           ("fps_picks_warp", sampling_counts),

@@ -17,8 +17,9 @@ is mechanical. Layout rules:
 - sparse-conv kernel (K, Cin, Cout) -> ``weight`` as it is (a node of the
   sparse-conv layers holds its ``kernel`` beside its ``bn`` subtree);
 - a bare parameter of a flax module (UNetV2's ``up{lvl}_inv_kernel``,
-  (K, Cin, Cout)) -> the port module's parameter of the same name, as it
-  is.
+  (K, Cin, Cout); the CT3D transformer's ``q_w`` ... ``out_w`` (in, out),
+  ``proj_*_w`` (out, in), ``down_w`` and ``query_embed``) -> the port
+  module's parameter of the same name, as it is.
 
 The RoI heads' submodules carry their flax names too
 (``{stage}_sa_{i}/mlp/mlp_j``, ``shared_fc_i``, ``conv3d_i``, ...), and so

@@ -1,5 +1,6 @@
-"""Sparse 3D -> dense BEV (torch counterpart of ``HeightCompression`` and
-``PointPillarScatter`` in ``mssvt_tpu/models/backbones_2d/map_to_bev.py``).
+"""Sparse 3D -> dense BEV (torch counterpart of ``HeightCompression``,
+``PointPillarScatter`` and ``Conv2DCollapse`` in
+``mssvt_tpu/models/backbones_2d/map_to_bev.py``).
 
 The public layout is NHWC, as in the JAX package; the convolutions run in
 NCHW inside.
@@ -70,3 +71,27 @@ class PointPillarScatter(nn.Module):
                                          self.num_bev_features))
         out = out.index_put((b, y, x), pillar_features)
         return out[:batch_size]
+
+
+class Conv2DCollapse(nn.Module):
+    """A dense (B, X, Y, Z, C) camera-voxel grid collapsed to the (B, Y, X,
+    C_bev) BEV map (ref: map_to_bev/conv2d_collapse.py:7): the channels
+    stacked z-major, then c (Z * C of them), then a 1x1 conv, BN and ReLU;
+    f32 out."""
+
+    def __init__(self, in_channels: int, num_bev_features: int,
+                 dtype=torch.float32):
+        super().__init__()
+        self.num_bev_features = int(num_bev_features)
+        self.compute_dtype = dtype
+        self.collapse_conv = Conv2d(in_channels, num_bev_features, 1,
+                                    bias=False, dtype=dtype)
+        self.collapse_bn = BatchNorm(num_bev_features, 1e-3, momentum=0.99,
+                                     dtype=dtype)
+
+    def forward(self, voxel_features):
+        b, gx, gy, gz, c = voxel_features.shape
+        x = voxel_features.to(self.compute_dtype).permute(0, 3, 4, 2, 1)
+        x = x.reshape(b, gz * c, gy, gx)  # NCHW of the (B, Y, X, Z*C) map
+        x = torch.relu(self.collapse_bn(self.collapse_conv(x)))
+        return x.permute(0, 2, 3, 1).float()

@@ -1,12 +1,12 @@
 """Per-family module registries (torch counterpart of
-``mssvt_tpu/models/builders.py``), holding the names of the ported
-families: the MsSVT CenterPoint path (MeanVFE -> MixedScaleSparseTransformer
+``mssvt_tpu/models/builders.py``), holding every name of the JAX package's
+registries: the MsSVT CenterPoint path (MeanVFE -> MixedScaleSparseTransformer
 -> HeightCompression -> BaseBEVBackbone -> CenterHead), the SECOND and
 PointPillar families (the Pillar/Hard/Dynamic VFEs, the sparse-conv
-backbones, PointPillarScatter, AnchorHeadSingle), the two-stage voxel
-family's UNetV2 and PointRCNN's PointNet2MSG (the PFE, the RoI and point
-heads are built by their detectors, as in the JAX package). Any other name raises and points at ROADMAP.md, where
-the rest of the zoo is queued.
+backbones, PointPillarScatter, AnchorHeadSingle), AnchorHeadMulti, the
+two-stage voxel family's UNetV2, PointRCNN's PointNet2MSG and CaDDN's
+Conv2DCollapse (the PFE, the RoI and point heads and CaDDN's ImageVFE are
+built by their detectors, as in the JAX package). Any other name raises.
 """
 
 from __future__ import annotations
@@ -17,13 +17,18 @@ from typing import Any, Sequence
 import torch
 
 from .backbones_2d.base_bev_backbone import BaseBEVBackbone
-from .backbones_2d.map_to_bev import HeightCompression, PointPillarScatter
+from .backbones_2d.map_to_bev import (
+    Conv2DCollapse,
+    HeightCompression,
+    PointPillarScatter,
+)
 from .backbones_3d.mssvt import MixedScaleSparseTransformer
 from .backbones_3d.pointnet2_backbone import PointNet2MSG
 from .backbones_3d.spconv_backbone import VoxelBackBone8x, VoxelResBackBone8x
 from .backbones_3d.spconv_unet import UNetV2
 from .backbones_3d.vfe import DynamicVFE, HardVFE, MeanVFE, PillarVFE
 from .dense_heads.anchor_head import AnchorHeadSingle
+from .dense_heads.anchor_head_multi import AnchorHeadMulti
 from .dense_heads.center_head import CenterHead
 
 
@@ -57,8 +62,7 @@ def _lookup(registry, family, cfg):
     name = cfg["NAME"]
     if name not in registry:
         raise NotImplementedError(
-            f"{family} '{name}' is not ported to mssvt_tpu_torch yet "
-            "(see ROADMAP.md)")
+            f"unknown {family} '{name}' (known: {', '.join(sorted(registry))})")
     return registry[name]
 
 
@@ -120,16 +124,19 @@ BACKBONE_3D["PointNet2MSG"] = BACKBONE_3D["PointNet2Backbone"] = \
         dtype=ctx.dtype)
 
 MAP_TO_BEV = {
-    "HeightCompression": lambda cfg, ctx: HeightCompression(
+    "HeightCompression": lambda cfg, ctx, c_in: HeightCompression(
         num_bev_features=int(cfg["NUM_BEV_FEATURES"]),
         compress_layer_nums=int(cfg.get("COMPRESS_LAYER_NUMS", 0) or 0),
         layer_strides=tuple(cfg.get("LAYER_STRIDES", [1, 1, 1])),
         layer_dilations=tuple(cfg.get("LAYER_DIALATIONS", [1, 1, 2])),
         layer_paddings=tuple(cfg.get("LAYER_PADDINGS", [1, 2, 2])),
         dtype=ctx.dtype),
-    "PointPillarScatter": lambda cfg, ctx: PointPillarScatter(
+    "PointPillarScatter": lambda cfg, ctx, c_in: PointPillarScatter(
         num_bev_features=int(cfg["NUM_BEV_FEATURES"]),
         grid_size=tuple(ctx.grid_size)),
+    # the camera grid's Z * C stacked channels (flax infers them)
+    "Conv2DCollapse": lambda cfg, ctx, c_in: Conv2DCollapse(
+        c_in, int(cfg["NUM_BEV_FEATURES"]), dtype=ctx.dtype),
 }
 
 BACKBONE_2D = {
@@ -152,6 +159,10 @@ DENSE_HEAD = {
         model_cfg=cfg, input_channels=c_in, num_class=ctx.num_class,
         class_names=tuple(ctx.class_names), grid_size=tuple(ctx.grid_size),
         point_cloud_range=tuple(ctx.point_cloud_range), dtype=ctx.dtype),
+    "AnchorHeadMulti": lambda cfg, ctx, c_in: AnchorHeadMulti(
+        model_cfg=cfg, input_channels=c_in, num_class=ctx.num_class,
+        class_names=tuple(ctx.class_names), grid_size=tuple(ctx.grid_size),
+        point_cloud_range=tuple(ctx.point_cloud_range), dtype=ctx.dtype),
 }
 
 
@@ -163,8 +174,10 @@ def build_backbone_3d(cfg, ctx):
     return _lookup(BACKBONE_3D, "BACKBONE_3D", cfg)(cfg, ctx)
 
 
-def build_map_to_bev(cfg, ctx):
-    return _lookup(MAP_TO_BEV, "MAP_TO_BEV", cfg)(cfg, ctx)
+def build_map_to_bev(cfg, ctx, input_channels=None):
+    """``input_channels``: the input's channels where the module has
+    weights over them (``Conv2DCollapse``)."""
+    return _lookup(MAP_TO_BEV, "MAP_TO_BEV", cfg)(cfg, ctx, input_channels)
 
 
 def build_backbone_2d(cfg, ctx, input_channels: int):

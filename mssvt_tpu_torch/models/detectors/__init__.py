@@ -2,7 +2,9 @@ import inspect
 
 import torch
 
+from .caddn import CaDDN
 from .centerpoint import CenterPoint
+from .ct3d_3cat import CT3D3CAT
 from .part_a2 import PartA2Net
 from .point_rcnn import PointRCNN
 from .pointpillar import PointPillar
@@ -13,7 +15,8 @@ from .voxel_rcnn import VoxelRCNN
 
 # PVRCNNPlusPlus is PVRCNN with SPC keypoint sampling and the vector-pool
 # source, both chosen by its PFE config (as the JAX registry maps it)
-__all__ = {"CenterPoint": CenterPoint, "PartA2": PartA2Net,
+__all__ = {"CaDDN": CaDDN, "CenterPoint": CenterPoint,
+           "CT3D_3CAT": CT3D3CAT, "PartA2": PartA2Net,
            "PointPillar": PointPillar, "PointRCNN": PointRCNN,
            "PVRCNN": PVRCNN, "PVRCNNPlusPlus": PVRCNN, "SECOND": SECONDNet,
            "SECONDNet": SECONDNet, "SECONDNetIoU": SECONDNetIoU,
@@ -32,8 +35,7 @@ def build_detector(model_cfg, **kw):
     name = model_cfg["NAME"]
     if name not in __all__:
         raise NotImplementedError(
-            f"detector '{name}' is not ported to mssvt_tpu_torch yet "
-            "(see ROADMAP.md)")
+            f"unknown detector '{name}' (known: {', '.join(sorted(__all__))})")
     dtype = _DTYPES[str(model_cfg.get("DTYPE", "float32")).lower()]
     cls = __all__[name]
     if "max_points" in inspect.signature(cls).parameters and \

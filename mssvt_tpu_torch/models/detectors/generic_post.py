@@ -10,6 +10,7 @@ import torch
 from ...ops.nms import nms_bev
 from ..backbones_3d.vfe import DynamicVFE, HardVFE, MeanVFE, PillarVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle
+from ..dense_heads.anchor_head_multi import AnchorHeadMulti
 from ..dense_heads.center_head import CenterHead
 
 
@@ -51,7 +52,7 @@ def run_dense_head(head, spatial_2d, batch=None, train: bool = False,
     ``final_*`` outputs: CenterHead decodes and NMSes itself, an anchor
     head's boxes go through :func:`post_process_anchor` with
     ``post_cfg`` (the model's POST_PROCESSING)."""
-    if not isinstance(head, (CenterHead, AnchorHeadSingle)):
+    if not isinstance(head, (CenterHead, AnchorHeadSingle, AnchorHeadMulti)):
         raise NotImplementedError(f"dense head {type(head).__name__} "
                                   "(see ROADMAP.md)")
     preds = head(spatial_2d)

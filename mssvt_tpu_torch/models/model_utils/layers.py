@@ -142,18 +142,39 @@ class MaskedBatchNorm(BatchNorm):
         return y * w
 
 
+def same_pads(sizes, kernel_size, stride, dilation):
+    """flax/XLA ``SAME`` padding of each spatial axis: ``total =
+    max((ceil(n/s) - 1) * s + (k - 1) * d + 1 - n, 0)``, the lower side
+    the smaller half."""
+    pads = []
+    for n, k, s, d in zip(sizes, kernel_size, stride, dilation):
+        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
 class Conv2d(nn.Conv2d):
     """NCHW convolution computing in ``dtype`` (flax ``nn.Conv``; the
-    bridge converts HWIO kernels to OIHW)."""
+    bridge converts HWIO kernels to OIHW). ``padding="SAME"`` pads as flax
+    does (:func:`same_pads`, which may be asymmetric: (0, 1) for a 3x3
+    stride-2 conv over an even size), any other padding as
+    ``nn.Conv2d``."""
 
-    def __init__(self, *args, dtype=torch.float32, **kw):
-        super().__init__(*args, **kw)
+    def __init__(self, *args, dtype=torch.float32, padding=0, **kw):
+        self.flax_same = padding == "SAME"
+        super().__init__(*args, padding=0 if self.flax_same else padding,
+                         **kw)
         self.compute_dtype = dtype
 
     def forward(self, x):
         dt = self.compute_dtype
+        x = x.to(dt)
+        if self.flax_same:
+            pads = same_pads(x.shape[2:], self.kernel_size, self.stride,
+                             self.dilation)
+            x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
         b = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), b)
+        return self._conv_forward(x, self.weight.to(dt), b)
 
 
 class Conv3d(nn.Conv3d):
@@ -170,11 +191,8 @@ class Conv3d(nn.Conv3d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        pads = []
-        for d in range(3):
-            n, k, s = x.shape[1 + d], self.kernel_size[d], self.stride[d]
-            total = max((-(-n // s) - 1) * s + k - n, 0)
-            pads.append((total // 2, total - total // 2))
+        pads = same_pads(x.shape[1:4], self.kernel_size, self.stride,
+                         self.dilation)
         x = x.to(dt).permute(0, 4, 1, 2, 3)
         x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
         b = None if self.bias is None else self.bias.to(dt)

@@ -1119,3 +1119,84 @@ def test_tiny_point_detectors_on_card_match_cpu(dev, name, monkeypatch):
                         "pointrcnn": {"fps_picks_block",
                                       "fps_picks_warp"}}[name]
     assert r["kept"][0] > 0
+
+
+# ------------------------------ CaDDN, CT3D_3CAT, AnchorHeadMulti/ATSS
+# no kernel of K1-K7 on their path; the camera sampler's gathers go through
+# gather_rows, whose backward must repeat bit for bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["caddn", "ct3d", "second_multi"])
+def test_tiny_late_families_on_card_match_cpu(dev, name, monkeypatch):
+    """chip_smoke 14a as a test: the tiny CaDDN, CT3D_3CAT and SECOND with
+    AnchorHeadMulti/ATSS on the card against the CPU on the same weights
+    (detections as sets within 1e-3, loss within 1e-4 relative, gradient
+    norm within 1e-3, a repeated backward bit-identical), no kernel
+    launched."""
+    import chip_smoke
+    from mssvt_tpu_torch import kernels
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    kernels.reset_launch_counts()
+    r = chip_smoke.late_tiny_check(torch, name, seed=31)
+    assert not any(kernels.launch_counts().values())
+    assert r["kept"][0] > 0
+
+
+@pytest.mark.cuda
+def test_image_vfe_sampler_on_card_matches_cpu(dev, monkeypatch):
+    """ImageVFE on chip_smoke 14c's seeded KITTI batch (one frame, the
+    tree's calibration, 375 x 1242) over a coarse grid, BatchNorm on its
+    running statistics (in training, flax's E[x^2] - E[x]^2 over 116 000
+    pixels a channel cancels, and card and CPU gradients part by more than
+    1e-4 of the largest on some machines; chip_smoke 14a holds the
+    training step at small size): the
+    voxel features within 1e-4 of the CPU's largest magnitude, every
+    parameter's gradient within 1e-4 of the CPU's largest gradient
+    magnitude (of any parameter: some leaves hold only rounding noise),
+    the card's gradients bit-identical on a repeat (the out-of-view voxels
+    all pick the edge pixels)."""
+    import copy
+
+    import chip_smoke
+    from mssvt_tpu_torch.models.backbones_3d.image_vfe import ImageVFE
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = {"FFN": {"DDN_CFG": {"NUM_CHANNELS": 8, "NUM_BLOCKS": 3}},
+           "DISCRETIZE": {"DEPTH_MIN": 2.0, "DEPTH_MAX": 46.8,
+                          "NUM_BINS": 80}}
+    b = chip_smoke.caddn_batches(np, 1, seed=3, bsz=1)[0]
+    grid = (40, 48, 10)
+    cpu = ImageVFE(cfg, grid, (1.0, 1.0, 0.4), (2.0, -24.0, -3.0, 42.0, 24.0,
+                                                1.0)).eval()
+    card = copy.deepcopy(cpu).to(dev)
+    res = []
+    for m, d in ((cpu, "cpu"), (card, dev), (card, dev)):
+        m.zero_grad()
+        ins = [torch.as_tensor(b[k], device=d) for k in (
+            "images", "trans_lidar_to_cam", "trans_cam_to_img")]
+        vox, logits = m(*ins)
+        g = torch.Generator(device="cpu").manual_seed(0)
+        w = torch.randn(vox.shape, generator=g).to(d)
+        (vox * w).sum().backward()
+        res.append((vox.detach().cpu(), {n: p.grad.cpu() for n, p in
+                                         m.named_parameters()}))
+    (vc, gc), (vg, gg), (_, gg2) = res
+    assert (vc.abs().sum(-1) > 0).float().mean() > 0.01
+    assert (vg - vc).abs().max() <= 1e-4 * vc.abs().max()
+    top = max(float(w.abs().max()) for w in gc.values())
+    for n, w in gc.items():
+        assert (gg[n] - w).abs().max() <= 1e-4 * top, n
+    assert all(torch.equal(gg[n], gg2[n]) for n in gg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cls", [("ct3d_3cat", "CT3D3CAT"),
+                                      ("CaDDN", "CaDDN")])
+def test_late_kitti_configs_build_on_cuda_by_default(dev, name, cls):
+    """The two yamls at their published widths build on the card when no
+    device is named."""
+    from mssvt_tpu_torch.models import build_network
+
+    model = build_network(**_kitti_kw(name))
+    assert type(model).__name__ == cls
+    assert all(p.device.type == "cuda" for p in model.parameters())

@@ -35,11 +35,13 @@ def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           *ENTRY_POINTS, *RANK_BODIES]
     # the glob finds the entry points (every tools/*_torch.py is scanned)
-    # and the sparse-conv and anchor-head families' modules
+    # and the sparse-conv, anchor-head, CaDDN and CT3D families' modules
     assert len(files) > 20 and {"train_torch.py", "test_torch.py"} <= {
         p.name for p in ENTRY_POINTS}
     assert {"sparse_conv.py", "spconv_backbone.py", "anchor_head.py",
-            "box_coder.py", "second_net.py", "pointpillar.py"} <= {
+            "box_coder.py", "second_net.py", "pointpillar.py",
+            "image_vfe.py", "caddn.py", "ctrans.py", "ct3d_head.py",
+            "ct3d_3cat.py", "anchor_head_multi.py"} <= {
         p.name for p in files}
     for path in files:
         for name in _imports(path):
@@ -111,15 +113,21 @@ def test_build_network_defaults_to_cuda_and_refuses_without_it(monkeypatch):
 
 
 def test_unported_names_raise_pointing_at_roadmap():
+    """Every name of the JAX registries is ported (Conv2DCollapse, CaDDN
+    and CT3D_3CAT last; ``test_torch_registry.py`` builds them all): a name
+    neither package knows raises as unknown, listing the known ones."""
     from mssvt_tpu_torch.models.builders import BuildCtx, build_map_to_bev
+    from mssvt_tpu_torch.models.detectors import build_detector
     from mssvt_tpu_torch.models.model_utils.attention import MixedScaleAttention
 
     ctx = BuildCtx(3, ("a", "b", "c"), (8, 8, 8), (1, 1, 1), (0,) * 6, 1, 8, 5)
-    # every BACKBONE_3D name of the JAX registry is ported (PointNet2MSG
-    # last); CaDDN's collapse is not yet
-    for name in ("Conv2DCollapse",):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_map_to_bev({"NAME": name}, ctx)
+    with pytest.raises(NotImplementedError,
+                       match="unknown MAP_TO_BEV 'NoSuchCollapse'.*"
+                             "Conv2DCollapse"):
+        build_map_to_bev({"NAME": "NoSuchCollapse"}, ctx)
+    with pytest.raises(NotImplementedError,
+                       match="unknown detector 'NoSuchNet'.*CT3D_3CAT"):
+        build_detector({"NAME": "NoSuchNet"})
     # attention dropout > 0 in training is ported (the per-group einsum,
     # test_torch_dropout.py); its masks need the caller's generator
     attn = MixedScaleAttention(32, (1, 1), dropout=0.1).train()
