@@ -199,6 +199,19 @@ print the device time of each launch inside one K5 and one K7 call
    1 request, the parts' host and device time (DepthFFN, the sampler, the
    collapse, the BEV backbone, the head, the post-processing), the peaks
    and the phase's seconds (``# 14a``/``# 14b``/``# 14c`` lines).
+15. the bench and the convergence gate: 15a ``bench_torch.py --profile``
+   (``mssvt.yaml``, full width, batch 4, its training tail on) as a
+   subprocess: exit 0, its JSON line's keys, 0 < ``mfu`` <= 1, a finite
+   ``train_ms_per_step``; ``tools/profile_top_ops_torch.py --group`` on its
+   traces (the top families and the device-busy share); 15b
+   ``runtime/convergence.train_golden`` on the card (the golden scene, 120
+   ``adam_onecycle`` steps through K1, K2, K3 and K5): every 10th loss,
+   the recall, and the JAX test's two assertions; 15c
+   ``tools/ablate_e2e_torch.py``'s ``none`` and ``attn`` cuts at full width
+   (3 timed requests each) with their launch counts checked (``attn``
+   launches no K3), and ``tools/bench_attn_kernel_torch.py --iters 5`` (K3
+   alone at block-0 shapes against its plain version on 2 048 windows)
+   (``# 15a``/``# 15b``/``# 15c`` lines).
 
 Its last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -215,9 +228,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-MEM_BPS = 3.35e12     # H100 SXM HBM3 bytes/s
-BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
-F32_FLOPS = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
 # bf16 keeps 8 significant bits. Kernel and plain version round the same
 # intermediates to bf16 but sum in another order, so an intermediate can
 # land one bf16 ulp apart and carry that through the next product; the
@@ -459,59 +469,16 @@ def capture_first_calls(torch, model, batch):
     return captured
 
 
-def _nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+def bound(name, a, k):
+    """(bound_ms, bound_by) of this call's data, from the kernel's formula
+    in ``kernels/work.py``: the bytes that must move (inputs once, outputs
+    once; rows past num_valid are not read) over the HBM rate vs the
+    operations over the peak rate of their type."""
+    from mssvt_tpu_torch.kernels import work
 
-
-def bound(name, a, k, torch):
-    """(bound_ms, bound_by) for this call's data: bytes that must move
-    (inputs once, outputs once; rows past num_valid are not read) over HBM
-    rate vs the operations over the peak rate of their type."""
-    if name == "fill":
-        box, offs, cap = a[0], a[1], a[2]
-        nw, kk = box.shape
-        nv = nw if k.get("num_valid") is None else int(k["num_valid"])
-        cv = k["own_slab"][1] if k.get("own_slab") else 0
-        by = nv * kk * 4 + nw * (2 * cap + cv + 8) * 4
-        ops = nv * kk * 4  # load, compare, rank, store per entry (int32)
-        return max(by / MEM_BPS, ops / F32_FLOPS) * 1e3, "bytes"
-    if name == "fps":
-        x, aux, npoint = a[0], a[3], a[4]
-        rows, n = x.shape
-        nv, half = int(k["num_valid"]), int(k["nw_half"])
-        live = 2 * nv if half else nv
-        planes = 3 + len(aux)
-        by = live * n * 4 * planes + rows * npoint * 4 * (1 + planes)
-        ops = live * (npoint - 1) * n * 10  # 3 sub, 3 mul, 2 add, min, cmp
-        t_by, t_op = by / MEM_BPS, ops / F32_FLOPS
-        return max(t_by, t_op) * 1e3, "bytes" if t_by >= t_op else "operations"
-    if name == "attention":
-        win1, k2, fps1 = a[0], a[1], a[2]
-        nw, n1cap, d = win1.shape
-        nk1, nk2 = fps1.shape[1], k2.shape[1]
-        nkt = nk1 + nk2
-        heads = k["num_heads"]
-        nq = int(k["nq"]) if k["q_prefix"] else a[4].shape[1]
-        nv = int(k["num_valid"])
-        ph = d // sum(heads)
-        mac_proj = sum((ph * h) ** 2 for h in heads)  # per token, one matrix
-        macs = ((nq + 2 * nkt) * mac_proj + nq * mac_proj
-                + 2 * sum(heads) * nq * (nkt // len(heads)) * ph)
-        flops = 2 * macs * nv
-        per_win = (n1cap * d * 2 + nk2 * d * 2 + nk1 * 5 + nq * 4
-                   + (0 if k["q_prefix"] else nq * d * 2)
-                   + 4 * 3 * (nkt + nq) + d * 2 + nkt * 4
-                   + (d * 2 if k.get("pad_row") is not None else 0))
-        by = nv * per_win + nw * nq * d * 2 + 4 * d * d * 2
-        t_by, t_op = by / MEM_BPS, flops / BF16_FLOPS
-        return max(t_by, t_op) * 1e3, "bytes" if t_by >= t_op else "operations"
-    x, w1 = a[0], a[3]
-    v, c = x.shape
-    f = w1.shape[1]
-    by = 2 * _nbytes(x) + 2 * c * f * 2
-    flops = 4 * v * c * f
-    t_by, t_op = by / MEM_BPS, flops / BF16_FLOPS
-    return max(t_by, t_op) * 1e3, "bytes" if t_by >= t_op else "operations"
+    formula = {"fill": work.fill, "fps": work.fps_select,
+               "attention": work.attention, "ffn": work.ffn}[name]
+    return formula(*a, **k).bound()
 
 
 def compare(name, got, want, a, k, torch):
@@ -570,7 +537,7 @@ def kernel_phase(torch, captured):
             err = compare(name, got, want, a, k, torch)
             ms = time_ms(torch, lambda: kern(*a, **k), reps=10, warm=2)
             plain_ms = time_ms(torch, lambda: plain(*a, **k), reps=3, warm=1)
-        bound_ms, bound_by = bound(name, a, k, torch)
+        bound_ms, bound_by = bound(name, a, k)
         rows[name] = kernel_row(name, err, ms, plain_ms, bound_ms, bound_by)
         shapes = [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)]
         log(f"# kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -613,7 +580,7 @@ def later_block_shape(name, a, k):
         return (f"rows={a[0].shape[0]} K={a[0].shape[1]} cap={a[2]} "
                 f"own_slab={k.get('own_slab')} num_valid="
                 f"{None if nv is None else int(nv)} "
-                f"bound_ms={bound(name, a, k, None)[0]:.4f}")
+                f"bound_ms={bound(name, a, k)[0]:.4f}")
     if name == "attention":
         return (f"windows={a[0].shape[0]} num_valid={int(k['num_valid'])} "
                 f"layout (n1cap, nk1, nk2, nq, d, heads)={asm_layout(a, k)}")
@@ -658,7 +625,7 @@ def fps_picks_phase(torch, planes):
     """K2b and K2c against fps_plain: exact picks, timed, with bounds (the
     planes read once and the picks written once, vs ~10 f32 operations a
     point and iteration)."""
-    from mssvt_tpu_torch.kernels import fps
+    from mssvt_tpu_torch.kernels import fps, work
 
     rows = {}
     inputs = fps_picks_inputs(torch, planes)
@@ -675,11 +642,8 @@ def fps_picks_phase(torch, planes):
         plain_ms = time_ms(torch, lambda: fps.fps_plain(*a[:3], (), npoint),
                            reps=1, warm=1)
         b, n = x.shape
-        t_by = (3 * b * n * 4 + b * npoint * 4) / MEM_BPS
-        t_op = b * (npoint - 1) * n * 10 / F32_FLOPS
         rows[name] = kernel_row(name, 0.0, ms, plain_ms,
-                                max(t_by, t_op) * 1e3,
-                                "bytes" if t_by >= t_op else "operations")
+                                *work.fps_picks(*a).bound())
         log(f"# kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={rows[name]['bound_ms']:.4f} "
             f"({rows[name]['bound_by']}) picks equal; inputs=({b}, {n}) -> "
@@ -2967,7 +2931,7 @@ def request_fps_check(torch, model, batch, name, card):
     planes, and both timed (CUDA events), with the kernel's bound (the planes
     read once, the picks written once, vs ~10 f32 operations a point and
     iteration). One line a call."""
-    from mssvt_tpu_torch.kernels import fps
+    from mssvt_tpu_torch.kernels import fps, work
     from mssvt_tpu_torch.models.backbones_3d import pfe, pointnet2_backbone
     from mssvt_tpu_torch.runtime.eval_utils import eval_step
 
@@ -3007,13 +2971,11 @@ def request_fps_check(torch, model, batch, name, card):
             raise AssertionError(f"13b {name}: {kernel}'s picks at {b} x {n} "
                                  f"-> {npoint} != fps_plain's")
         ms = time_ms(torch, lambda: fps.fps_picks(x, y, z, npoint), reps=5)
-        t_by = (3 * b * n * 4 + b * npoint * 4) / MEM_BPS
-        t_op = b * (npoint - 1) * n * 10 / F32_FLOPS
+        bound_ms, bound_by = work.fps_picks(x, y, z, npoint).bound()
         log(f"# 13b {name} {kernel} on the request's own points ({b} x {n} "
             f"-> {npoint}): picks equal fps_plain's; ms={ms:.4f} "
             f"plain_ms={start.elapsed_time(end):.4f} "
-            f"bound_ms={max(t_by, t_op) * 1e3:.4f} "
-            f"({'bytes' if t_by >= t_op else 'operations'}) [{card}]")
+            f"bound_ms={bound_ms:.4f} ({bound_by}) [{card}]")
 
 
 def point_files_path(torch, card):
@@ -3528,6 +3490,108 @@ def caddn_path(torch, card):
     torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------- phase 15
+# the bench, its tools and the convergence gate
+BENCH_KEYS = {"metric", "value", "unit", "mfu", "sync_ms_per_frame",
+              "sync_ms_per_frame_median", "train_ms_per_step",
+              "train_ms_per_frame", "train_compile_s", "device"}
+ABLATE_ITERS = 3  # 15c: timed requests a cut
+BENCH_TIMEOUT = 600
+
+
+def bench_phase(torch, card):
+    """15a: ``bench_torch.py --profile`` in a subprocess, its JSON line
+    checked, then the top families of its traces."""
+    import contextlib
+    import io
+    import math
+
+    trace_dir = ROOT / "output" / "chip_smoke" / "bench_profile"
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "bench_torch.py"), "--profile",
+         str(trace_dir)], cwd=str(ROOT), capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT)
+    for line in res.stderr.splitlines():
+        if line.startswith("#"):
+            log(f"# 15a bench_torch {line[2:]}")
+    if res.returncode != 0:
+        raise AssertionError(f"15a: bench_torch.py exited {res.returncode}: "
+                             f"{res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    if len(lines) != 1 or set(out) != BENCH_KEYS:
+        raise AssertionError(f"15a: bench_torch.py printed {lines}")
+    if out["metric"] != "e2e_inference_fps_single_chip" or \
+            not 0 < out["mfu"] <= 1 or \
+            not math.isfinite(out["train_ms_per_step"]) or \
+            out["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"15a: bench_torch.py's line {out}")
+    log(f"# 15a bench_torch.py --profile: {json.dumps(out)} "
+        f"({time.time() - t0:.1f} s) [{card}]")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        load_tool("profile_top_ops_torch").main(
+            [str(trace_dir), "--group", "--n", "8"])
+    for line in buf.getvalue().splitlines():
+        log(f"# 15a profile {line}")
+    return out
+
+
+def convergence_phase(torch, card):
+    """15b: the golden scene's 120 adam_onecycle steps on the card and the
+    JAX test's gate (loss tail < 0.5 x head, recall >= 0.5)."""
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.runtime import convergence
+
+    t0 = time.time()
+    kernels.reset_launch_counts()
+    result = convergence.train_golden(
+        "cuda", on_step=lambda i, loss: log(f"# 15b step {i}: loss {loss:.6f}")
+        if i % 10 == 0 or i == convergence.STEPS - 1 else None)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    if not {"fill", "fps", "attention", "attention_bwd"} <= set(counts):
+        raise AssertionError(f"15b: launches {counts}")
+    head, tail = convergence.gate(result)
+    log(f"# 15b convergence: loss head (mean of the first 5) {head:.6f}, "
+        f"tail (last 5) {tail:.6f} = {tail / head:.4f} x head (gate < 0.5); "
+        f"recall {result['recall']:.3f} (gate >= 0.5; {result['detections']} "
+        f"detections, {result['gt']} GT boxes); launches {counts}; "
+        f"{time.time() - t0:.1f} s [{card}]")
+    return result
+
+
+def ablate_phase(torch, card):
+    """15c: the ``none`` and ``attn`` cuts at full width with their
+    launches checked, and the K3 microbench (the tools' JSON lines go to
+    ``#`` lines: the last lines of stdout are the contract's)."""
+    import contextlib
+    import io
+
+    t0 = time.time()
+    tool = load_tool("ablate_e2e_torch")
+    run = (*tool.setup(BATCH, device="cuda"), False)
+    per = {n: v * ABLATE_ITERS for n, v in EXPECTED_LAUNCHES.items() if v}
+    ms, buf = {}, io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        for name, want in (("none", per),
+                           ("attn", {k: v for k, v in per.items()
+                                     if k != "attention"})):
+            ms[name], got = tool.measure(name, run, n_iter=ABLATE_ITERS)
+            if got != want:
+                raise AssertionError(f"15c {name}: launches {got} != {want}")
+        del run
+        torch.cuda.empty_cache()
+        load_tool("bench_attn_kernel_torch").main(["--iters", "5"])
+    for line in buf.getvalue().splitlines():
+        log(f"# 15c {line}")
+    log(f"# 15c ablate: none {ms['none']:.3f}, attn {ms['attn']:.3f} ms a "
+        f"frame ({ABLATE_ITERS} requests at batch {BATCH}; no attention "
+        f"launch under the attn cut); phase 15c {time.time() - t0:.1f} s "
+        f"[{card}]")
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------- phase 5
 def main_path(torch, model, scenes):
     """One warm-up request, then REQUESTS requests cycling the scenes, each
@@ -3713,39 +3777,8 @@ def capture_block0_backward(torch, model, batch, gen):
     return box["a"], box["k"]
 
 
-def bwd_bound(a, k):
-    """(bound_ms, bound_by) for one K5 call: inputs of live windows read
-    once, every output written once, vs its block-diagonal products (the
-    forward recompute, the backward and the full (D, D) weight products)
-    at the bf16 tensor-core peak."""
-    win1, k2, fps1 = a[0], a[1], a[2]
-    nw, n1cap, d = win1.shape
-    nk1, nk2 = fps1.shape[1], k2.shape[1]
-    nkt = nk1 + nk2
-    heads = k["num_heads"]
-    nq = int(k["nq"]) if k["q_prefix"] else a[4].shape[1]
-    nv = int(k["num_valid"])
-    ph = d // sum(heads)
-    nk = nkt // len(heads)
-    mac_proj = sum((ph * h) ** 2 for h in heads)  # per token, one matrix
-    attn = sum(heads) * nq * nk * ph              # one per-head product
-    macs = ((nq + 2 * nkt) * mac_proj + 2 * attn       # forward recompute
-            + nq * mac_proj + 4 * attn                 # dO, dA, dV, dQ, dK
-            + (nq + 2 * nkt) * mac_proj                # dQ3, dK3
-            + (2 * nq + 2 * nkt) * d * d)              # dW (full D x D)
-    flops = 2 * macs * nv
-    per_win = (n1cap * d * 2 + nk2 * d * 2 + nk1 * 5 + nq * 4
-               + (0 if k["q_prefix"] else nq * d * 2)
-               + 4 * 3 * (nkt + nq) + d * 2 + nkt * 4 + d * 2 + nq * d * 2)
-    outs = nw * (n1cap * d * 2 + nk2 * d * 2 + 2 * d * 2
-                 + (0 if k["q_prefix"] else nq * d * 2))
-    by = nv * per_win + 4 * d * d * 2 + outs + (4 * d * d + 7 * d) * 4
-    t_by, t_op = by / MEM_BPS, flops / BF16_FLOPS
-    return max(t_by, t_op) * 1e3, "bytes" if t_by >= t_op else "operations"
-
-
 def bwd_kernel_phase(torch, a, k, profiled=False):
-    from mssvt_tpu_torch.kernels import attention, attention_bwd
+    from mssvt_tpu_torch.kernels import attention, attention_bwd, work
 
     kern = attention_bwd.fused_window_attention_assembled_bwd
     plain = attention.attention_bwd_plain
@@ -3787,7 +3820,7 @@ def bwd_kernel_phase(torch, a, k, profiled=False):
         plain_ms = time_ms(torch, lambda: plain(*a, **k), reps=1, warm=1)
     log_plan("attention_bwd", attention_bwd.kernel_plan(*asm_layout(a, k)),
              "per-window kernel")
-    bound_ms, bound_by = bwd_bound(a, k)
+    bound_ms, bound_by = work.attention_bwd(*a, **k).bound()
     shapes = [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)]
     log(f"# kernel attention_bwd: ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={err:.3g} "
@@ -3824,50 +3857,15 @@ def capture_block0_qk_backward(torch, model, batch, gen, others=None):
     return box["a"], box["k"]
 
 
-def qk_bounds(a, k, live):
-    """((bound_ms, bound_by) of K6, the same of K7) for one call: every
-    window's tokens read once and the outputs written once, vs the
-    block-diagonal products at the bf16 tensor-core peak. K7 needs g of
-    every window but the tokens and the products (the forward recompute,
-    the backward and the full (D, D) weight products) only of the ``live``
-    windows whose g has a nonzero element: the others' cotangents are
-    zeros whatever their tokens."""
-    query, keys = a[0], a[1]
-    nw, nq, d = query.shape
-    nkt = keys.shape[1]
-    heads = k["num_heads"]
-    ph = d // sum(heads)
-    nk = nkt // len(heads)
-    es = query.element_size()
-    mac_proj = sum((ph * h) ** 2 for h in heads)  # per token, one matrix
-    attn = sum(heads) * nq * nk * ph              # one per-head product
-    fwd_macs = (nq + 2 * nkt) * mac_proj + nq * mac_proj + 2 * attn
-    bwd_macs = ((nq + 2 * nkt) * mac_proj + 2 * attn       # forward recompute
-                + nq * mac_proj + 4 * attn                 # dO, dA, dV, dQ, dK
-                + (nq + 2 * nkt) * mac_proj                # dq, dk
-                + (2 * nq + 2 * nkt) * d * d)              # dW (full D x D)
-    weights = (4 * d * d + 4 * d) * es
-    tokens = nw * (nq + nkt) * d * es + nw * nkt * 4
-    fwd_by = tokens + weights + nw * nq * d * es
-    bwd_by = (tokens * live // nw + weights + nw * nq * d * es     # + g
-              + nw * (nq + nkt) * d * es + (4 * d * d + 4 * d) * 4)
-    out = []
-    for by, macs, n in ((fwd_by, fwd_macs, nw), (bwd_by, bwd_macs, live)):
-        t_by, t_op = by / MEM_BPS, 2 * macs * n / BF16_FLOPS
-        out.append((max(t_by, t_op) * 1e3,
-                    "bytes" if t_by >= t_op else "operations"))
-    return out
-
-
 def qk_kernel_phase(torch, a, k, profiled=False, others=()):
     """K6 and K7 against their plain versions on block 0's inputs; K6 is
     also held against its plain version, and timed, on the inputs of the
     calls in ``others`` with fewer windows (the later blocks)."""
-    from mssvt_tpu_torch.kernels import attention_qk, attention_qk_bwd
+    from mssvt_tpu_torch.kernels import attention_qk, attention_qk_bwd, work
 
     query, keys, proj, key_bias, g = a
     nw = g.shape[0]
-    live = int((g.reshape(nw, -1) != 0).any(dim=1).sum())
+    live = work.live_windows(g)
     fkw = dict(num_heads=k["num_heads"], scale=k["scale"],
                compute_dtype=k["compute_dtype"])
     fwd = lambda fn: fn(query, keys, proj, key_bias, **fkw)
@@ -3876,7 +3874,9 @@ def qk_kernel_phase(torch, a, k, profiled=False, others=()):
         ("dq", "dk", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwp", "dbp"),
         (*r[:2], *r[2])))
     rows = {}
-    (fb_ms, fb_by), (bb_ms, bb_by) = qk_bounds(a, k, live)
+    fb_ms, fb_by = work.attention_qk(query, keys, proj, key_bias,
+                                     **fkw).bound()
+    bb_ms, bb_by = work.attention_qk_bwd(*a, **k).bound()
     with torch.no_grad():
         got = fwd(attention_qk.fused_window_attention)
         want = fwd(attention_qk.attention_qk_plain)
@@ -4267,6 +4267,13 @@ def main(argv):
     ct3d_files_path(torch, card)
     caddn_path(torch, card)
     log(f"# 14: phase {time.time() - t14:.1f} s [{card}]")
+    torch.cuda.empty_cache()
+    # phase 15: the bench, its tools and the convergence gate
+    t15 = time.time()
+    bench_phase(torch, card)
+    convergence_phase(torch, card)
+    ablate_phase(torch, card)
+    log(f"# 15: phase {time.time() - t15:.1f} s [{card}]")
     for name, counts_ in (("attention_qk", off_counts),
                           ("attention_qk_bwd", off_counts),
                           ("fps_picks_warp", sampling_counts),

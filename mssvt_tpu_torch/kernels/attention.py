@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from . import _lib
+from . import _lib, work
 
 launches = 0
 MAX_GROUPS = 4
@@ -296,6 +296,7 @@ def kernel_plan(n1cap, nk1, nk2, nq, d, num_heads, bf16=True,
         entry, [0, n1cap, nk1, nk2, nq, d, len(num_heads), 1, *heads], bf16)
 
 
+@work.counted("attention", work.attention)
 def fused_window_attention_assembled(
         win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
         pos_base, pos_w, proj, key_bias, num_heads, scale, q_prefix, nq=0,

@@ -25,7 +25,7 @@ import sys
 
 import torch
 
-from . import _lib
+from . import _lib, work
 from . import attention
 
 launches = 0
@@ -43,6 +43,7 @@ def kernel_plan(n1cap, nk1, nk2, nq, d, num_heads, bf16=True):
                                  "mssvt_attention_bwd_plan")
 
 
+@work.counted("attention_bwd", work.attention_bwd)
 def fused_window_attention_assembled_bwd(
         win1_fea, k2_fea, fps1, k_mask1, q_ext, q_keep, k_rel, q_rel,
         pos_base, pos_w, proj, key_bias, g, num_heads, scale, q_prefix, nq=0,

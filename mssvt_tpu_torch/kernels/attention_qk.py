@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from . import _lib
+from . import _lib, work
 from .attention import MAX_GROUPS, attention_core_plain
 
 launches = 0
@@ -86,6 +86,7 @@ def kernel_plan(nq, nk_tot, d, num_heads, bf16=True,
                             bf16)
 
 
+@work.counted("attention_qk", work.attention_qk)
 def fused_window_attention(query, keys, proj, key_bias, num_heads, scale,
                            compute_dtype=None):
     """(NW, nq, D) window attention from assembled query and key tokens."""

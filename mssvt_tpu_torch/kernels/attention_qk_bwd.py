@@ -25,7 +25,7 @@ import sys
 
 import torch
 
-from . import _lib
+from . import _lib, work
 from . import attention_qk
 from .attention import attention_core_bwd_plain
 from .attention_bwd import NCTA, NSPLIT
@@ -59,6 +59,7 @@ def kernel_plan(nq, nk_tot, d, num_heads, bf16=True):
                                     "mssvt_attention_qk_bwd_plan")
 
 
+@work.counted("attention_qk_bwd", work.attention_qk_bwd)
 def fused_window_attention_bwd(query, keys, proj, key_bias, g, num_heads,
                                scale, compute_dtype=None):
     """Cotangents ``(dq, dk, dproj)`` of

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _lib
+from . import _lib, work
 
 launches = 0
 BF16_WIDTHS = ((128, 256), (64, 128))  # (C, F) the bf16 kernel is built for
@@ -42,6 +42,7 @@ def ffn_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6,
     return (xf + y).to(x.dtype)
 
 
+@work.counted("ffn", work.ffn)
 def fused_residual_ffn(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6,
                        compute_dtype=None):
     """x (V, C) -> x + FFN(LN(x)), in x's dtype."""

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..utils.device import device_constant
-from . import _lib
+from . import _lib, work
 
 # 5-bit-biased pack of offset (0, 0, 0): the offset buffers' padding value
 PACK5_ZERO = (16 << 10) | (16 << 5) | 16
@@ -134,6 +134,7 @@ def kernel_plan(k, cap, cv=0):
     return tuple(out)
 
 
+@work.counted("fill", work.fill)
 def fill_capacity_buffer(box, offs_packed, cap, order=None, own_slab=None,
                          elig=None, num_valid=None):
     """Nearest-first capacity fill. Returns (vox (NW, cap) int32 -1 padded,

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _lib
+from . import _lib, work
 
 launches = 0        # K2
 launches_warp = 0   # K2b
@@ -74,6 +74,7 @@ def fps_plain(x, y, z, aux, npoint: int, num_valid=None, nw_half: int = 0):
     return idx, tuple(sels)
 
 
+@work.counted("fps", work.fps_select)
 def fps_select(x, y, z, aux, npoint: int, num_valid=None, nw_half: int = 0):
     """FPS picks and the selected plane values (see module docstring)."""
     global launches
@@ -118,6 +119,7 @@ def _picks(x, y, z, npoint, entry, max_n):
     return idx
 
 
+@work.counted("fps_picks_warp", work.fps_picks)
 def fps_picks_warp(x, y, z, npoint: int):
     """K2b: (B, N <= 256) f32 planes -> (B, npoint) int32 picks."""
     global launches_warp
@@ -128,6 +130,7 @@ def fps_picks_warp(x, y, z, npoint: int):
     return idx
 
 
+@work.counted("fps_picks_block", work.fps_picks)
 def fps_picks_block(x, y, z, npoint: int):
     """K2c: (B, N <= 16 384) f32 planes -> (B, npoint) int32 picks."""
     global launches_block

@@ -33,6 +33,7 @@ def _imports(path):
 
 def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "bench_torch.py",
                                           *ENTRY_POINTS, *RANK_BODIES]
     # the glob finds the entry points (every tools/*_torch.py is scanned)
     # and the sparse-conv, anchor-head, CaDDN and CT3D families' modules
@@ -41,8 +42,11 @@ def test_port_sources_import_no_jax():
     assert {"sparse_conv.py", "spconv_backbone.py", "anchor_head.py",
             "box_coder.py", "second_net.py", "pointpillar.py",
             "image_vfe.py", "caddn.py", "ctrans.py", "ct3d_head.py",
-            "ct3d_3cat.py", "anchor_head_multi.py"} <= {
-        p.name for p in files}
+            "ct3d_3cat.py", "anchor_head_multi.py", "bench_torch.py",
+            "convergence.py", "work.py"} <= {p.name for p in files}
+    # the bench's tools are scanned as entry points
+    assert {"profile_top_ops_torch.py", "ablate_e2e_torch.py",
+            "bench_attn_kernel_torch.py"} <= {p.name for p in ENTRY_POINTS}
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -68,15 +72,17 @@ def test_port_imports_without_nvcc_triton_or_jax():
 
 
 def test_entry_points_import_without_nvcc_or_jax_and_build_nothing():
-    """Every torch entry point (``tools/*_torch.py``) and the DDP tests'
-    rank bodies import in a fresh interpreter with no nvcc and no g++ on
-    PATH; that loads nothing of jax, flax, orbax or mssvt_tpu, and neither
-    builds the host voxelizer nor the kernels."""
+    """Every torch entry point (``tools/*_torch.py``, ``bench_torch.py``)
+    and the DDP tests' rank bodies import in a fresh interpreter with no
+    nvcc and no g++ on PATH; that loads nothing of jax, flax, orbax or
+    mssvt_tpu, and neither builds the host voxelizer nor the kernels."""
     names = [p.stem for p in ENTRY_POINTS]
     code = (
         "import importlib.util, sys\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_ddp_worker\n"
+        "import bench_torch\n"
+        "assert callable(bench_torch.main)\n"
         f"for name in {names!r}:\n"
         "    spec = importlib.util.spec_from_file_location(\n"
         "        name, f'tools/{name}.py')\n"
