@@ -8,8 +8,9 @@ flagship MsSVT model, on one card: ``bench.py``'s protocol without JAX.
 
 Prints ONE JSON line on stdout (``#`` lines on stderr):
 ``{"metric": "e2e_inference_fps_single_chip", "value", "unit", "mfu",
-"sync_ms_per_frame", "sync_ms_per_frame_median", "train_ms_per_step",
-"train_ms_per_frame", "train_compile_s", "device"}``; with ``--train``
+"gb_per_frame", "hbm_util", "sync_ms_per_frame",
+"sync_ms_per_frame_median", "train_ms_per_step", "train_ms_per_frame",
+"train_compile_s", "device"}``; with ``--train``
 ``{"metric": "train_step_ms_single_chip_batch<B>", "value", "unit",
 "train_ms_per_step", "train_ms_per_frame", "train_compile_s", "device"}``.
 
@@ -39,8 +40,17 @@ the pipelined loop from overlapping much: both figures are reported.
 kernels' formulas plus ``FlopCounterMode``'s aten products, the same count
 whether the kernels or their plain versions run) a frame, over the
 pipelined (or sync) time a frame and the H100's dense bf16 peak, 989
-TFLOP/s (67 TFLOP/s f32 under ``--fp32``); null off the card. FLOPs are
-counted in an untimed request after the timed loops.
+TFLOP/s (67 TFLOP/s f32 under ``--fp32``); null off the card.
+``gb_per_frame``: the bytes of one request a frame (the same counting:
+each aten op's results and distinct operands on the device, views free,
+gathers and scatters what their indices touch, the kernels' formulas;
+``tools/op_bytes_torch.py`` breaks it down by mechanism), a count printed
+on the CPU too. ``hbm_util``: those bytes over the time a frame and the
+H100's 3.35 TB/s; null off the card. A ``#`` line gives the arithmetic
+intensity against the ridge (989e12 / 3.35e12 = 295 flop/byte in bf16,
+67e12 / 3.35e12 = 20 in f32) and the wall the request sits against, as
+``bench.py`` does. Both are counted in an untimed request after the timed
+loops.
 
 Training tail (on by default; ``--no-train`` or ``--batch1`` skip it,
 ``--train`` runs only it): the same model, inference state freed first;
@@ -55,8 +65,7 @@ profiler session slows the host's later launches);
 ``tools/profile_top_ops_torch.py DIR`` reads them.
 
 Not carried over from ``bench.py``: ``vs_baseline``, ``a100_sol_fps_bound``
-and the A100 band (they rest on XLA's byte count and A100 peaks), and HBM
-utilisation (no byte count exists for the aten side).
+and the A100 band (they rest on A100 peaks).
 """
 
 from __future__ import annotations
@@ -143,8 +152,8 @@ def setup(args):
     return cfg, model, (grid, max_voxels), batch, device
 
 
-def make_scenes(grid, max_voxels, batch, device, with_gt):
-    """SCENES distinct scenes on ``device`` (seeds 0..SCENES-1)."""
+def make_scenes(grid, max_voxels, batch, device, with_gt, n_scenes=SCENES):
+    """``n_scenes`` distinct scenes on ``device`` (seeds 0, 1, ...)."""
     import torch
 
     from mssvt_tpu_torch.datasets.synthetic_scene import (
@@ -153,7 +162,7 @@ def make_scenes(grid, max_voxels, batch, device, with_gt):
     )
 
     scenes, n = [], 0
-    for seed in range(SCENES):
+    for seed in range(n_scenes):
         scene, n = make_waymo_scale_scene(max_voxels, grid, seed=seed,
                                           batch=batch)
         if with_gt:
@@ -238,17 +247,19 @@ def run_inference(args, model, scenes, batch, device):
             "sync_ms_per_frame_median": round(dt_sync_med * 1e3, 4)}, dt
 
 
-def count_request(model, scene, batch):
-    """FLOPs of one request a frame: (total, kernels by name, aten)."""
+def count_request(model, scene, batch, device):
+    """The work of one request a frame: (FLOPs, FLOPs of each kernel, aten
+    FLOPs, bytes, bytes of the kernels)."""
     import torch
 
     from mssvt_tpu_torch.kernels import work
 
-    with work.counting() as tally, torch.no_grad():
+    with work.counting(device) as tally, torch.no_grad():
         model(scene)
     return (tally.total() / batch,
             {k: v / batch for k, v in tally.kernels.items()},
-            tally.aten_flops() / batch)
+            tally.aten_flops() / batch, tally.total_bytes() / batch,
+            sum(tally.kernel_bytes.values()) / batch)
 
 
 def profile(path, device, fn, n):
@@ -345,17 +356,25 @@ def main(argv=None):
 
     fields, dt = run_inference(args, model, scenes, batch, device)
     fps = 1.0 / dt
-    flops, by_kernel, aten = count_request(model, scenes[0], batch)
+    flops, by_kernel, aten, nbytes, kernel_bytes = count_request(
+        model, scenes[0], batch, device)
     kernels_line = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
                              sorted(by_kernel.items()) if v)
     log(f"# work: {flops / 1e9:.3f} GFLOP/frame = kernels "
         f"{(flops - aten) / 1e9:.3f} ({kernels_line}) + aten {aten / 1e9:.3f}"
         " (kernels/work.py; FlopCounterMode's products)")
-    mfu = None
+    peak = work.F32_FLOPS if args.fp32 else work.BF16_FLOPS
+    ai, ridge = flops / max(nbytes, 1.0), peak / work.MEM_BPS
+    log(f"# bytes: {nbytes / 1e9:.3f} GB/frame = kernels "
+        f"{kernel_bytes / 1e9:.3f} + aten {(nbytes - kernel_bytes) / 1e9:.3f};"
+        f" AI={ai:.1f} flop/byte (ridge {ridge:.0f}) -> "
+        f"{'HBM-bound' if ai < ridge else 'compute-bound'}")
+    mfu = hbm_util = None
     if device.type == "cuda":
-        peak = work.F32_FLOPS if args.fp32 else work.BF16_FLOPS
         mfu = flops / (dt * peak)
-        log(f"# mfu: {mfu * 100:.4f}% of {peak / 1e12:.0f} TFLOP/s at "
+        hbm_util = nbytes / (dt * work.MEM_BPS)
+        log(f"# mfu: {mfu * 100:.4f}% of {peak / 1e12:.0f} TFLOP/s, hbm: "
+            f"{hbm_util * 100:.4f}% of {work.MEM_BPS / 1e12:.2f} TB/s at "
             f"{dt * 1e3:.3f} ms/frame")
     if profile_dir is not None:
         with torch.no_grad():
@@ -364,8 +383,8 @@ def main(argv=None):
                                     ["final_scores"].cpu().sum()),
                     PROFILE_REQUESTS)
     out = {"metric": "e2e_inference_fps_single_chip", "value": round(fps, 4),
-           "unit": "frames/sec", "mfu": mfu,
-           **fields}
+           "unit": "frames/sec", "mfu": mfu, "gb_per_frame": nbytes / 1e9,
+           "hbm_util": hbm_util, **fields}
 
     if not (args.no_train or args.batch1):
         for i, s in enumerate(scenes):

@@ -211,7 +211,24 @@ print the device time of each launch inside one K5 and one K7 call
    (3 timed requests each) with their launch counts checked (``attn``
    launches no K3), and ``tools/bench_attn_kernel_torch.py --iters 5`` (K3
    alone at block-0 shapes against its plain version on 2 048 windows)
-   (``# 15a``/``# 15b``/``# 15c`` lines).
+   (``# 15a``/``# 15b``/``# 15c`` lines); 15a also checks the JSON line's
+   0 < ``hbm_util`` <= 1.
+16. the byte side (``kernels/work.py``'s byte count): 16a one
+   ``mssvt.yaml`` request at full width, batch 4, counted through
+   ``tools/dump_ops_torch.py`` (K1-K4 launched, every op logged) and again
+   with the wrappers' plain versions on the card (no kernel launched under
+   them): the same bytes by kernel,
+   the same aten bytes and groups, and 15a's GFLOP a frame; GB a frame,
+   ``hbm_util`` at 15a's pipelined time, the arithmetic intensity against
+   the ridge and the top 10 mechanisms (``--group``); 16b one pad-key
+   ``train_step`` counted (``tools/op_bytes_torch.py``'s run) against a
+   counted train-mode forward: the step larger, K5's bytes present, aten
+   bytes charged in the backward (the autograd engine's device thread),
+   the same bytes and FLOPs with the plain versions (K5's included; the
+   forward and both steps from one saved state of the weights),
+   ``hbm_util`` at 15a's time a step; 16c ``tools/op_bytes_torch.py --log``
+   on 16a's log prints 16a's total and top mechanisms
+   (``# 16a``/``# 16b``/``# 16c`` lines).
 
 Its last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
@@ -220,6 +237,8 @@ cuDNN convolutions, so f32 comparisons are full f32.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -3492,18 +3511,18 @@ def caddn_path(torch, card):
 
 # -------------------------------------------------------------- phase 15
 # the bench, its tools and the convergence gate
-BENCH_KEYS = {"metric", "value", "unit", "mfu", "sync_ms_per_frame",
-              "sync_ms_per_frame_median", "train_ms_per_step",
-              "train_ms_per_frame", "train_compile_s", "device"}
+BENCH_KEYS = {"metric", "value", "unit", "mfu", "gb_per_frame", "hbm_util",
+              "sync_ms_per_frame", "sync_ms_per_frame_median",
+              "train_ms_per_step", "train_ms_per_frame", "train_compile_s",
+              "device"}
 ABLATE_ITERS = 3  # 15c: timed requests a cut
 BENCH_TIMEOUT = 600
 
 
 def bench_phase(torch, card):
     """15a: ``bench_torch.py --profile`` in a subprocess, its JSON line
-    checked, then the top families of its traces."""
-    import contextlib
-    import io
+    checked, then the top families of its traces. Returns the JSON line
+    with ``gflop_per_frame``, read from its ``# work:`` line, added."""
     import math
 
     trace_dir = ROOT / "output" / "chip_smoke" / "bench_profile"
@@ -3512,9 +3531,12 @@ def bench_phase(torch, card):
         [sys.executable, str(ROOT / "bench_torch.py"), "--profile",
          str(trace_dir)], cwd=str(ROOT), capture_output=True, text=True,
         timeout=BENCH_TIMEOUT)
+    gflop = None
     for line in res.stderr.splitlines():
         if line.startswith("#"):
             log(f"# 15a bench_torch {line[2:]}")
+        if line.startswith("# work: "):
+            gflop = line.split()[2]
     if res.returncode != 0:
         raise AssertionError(f"15a: bench_torch.py exited {res.returncode}: "
                              f"{res.stderr[-3000:]}")
@@ -3523,7 +3545,7 @@ def bench_phase(torch, card):
     if len(lines) != 1 or set(out) != BENCH_KEYS:
         raise AssertionError(f"15a: bench_torch.py printed {lines}")
     if out["metric"] != "e2e_inference_fps_single_chip" or \
-            not 0 < out["mfu"] <= 1 or \
+            not 0 < out["mfu"] <= 1 or not 0 < out["hbm_util"] <= 1 or \
             not math.isfinite(out["train_ms_per_step"]) or \
             out["device"] != torch.cuda.get_device_name(0):
         raise AssertionError(f"15a: bench_torch.py's line {out}")
@@ -3535,7 +3557,7 @@ def bench_phase(torch, card):
             [str(trace_dir), "--group", "--n", "8"])
     for line in buf.getvalue().splitlines():
         log(f"# 15a profile {line}")
-    return out
+    return {**out, "gflop_per_frame": gflop}
 
 
 def convergence_phase(torch, card):
@@ -3565,9 +3587,6 @@ def ablate_phase(torch, card):
     """15c: the ``none`` and ``attn`` cuts at full width with their
     launches checked, and the K3 microbench (the tools' JSON lines go to
     ``#`` lines: the last lines of stdout are the contract's)."""
-    import contextlib
-    import io
-
     t0 = time.time()
     tool = load_tool("ablate_e2e_torch")
     run = (*tool.setup(BATCH, device="cuda"), False)
@@ -3590,6 +3609,182 @@ def ablate_phase(torch, card):
         f"launch under the attn cut); phase 15c {time.time() - t0:.1f} s "
         f"[{card}]")
     torch.cuda.empty_cache()
+
+
+# -------------------------------------------------------------- phase 16
+# the byte side: a request's and a step's bytes by mechanism, the op log
+BYTES_TOP = 10  # mechanisms printed (--group)
+
+
+@contextlib.contextmanager
+def plain_wrappers():
+    """The MsSVT path's kernel wrappers (K1-K5) replaced, on their modules,
+    by their plain versions under the same ``work.counted`` charges (each
+    wrapper's ``.counted``), so that a counted run on the card takes the
+    plain versions; fails if a kernel launched inside."""
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.kernels import (attention, attention_bwd, ffn,
+                                         fill, fps, work)
+
+    swaps = ((fill, "fill_capacity_buffer", fill.fill_plain),
+             (fps, "fps_select", fps.fps_plain),
+             (attention, "fused_window_attention_assembled",
+              attention.attention_plain),
+             (attention_bwd, "fused_window_attention_assembled_bwd",
+              attention.attention_bwd_plain),
+             (ffn, "fused_residual_ffn", ffn.ffn_plain))
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
+    before = kernels.launch_counts()
+    try:
+        for mod, attr, plain in swaps:
+            name, formula = getattr(mod, attr).counted
+            setattr(mod, attr, work.counted(name, formula)(plain))
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    if kernels.launch_counts() != before:
+        raise AssertionError(
+            f"a kernel launched under the plain versions: "
+            f"{kernels.launch_counts()} after {before}")
+
+
+def hbm_util(nbytes, seconds, what):
+    """``hbm_util`` of ``nbytes`` moved in ``seconds``; fails outside
+    (0, 1]."""
+    from mssvt_tpu_torch.kernels import work
+
+    util = nbytes / (seconds * work.MEM_BPS)
+    if not 0 < util <= 1:
+        raise AssertionError(f"{what}: hbm_util {util} outside (0, 1]: a "
+                             "counting fault")
+    return util
+
+
+def bytes_phase(torch, card, bench_out):
+    """16a-16c (see the module docstring)."""
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.datasets.synthetic_scene import add_synth_gt
+    from mssvt_tpu_torch.kernels import work
+
+    op_bytes, dump = load_tool("op_bytes_torch"), load_tool("dump_ops_torch")
+    t0 = time.time()
+    built = op_bytes.build(device="cuda", batch=BATCH)
+    ops_path = ROOT / "output" / "chip_smoke" / "ops" / "mssvt.ops"
+    before = kernels.launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        kern = dump.main(["--out", str(ops_path), "--map",
+                          "aten::index,aten::mm,attention,fill"], built)
+    launched = {n: v - before[n] for n, v in kernels.launch_counts().items()}
+    want = {n: 2 * v for n, v in EXPECTED_LAUNCHES.items()}  # warm + counted
+    if launched != want:
+        raise AssertionError(f"16a: launches {launched} != {want}")
+    for line in buf.getvalue().splitlines():
+        if line:
+            log(f"# 16a map {line}")
+    with plain_wrappers():
+        plain = op_bytes.count(built)
+    if (kern.kernel_bytes, kern.aten_bytes(), kern.groups) != \
+            (plain.kernel_bytes, plain.aten_bytes(), plain.groups):
+        raise AssertionError(
+            f"16a: bytes differ with the plain versions: kernels "
+            f"{dict(kern.kernel_bytes)} / {dict(plain.kernel_bytes)}, aten "
+            f"{kern.aten_bytes()} / {plain.aten_bytes()}")
+    gflop = f"{kern.total() / BATCH / 1e9:.3f}"
+    if (gflop, f"{plain.total() / BATCH / 1e9:.3f}") != \
+            (bench_out["gflop_per_frame"],) * 2:
+        raise AssertionError(f"16a: {gflop} / {plain.total() / BATCH / 1e9}"
+                             f" GFLOP a frame, 15a read "
+                             f"{bench_out['gflop_per_frame']}")
+    per_frame = kern.total_bytes() / BATCH
+    util = hbm_util(per_frame, 1 / bench_out["value"], "16a")
+    ai, ridge = kern.total() / kern.total_bytes(), \
+        work.BF16_FLOPS / work.MEM_BPS
+    log(f"# 16a request bytes: {per_frame / 1e9:.3f} GB a frame "
+        f"({kern.total_bytes()} bytes at batch {BATCH}: kernels "
+        f"{dict(kern.kernel_bytes)}, aten {kern.aten_bytes()}), the same "
+        f"with the plain versions; {gflop} GFLOP a frame as 15a; hbm_util "
+        f"{util * 100:.4f}% of {work.MEM_BPS / 1e12:.2f} TB/s at 15a's "
+        f"{1e3 / bench_out['value']:.3f} ms a frame; AI {ai:.2f} flop/byte "
+        f"(ridge {ridge:.0f}) -> {'HBM' if ai < ridge else 'compute'}-bound;"
+        f" {len(kern.ops)} ops logged; {time.time() - t0:.1f} s [{card}]")
+    top = top_mechanisms(op_bytes, kern, "request")
+    for line in top.splitlines():
+        log(f"# 16a top {line}")
+
+    # 16b: a pad-key training step against its forward
+    t1 = time.time()
+    model, scene = built[1], built[2]
+    scene["gt_boxes"] = torch.as_tensor(
+        add_synth_gt({}, BATCH, seed=0)["gt_boxes"], device="cuda")
+    # the forward, the kernels' step and the plain step from one state
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    model.train()
+    with work.counting("cuda") as fwd:
+        model(scene, generator=torch.Generator(device="cuda").manual_seed(0))
+    model.load_state_dict(state)
+    step = op_bytes.count(built, train=True)
+    model.load_state_dict(state)
+    with plain_wrappers():
+        plain = op_bytes.count(built, train=True)
+    del state
+    aten_bwd = step.backward_bytes - step.kernel_bytes["attention_bwd"]
+    if not (step.total_bytes() > fwd.total_bytes() and
+            step.kernel_bytes["attention_bwd"] > 0 and aten_bwd > 0):
+        raise AssertionError(
+            f"16b: step {step.total_bytes()}, forward {fwd.total_bytes()}, "
+            f"K5 {step.kernel_bytes['attention_bwd']}, aten backward "
+            f"{aten_bwd}")
+    if (step.kernel_bytes, step.aten_bytes(), step.backward_bytes,
+            step.total()) != (plain.kernel_bytes, plain.aten_bytes(),
+                              plain.backward_bytes, plain.total()):
+        raise AssertionError(
+            f"16b: the step's bytes or FLOPs differ with the plain versions:"
+            f" kernels {dict(step.kernel_bytes)} / {dict(plain.kernel_bytes)}"
+            f", aten {step.aten_bytes()} / {plain.aten_bytes()}, FLOPs "
+            f"{step.total()} / {plain.total()}")
+    step_util = hbm_util(step.total_bytes(),
+                         bench_out["train_ms_per_step"] / 1e3, "16b")
+    log(f"# 16b step bytes: {step.total_bytes() / 1e9:.3f} GB a step "
+        f"(forward alone {fwd.total_bytes() / 1e9:.3f}); backward "
+        f"{step.backward_bytes / 1e9:.3f} GB "
+        f"({step.backward_bytes / step.total_bytes() * 100:.1f}%; K5 "
+        f"{step.kernel_bytes['attention_bwd'] / 1e9:.3f} GB, aten "
+        f"{aten_bwd / 1e9:.3f}); kernels {dict(step.kernel_bytes)}; the "
+        f"same with the plain versions; {step.total() / 1e9:.3f} GFLOP a "
+        f"step; hbm_util {step_util * 100:.4f}% at 15a's "
+        f"{bench_out['train_ms_per_step']:.3f} ms a step; "
+        f"{time.time() - t1:.1f} s [{card}]")
+    for line in top_mechanisms(op_bytes, step, "step").splitlines():
+        log(f"# 16b top {line}")
+    del built, model, scene, step, plain, fwd
+    torch.cuda.empty_cache()
+
+    # 16c: the op log of 16a read back
+    t2 = time.time()
+    again = io.StringIO()
+    with contextlib.redirect_stdout(again):
+        op_bytes.main(["--log", str(ops_path), "--group", "--n",
+                       str(BYTES_TOP)])
+    total = op_bytes.read_log(ops_path)[2]
+    if total != kern.total_bytes() or again.getvalue() != top:
+        raise AssertionError(f"16c: the log reads {total} bytes, 16a "
+                             f"counted {kern.total_bytes()}")
+    hbm_util(total / BATCH, 1 / bench_out["value"], "16c")
+    log(f"# 16c op log: {ops_path.stat().st_size / 2**20:.1f} MiB, "
+        f"{len(kern.ops)} lines, {total} bytes = 16a's total, the same top "
+        f"mechanisms; {time.time() - t2:.1f} s; phase 16 "
+        f"{time.time() - t0:.1f} s [{card}]")
+
+
+def top_mechanisms(op_bytes, tally, what):
+    """``op_bytes_torch.py --group``'s lines for ``tally``."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        op_bytes.report(tally.groups, tally.group_ops, tally.total_bytes(),
+                        what, BYTES_TOP, group=True)
+    return out.getvalue()
 
 
 # --------------------------------------------------------------- phase 5
@@ -4270,10 +4465,12 @@ def main(argv):
     torch.cuda.empty_cache()
     # phase 15: the bench, its tools and the convergence gate
     t15 = time.time()
-    bench_phase(torch, card)
+    bench_out = bench_phase(torch, card)
     convergence_phase(torch, card)
     ablate_phase(torch, card)
     log(f"# 15: phase {time.time() - t15:.1f} s [{card}]")
+    # phase 16: the byte side (kernels/work.py's byte count, its tools)
+    bytes_phase(torch, card, bench_out)
     for name, counts_ in (("attention_qk", off_counts),
                           ("attention_qk_bwd", off_counts),
                           ("fps_picks_warp", sampling_counts),

@@ -1,5 +1,5 @@
 """The work of one call of each kernel, and a context that tallies a run's
-FLOPs.
+FLOPs and the bytes it moves.
 
 One copy of the per-call formulas serves ``chip_smoke.py`` (each kernel
 row's ``bound_ms``), ``tools/bench_attn_kernel_torch.py`` (K3's bound) and
@@ -31,14 +31,61 @@ are taken back out, so a run counts the same work whether the kernels or
 their plain versions ran. A formula that reads ``num_valid`` or a
 cotangent's live windows syncs with the card, so count in a run of its own,
 never in a timed one.
+
+Bytes follow ``tools/hlo_bytes.py``'s rule, which charges each top-level
+HLO instruction its result plus its distinct operands: a dispatch mode
+entered with the FLOP counter charges each aten op the bytes of its tensor
+results plus those of its distinct tensor operands (the same tensor passed
+twice counts once; a broadcast operand, stride 0, its own elements once).
+On top of that rule, for an eager program:
+
+- views cost nothing, as ``bitcast`` and ``get-tuple-element`` do there:
+  an op whose schema returns aliases and writes nothing (``view``,
+  ``expand``, ``permute``, ``slice``, ``select``, ``detach``, ...), an
+  in-place view (``squeeze_``, ``resize_``), and an op whose every result
+  shares a storage with an operand though its schema declares no alias
+  (``_unsafe_view``, which ``reshape`` and ``matmul`` use after a copy or
+  a product); ``empty*`` costs nothing, a fill (``zeros``, ``full``,
+  ``fill_``) its output;
+- only tensors on the counting device count: a host-to-device copy is
+  charged its device-side write alone;
+- gathers (``index``, ``index_select``, ``gather``, ``embedding``) touch
+  what these inputs need: the index read, the picked elements read and
+  written (``index bytes + 2 x output bytes``), not the whole source;
+- in-place scatters (``index_put_``, ``scatter_``, ``scatter_add_``,
+  ``scatter_reduce_``, ``index_add_``, ``index_copy_``, ``index_fill_``)
+  read their indices and values and write as many elements as the values
+  fill; the accumulating ones also read those elements. An out-of-place
+  scatter copies its whole destination and is charged as one;
+- other in-place and ``out=`` ops read their operands and write their
+  destination once; the destination is also read unless the op overwrites
+  it (``copy_``, ``fill_``, ``zero_``, an ``out=`` argument).
+
+Inside a :func:`counted` wrapper no aten op is charged: the formula's
+``nbytes`` replaces whatever ran there, so any aten op a wrapper runs
+around its launch (an allocation, a cast, a table upload) is part of the
+kernel's charge, and a ctypes launch, which the dispatcher never sees, is
+charged once. Every charge goes under a mechanism key: the innermost
+active module's path (``torch.utils.module_tracker.ModuleTracker``, in the
+forward), then the function scopes a caller opens with :func:`scoped`; a
+charge made inside the backward takes the key of the forward code that
+made its autograd node, marked ``[bwd] ``; a kernel's charge ends in
+`` [name]``. Ops of the backward are counted on the autograd engine's
+device thread too (the dispatch mode is part of the thread-local state the
+engine carries there).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
 from typing import NamedTuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 MEM_BPS = 3.35e12     # H100 SXM HBM3 bytes/s
 BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
@@ -210,16 +257,152 @@ def ffn(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6, compute_dtype=None):
     return Work(flops, flops, 2 * _nbytes(x) + 2 * c * f * 2, BF16_FLOPS)
 
 
+_DTYPE_NAMES = {
+    torch.bool: "pred", torch.uint8: "u8", torch.int8: "s8",
+    torch.int16: "s16", torch.int32: "s32", torch.int64: "s64",
+    torch.float16: "f16", torch.bfloat16: "bf16", torch.float32: "f32",
+    torch.float64: "f64"}
+GATHERS = {"index", "index_select", "gather", "embedding"}
+SCATTERS = {"index_put_", "scatter_", "scatter_add_", "scatter_reduce_",
+            "index_add_", "index_copy_", "index_fill_"}
+OVERWRITES = {"copy_", "fill_", "zero_"}  # in-place, destination not read
+BWD = "[bwd] "
+
+
+def touched(t):
+    """Bytes of a tensor's elements, each once (a stride-0 dim once)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if size == 0:
+            return 0
+        if stride:
+            n *= size
+    return n * t.element_size()
+
+
+def describe(t):
+    """``bf16[96000,48,128]`` (HLO's spelling)."""
+    name = _DTYPE_NAMES.get(t.dtype, str(t.dtype).replace("torch.", ""))
+    return f"{name}[{','.join(map(str, t.shape))}]"
+
+
+def group_key(key, segments=3):
+    """``key`` with its module path cut to its first ``segments`` parts, as
+    ``hlo_bytes --group`` cuts a name stack; the backward mark and the
+    kernel's name stay."""
+    prefix = BWD if key.startswith(BWD) else ""
+    path, sep, kernel = key[len(prefix):].partition(" [")
+    return prefix + "/".join(path.split("/")[:segments]) + sep + kernel
+
+
+class _OpInfo(NamedTuple):
+    func: object     # the OpOverload
+    name: str        # aten.mm.default
+    kind: str        # "free", "gather", "scatter" or "general"
+    written: tuple   # (argument name, read too?) of each written argument
+
+
+def _op_info(func):
+    schema = func._schema
+    packet = func._overloadpacket.__name__
+    rets = schema.returns
+    if (rets and all(r.alias_info is not None and not r.alias_info.is_write
+                     for r in rets)) \
+            or torch.Tag.inplace_view in func.tags \
+            or packet.startswith(("empty", "new_empty")):
+        kind = "free"
+    elif packet in GATHERS:
+        kind = "gather"
+    elif packet in SCATTERS:
+        kind = "scatter"
+    else:
+        kind = "general"
+    written = tuple(
+        (a.name, not a.is_out and packet not in OVERWRITES)
+        for a in schema.arguments
+        if a.alias_info is not None and a.alias_info.is_write)
+    return _OpInfo(func, str(func), kind, written)
+
+
+def _bind(func, args, kwargs):
+    bound = dict(zip((a.name for a in func._schema.arguments), args))
+    bound.update(kwargs)
+    return bound
+
+
+def _tensors(value):
+    """The tensors in ``value``, also inside dataclasses (``SparseVoxels``,
+    which a module takes and returns)."""
+    out = []
+    for leaf in tree_leaves(value):
+        if isinstance(leaf, torch.Tensor):
+            out.append(leaf)
+        elif dataclasses.is_dataclass(leaf) and not isinstance(leaf, type):
+            out += _tensors([getattr(leaf, f.name)
+                             for f in dataclasses.fields(leaf)])
+    return out
+
+
+def _identity(t):
+    """Two operands are one when they are the same elements of one
+    storage."""
+    return t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
+def _indexed_numel(shape, indices):
+    """Elements that ``self[indices]`` addresses (a boolean index counts
+    its true elements: a host sync)."""
+    n, dim, shapes = 1, 0, []
+    for ix in indices:
+        if ix is None:
+            n *= shape[dim]
+            dim += 1
+        elif ix.dtype == torch.bool:
+            shapes.append((int(ix.sum()),))
+            dim += ix.dim()
+        else:
+            shapes.append(tuple(ix.shape))
+            dim += 1
+    for size in torch.broadcast_shapes(*shapes) if shapes else ():
+        n *= size
+    for size in shape[dim:]:
+        n *= size
+    return n
+
+
 class Tally:
-    """What one counting context counted: ``kernels`` (FLOPs by kernel
-    name), and :meth:`aten_flops`, the aten products outside the kernels."""
+    """What one counting context counted. FLOPs: ``kernels`` (by kernel
+    name), :meth:`aten_flops` (the aten products outside the kernels).
+    Bytes: ``kernel_bytes`` (by kernel name), :meth:`aten_bytes`,
+    :meth:`total_bytes`, ``groups`` and ``group_ops`` (bytes and charges by
+    mechanism key), ``backward_bytes`` (charged inside the backward) and,
+    with ``log``, ``ops``: one ``(seq, op or kernel, operands, results,
+    bytes, key)`` a charge, whose bytes sum to :meth:`total_bytes`."""
 
-    def __init__(self):
+    def __init__(self, device=None, log=False):
         from torch.utils.flop_counter import FlopCounterMode
+        from torch.utils.module_tracker import ModuleTracker
 
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
         self.mode = FlopCounterMode(display=False)
         self.kernels = collections.Counter()
         self.inside_wrappers = 0  # aten FLOPs counted while a wrapper ran
+        self.kernel_bytes = collections.Counter()
+        self.groups = collections.Counter()
+        self.group_ops = collections.Counter()
+        self.backward_bytes = 0
+        self.ops = [] if log else None
+        self.tracker = ModuleTracker()
+        self.scopes = []      # function scopes open now (:func:`scoped`)
+        self.node_keys = {}   # autograd node -> the key of its forward code
+        self.wrapper_depth = 0
+        self._aten_bytes = 0
 
     def aten_flops(self):
         return self.mode.get_total_flops() - self.inside_wrappers
@@ -230,29 +413,224 @@ class Tally:
     def total(self):
         return self.kernel_flops() + self.aten_flops()
 
+    def aten_bytes(self):
+        return self._aten_bytes
+
+    def total_bytes(self):
+        return self._aten_bytes + sum(self.kernel_bytes.values())
+
+    # ------------------------------------------------------------ bytes
+    def _on(self, t):
+        return isinstance(t, torch.Tensor) and \
+            t.device.type == self.device.type and \
+            (self.device.index is None or t.device.index == self.device.index)
+
+    def _bytes(self, t):
+        return touched(t) if self._on(t) else 0
+
+    def key(self):
+        """The mechanism key of a charge made now: in the forward the
+        innermost module's path and the open scopes; in the backward that
+        of the forward code that made the running autograd node."""
+        if torch._C._current_graph_task_id() != -1:
+            node = torch._C._current_autograd_node()
+            return BWD + self.node_keys.get(node, "Global")
+        inner = max(self.tracker.parents,
+                    key=lambda p: (p != "Global", p.count("."), p))
+        return "/".join([inner.replace(".", "/"), *self.scopes])
+
+    def claim(self, tensors, key):
+        """Gives ``key`` to every autograd node behind ``tensors`` that no
+        module or scope has claimed yet. Called with the enclosing key as a
+        module or scope is entered (on its inputs) and with its own as it
+        returns (on its outputs), this keys each node by the code that made
+        it, so that the backward's charges land on the forward's
+        mechanisms (``ModuleTracker``'s own backward tracking leaves a
+        module marked active when the gradient of one of its inputs never
+        comes)."""
+        stack = [t.grad_fn for t in _tensors(tensors)]
+        while stack:
+            node = stack.pop()
+            if node is None or node in self.node_keys:
+                continue
+            self.node_keys[node] = key
+            stack.extend(n for n, _ in node.next_functions)
+
+    @contextlib.contextmanager
+    def claiming(self):
+        """Claims each module's nodes (see :meth:`claim`); entered before
+        the tracker, so that these hooks see the key outside the module as
+        it is entered and inside it as it returns."""
+        from torch.nn.modules.module import (
+            register_module_forward_hook,
+            register_module_forward_pre_hook,
+        )
+
+        pre = register_module_forward_pre_hook(
+            lambda mod, args: self.claim(args, self.key()))
+        post = register_module_forward_hook(
+            lambda mod, args, out: self.claim(out, self.key()))
+        try:
+            yield
+        finally:
+            pre.remove()
+            post.remove()
+
+    def _add(self, nbytes, name, operands, results, key):
+        self.groups[key] += nbytes
+        self.group_ops[key] += 1
+        if key.startswith(BWD):
+            self.backward_bytes += nbytes
+        if self.ops is not None:
+            def desc(ts):
+                return " ".join(describe(t) + ("" if self._on(t) else
+                                               f"@{t.device.type}")
+                                for t in ts) or "-"
+            self.ops.append((len(self.ops), name, desc(operands),
+                             desc(results), nbytes, key))
+
+    def charge_op(self, info, args, kwargs, out):
+        operands, results = _tensors((args, kwargs)), _tensors(out)
+        nbytes = 0 if info.kind == "free" else \
+            self._op_bytes(info, args, kwargs, operands, results)
+        self._aten_bytes += nbytes
+        self._add(nbytes, info.name, operands, results, self.key())
+
+    def _distinct(self, tensors):
+        seen, total = set(), 0
+        for t in tensors:
+            k = _identity(t)
+            if k not in seen:
+                seen.add(k)
+                total += self._bytes(t)
+        return total
+
+    def _op_bytes(self, info, args, kwargs, operands, results):
+        if info.kind == "gather":  # the source (argument 0) is not read whole
+            return self._distinct(operands[1:]) + \
+                2 * sum(self._bytes(t) for t in results)
+        bound = _bind(info.func, args, kwargs)
+        if info.kind == "scatter":
+            return self._scatter_bytes(info.func._overloadpacket.__name__,
+                                       bound)
+        if not info.written:
+            ptrs = {_storage(t) for t in operands}
+            if results and all(_storage(t) in ptrs for t in results):
+                return 0  # a view that the schema does not declare
+        dest, read = [], []
+        for name, reads in info.written:
+            for t in _tensors(bound.get(name)):
+                dest.append(t)
+                if reads:
+                    read.append(t)
+        written = {_identity(t) for t in dest}
+        ptrs = {_storage(t) for t in dest}
+        return (self._distinct(read) + self._distinct(dest)
+                + self._distinct([t for t in operands
+                                  if _identity(t) not in written])
+                + self._distinct([t for t in results
+                                  if _storage(t) not in ptrs]))
+
+    def _scatter_bytes(self, packet, bound):
+        dest = bound["self"]
+        if packet == "index_put_":
+            indices = _tensors(bound["indices"])
+            n = _indexed_numel(dest.shape, bound["indices"])
+            read = self._bytes(bound["values"])
+            accumulate = bool(bound.get("accumulate", False))
+        else:
+            indices = [bound["index"]]
+            if packet.startswith("scatter"):
+                n = bound["index"].numel()
+                src = bound.get("src")
+                read = n * src.element_size() if self._on(src) else 0
+            elif packet == "index_fill_":
+                dim = bound["dim"] % max(dest.dim(), 1)
+                n = bound["index"].numel() * (
+                    dest.numel() // max(dest.shape[dim], 1)
+                    if dest.dim() else 1)
+                read = self._bytes(bound["value"])
+            else:  # index_add_, index_copy_
+                n = bound["source"].numel()
+                read = self._bytes(bound["source"])
+            accumulate = packet in ("scatter_add_", "scatter_reduce_",
+                                    "index_add_") or \
+                bound.get("reduce") is not None
+        write = n * dest.element_size() if self._on(dest) else 0
+        return self._distinct(indices) + read + write * (1 + accumulate)
+
+    def charge_kernel(self, name, nbytes, args, kwargs, out):
+        self.kernel_bytes[name] += nbytes
+        self._add(nbytes, f"kernel:{name}", _tensors((args, kwargs)),
+                  _tensors(out), f"{self.key()} [{name}]")
+
+
+class _ByteMode(TorchDispatchMode):
+    """Charges each aten op that runs outside a kernel wrapper to its
+    tally (see the module docstring)."""
+
+    def __init__(self, tally):
+        super().__init__()
+        self.tally = tally
+        self.info = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        tally = self.tally
+        if tally.wrapper_depth == 0:
+            info = self.info.get(func)
+            if info is None:
+                info = self.info[func] = _op_info(func)
+            tally.charge_op(info, args, kwargs, out)
+        return out
+
 
 _TALLY = None  # the open counting context's Tally
 
 
 @contextlib.contextmanager
-def counting():
-    """Count the FLOPs of what runs inside (see the module docstring)."""
+def counting(device=None, log=False):
+    """Count the FLOPs and the bytes on ``device`` (default: the card when
+    there is one, else the CPU) of what runs inside (see the module
+    docstring); ``log`` keeps one entry a charge in ``tally.ops``."""
     global _TALLY
     if _TALLY is not None:
         raise RuntimeError("a counting context is already open")
-    tally = Tally()
+    tally = Tally(device, log)
     _TALLY = tally
     try:
-        with tally.mode:
+        with tally.mode, tally.claiming(), tally.tracker, _ByteMode(tally):
             yield tally
     finally:
         _TALLY = None
 
 
+def scoped(name, fn):
+    """``fn`` with its charges under ``<module path>/name`` inside a
+    counting context (the backward of what it made included)."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        tally = _TALLY
+        if tally is None:
+            return fn(*args, **kwargs)
+        tally.claim((args, kwargs), tally.key())
+        tally.scopes.append(name)
+        try:
+            out = fn(*args, **kwargs)
+            tally.claim(out, tally.key())
+        finally:
+            tally.scopes.pop()
+        return out
+    return call
+
+
 def counted(name, formula):
     """Decorates the wrapper of kernel ``name``: inside a counting context
-    each of its calls adds ``formula(*args).flops`` under ``name``, in place
-    of whatever aten products ran inside it."""
+    each of its calls adds ``formula(*args)``'s FLOPs and bytes under
+    ``name``, in place of whatever aten work ran inside it (its plain
+    version on CPU tensors; around a launch, allocations and casts).
+    The decorated wrapper carries ``(name, formula)`` as ``.counted``."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
@@ -260,9 +638,16 @@ def counted(name, formula):
             if tally is None:
                 return fn(*args, **kwargs)
             before = tally.mode.get_total_flops()
-            out = fn(*args, **kwargs)
+            tally.wrapper_depth += 1
+            try:
+                out = fn(*args, **kwargs)
+                w = formula(*args, **kwargs)
+            finally:
+                tally.wrapper_depth -= 1
             tally.inside_wrappers += tally.mode.get_total_flops() - before
-            tally.kernels[name] += formula(*args, **kwargs).flops
+            tally.kernels[name] += w.flops
+            tally.charge_kernel(name, w.nbytes, args, kwargs, out)
             return out
+        call.counted = (name, formula)
         return call
     return wrap

@@ -85,8 +85,9 @@ def test_golden_config_and_batch_equal_graft_entry():
 
 
 # ----------------------------------------------------------- the bench
-INFERENCE_KEYS = {"metric", "value", "unit", "mfu", "sync_ms_per_frame",
-                  "sync_ms_per_frame_median", "device"}
+INFERENCE_KEYS = {"metric", "value", "unit", "mfu", "gb_per_frame",
+                  "hbm_util", "sync_ms_per_frame", "sync_ms_per_frame_median",
+                  "device"}
 TRAIN_KEYS = {"train_ms_per_step", "train_ms_per_frame", "train_compile_s"}
 
 

@@ -43,10 +43,12 @@ def test_port_sources_import_no_jax():
             "box_coder.py", "second_net.py", "pointpillar.py",
             "image_vfe.py", "caddn.py", "ctrans.py", "ct3d_head.py",
             "ct3d_3cat.py", "anchor_head_multi.py", "bench_torch.py",
-            "convergence.py", "work.py"} <= {p.name for p in files}
+            "convergence.py", "work.py", "mechanisms.py"} <= {
+        p.name for p in files}
     # the bench's tools are scanned as entry points
     assert {"profile_top_ops_torch.py", "ablate_e2e_torch.py",
-            "bench_attn_kernel_torch.py"} <= {p.name for p in ENTRY_POINTS}
+            "bench_attn_kernel_torch.py", "op_bytes_torch.py",
+            "dump_ops_torch.py"} <= {p.name for p in ENTRY_POINTS}
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]

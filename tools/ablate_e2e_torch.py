@@ -126,6 +126,7 @@ def cut(name):
     from mssvt_tpu_torch.models.backbones_3d import mssvt as M
     from mssvt_tpu_torch.models.dense_heads import center_head
     from mssvt_tpu_torch.models.model_utils import attention
+    from mssvt_tpu_torch.runtime.mechanisms import FUNCTIONS
 
     if name == "none":
         return contextlib.nullcontext()
@@ -135,14 +136,11 @@ def cut(name):
     if name == "ffn":
         return _patched(ffn, "fused_residual_ffn", lambda x, *a, **k: x)
     if name == "writeback":
-        return _patched(M, "writeback_inverse_paired",
+        return _patched(M, FUNCTIONS[name],
                         lambda upd_fea, shortcut, *a, **k: shortcut)
-    functions = {"interp": "three_interp_weights_planes",
-                 "fps": "farthest_point_sample_planes_select",
-                 "gather": "gather_window_voxels"}
-    if name in functions:
-        return _patched(M, functions[name],
-                        replay(getattr(M, functions[name])))
+    if name in FUNCTIONS:
+        return _patched(M, FUNCTIONS[name],
+                        replay(getattr(M, FUNCTIONS[name])))
     modules = {"attn": attention.MixedScaleAttention,
                "compress": M.MsSVTCompressBlock,
                "bev2d": base_bev_backbone.BaseBEVBackbone}
