@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from ...ops.nms import nms_bev
+from ...runtime import tracing
 from ..backbones_3d.vfe import DynamicVFE, HardVFE, MeanVFE, PillarVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle
 from ..dense_heads.anchor_head_multi import AnchorHeadMulti
@@ -17,16 +18,17 @@ from ..dense_heads.center_head import CenterHead
 def apply_vfe(vfe, batch):
     """The batch onto the VFE family's inputs (the reference's VFEs read
     different batch keys: mean_vfe.py:14, pillar_vfe.py:52,
-    dynamic_vfe.py:13)."""
-    if isinstance(vfe, MeanVFE):
-        return vfe(batch["voxels"], batch["voxel_num_points"])
-    if isinstance(vfe, (PillarVFE, HardVFE)):
-        return vfe(batch["voxels"], batch["voxel_num_points"],
-                   batch["voxel_coords"])
-    if isinstance(vfe, DynamicVFE):
-        return vfe(batch["points"], batch["point_voxel_rows"],
-                   batch["voxel_coords"])
-    raise NotImplementedError(f"VFE {type(vfe).__name__} (see ROADMAP.md)")
+    dynamic_vfe.py:13), in the span ``mssvt.vfe``."""
+    with tracing.span("vfe"):
+        if isinstance(vfe, MeanVFE):
+            return vfe(batch["voxels"], batch["voxel_num_points"])
+        if isinstance(vfe, (PillarVFE, HardVFE)):
+            return vfe(batch["voxels"], batch["voxel_num_points"],
+                       batch["voxel_coords"])
+        if isinstance(vfe, DynamicVFE):
+            return vfe(batch["points"], batch["point_voxel_rows"],
+                       batch["voxel_coords"])
+        raise NotImplementedError(f"VFE {type(vfe).__name__} (see ROADMAP.md)")
 
 
 def per_sample_points(batch, batch_size: int, max_points: int):
@@ -41,8 +43,10 @@ def per_sample_points(batch, batch_size: int, max_points: int):
 
 def apply_backbone_3d(b3d, sp, generator=None):
     """The 3D backbone on ``sp`` (DropPath and dropout draw from
-    ``generator`` where the family has them)."""
-    return b3d(sp, generator)
+    ``generator`` where the family has them), in the span
+    ``mssvt.backbone_3d``."""
+    with tracing.span("backbone_3d"):
+        return b3d(sp, generator)
 
 
 def run_dense_head(head, spatial_2d, batch=None, train: bool = False,
@@ -51,11 +55,13 @@ def run_dense_head(head, spatial_2d, batch=None, train: bool = False,
     ``tb_dict``; no decode or NMS), else the decoded, NMSed, fixed-size
     ``final_*`` outputs: CenterHead decodes and NMSes itself, an anchor
     head's boxes go through :func:`post_process_anchor` with
-    ``post_cfg`` (the model's POST_PROCESSING)."""
+    ``post_cfg`` (the model's POST_PROCESSING). The head's maps are the
+    span ``mssvt.head``, the decode and NMS ``mssvt.post``."""
     if not isinstance(head, (CenterHead, AnchorHeadSingle, AnchorHeadMulti)):
         raise NotImplementedError(f"dense head {type(head).__name__} "
                                   "(see ROADMAP.md)")
-    preds = head(spatial_2d)
+    with tracing.span("head"):
+        preds = head(spatial_2d)
     if train:
         if isinstance(head, CenterHead):
             targets = head.assign_targets(
@@ -64,11 +70,12 @@ def run_dense_head(head, spatial_2d, batch=None, train: bool = False,
             targets = head.assign_targets(batch["gt_boxes"])
         loss, tb = head.get_loss(preds, targets)
         return {"pred_dicts": preds, "loss": loss, "tb_dict": tb}
-    if isinstance(head, CenterHead):
-        fb, fs, fl, fm = head.generate_predicted_boxes(preds)
-    else:
-        fb, fs, fl, fm = post_process_anchor(
-            *head.generate_predicted_boxes(preds), post_cfg)
+    with tracing.span("post"):
+        if isinstance(head, CenterHead):
+            fb, fs, fl, fm = head.generate_predicted_boxes(preds)
+        else:
+            fb, fs, fl, fm = post_process_anchor(
+                *head.generate_predicted_boxes(preds), post_cfg)
     return {"pred_dicts": preds, "final_boxes": fb, "final_scores": fs,
             "final_labels": fl, "final_mask": fm}
 

@@ -25,6 +25,7 @@ import torch
 from ..ops.box_ops import pairwise_iou_3d
 from ..parallel.dist import barrier, initialized, rank_and_world
 from ..utils.eval_ap import kitti_style_eval
+from . import tracing
 from .train_utils import batch_to_device, model_device, synchronize
 
 
@@ -78,8 +79,9 @@ def merge_result_parts(tmp_dir, recall_thresh_list):
 def eval_step(model, batch):
     """One request: the eval-mode forward of a batch already on the model's
     device; returns the detections' ``final_*`` tensors (boxes, scores,
-    labels, mask), still on the device."""
-    with torch.inference_mode():
+    labels, mask), still on the device. The forward is the span
+    ``mssvt.request``."""
+    with torch.inference_mode(), tracing.span("request"):
         out = model(batch)
     return (out["final_boxes"], out["final_scores"], out["final_labels"],
             out["final_mask"])
@@ -112,10 +114,10 @@ def eval_one_epoch(model, loader, class_names, logger=None, result_dir=None,
     for batch in loader:
         dev_batch = batch_to_device(batch, device)
         synchronize(device)
-        t0 = time.time()
+        t0 = time.perf_counter()
         outs = eval_step(model, dev_batch)
         synchronize(device)
-        t_total += time.time() - t0
+        t_total += time.perf_counter() - t0
 
         boxes, scores, labels, mask = (o.cpu().numpy() for o in outs)
         gt = batch["gt_boxes"]

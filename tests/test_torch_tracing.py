@@ -1,0 +1,199 @@
+"""The port's stage spans (``runtime/tracing.py``) on a tiny CenterPoint,
+and the benchmark's five readers of them on a hand-made chrome trace."""
+
+import contextlib
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from benchmark.harness import spec, trace
+from mssvt_tpu_torch.models import build_network
+from mssvt_tpu_torch.runtime import tracing
+from mssvt_tpu_torch.runtime.eval_utils import eval_step
+from mssvt_tpu_torch.utils.edict import EasyDict
+from test_model_forward import (
+    BATCH,
+    GRID,
+    MAX_PTS,
+    MAX_VOXELS,
+    PC_RANGE,
+    VOXEL_SIZE,
+    synthetic_batch,
+    tiny_model_cfg,
+)
+
+STAGES = ("vfe", "backbone_3d", "map_to_bev", "backbone_2d", "head", "post")
+KEYS = ("voxels", "voxel_num_points", "voxel_coords", "voxel_valid")
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    torch.manual_seed(0)
+    model = build_network(
+        EasyDict(tiny_model_cfg()), 2, ["Car", "Ped"], GRID, VOXEL_SIZE,
+        PC_RANGE, BATCH, MAX_VOXELS, MAX_PTS, num_point_features=5,
+        device="cpu")
+    b = synthetic_batch(np.random.default_rng(1))
+    return model, {k: torch.as_tensor(np.array(b[k])) for k in KEYS}
+
+
+def profiled_request(model, batch, tmp_path):
+    """``eval_step`` under ``torch.profiler``: (detections, trace events)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = eval_step(model, batch)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return out, trace.load(path)
+
+
+def span_names(events):
+    return sorted(e["name"] for e in trace.complete(events)
+                  if e.get("cat") in trace.HOST_CATS
+                  and e["name"].startswith(tracing.PREFIX))
+
+
+def test_request_makes_seven_spans_in_order(tiny, tmp_path):
+    _, events = profiled_request(*tiny, tmp_path)
+    want = ["mssvt." + s for s in ("request",) + STAGES]
+    assert span_names(events) == sorted(want)
+    (req,) = trace.ranges(events, "mssvt.request")
+    stages = [trace.ranges(events, "mssvt." + s)[0] for s in STAGES]
+    assert req[0] <= stages[0][0] and stages[-1][1] <= req[1]
+    for (_, end), (start, _) in zip(stages, stages[1:]):
+        assert end <= start
+
+
+def test_no_record_function_without_a_profiler(tiny, monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) without a profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    eval_step(*tiny)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(AssertionError):
+            tracing.span("request")
+
+
+def test_spans_change_no_output(tiny, tmp_path, monkeypatch):
+    got, events = profiled_request(*tiny, tmp_path)
+    monkeypatch.setattr(tracing, "span",
+                        lambda name: contextlib.nullcontext())
+    want, plain = profiled_request(*tiny, tmp_path)
+    assert span_names(plain) == []
+    assert len(span_names(events)) == 7
+    assert int(want[3].sum()) > 0  # some boxes kept
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# -- the readers --------------------------------------------------------------
+
+
+def ev(name, cat, ts, dur, corr=None):
+    e = {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+    if corr is not None:
+        e["args"] = {"correlation": corr}
+    return e
+
+
+def host(name, ts, dur):
+    return ev(name, "user_annotation", ts, dur)
+
+
+# one request of 2 frames in [0, 1000) us. Launches (correlation id: launch
+# time -> device interval): 1 vfe 25 -> [30, 50); 2 backbone 70 -> [100,
+# 300); 11 backbone 390 -> [400, 405), run inside map_to_bev; 3 map_to_bev
+# 410 -> [410, 430); 4 backbone_2d 460 -> [460, 520); 5 head 560 -> [560,
+# 600); 9 post 700 -> [700, 720); 6 before the request's span 2 -> [3, 8);
+# 12 a HtoD copy 15 -> [15, 18); 7 a DtoH copy 610 -> [612, 615), then its
+# stream sync; a device sync at 800; 10 a memset 960 -> [960, 970); the
+# readback's sync at 995, outside ``mssvt.request``. 4 500 host ops inside
+# ``mssvt.post`` before its longest idle gap.
+EVENTS = [
+    host("bench.request", 0, 1000),
+    host("mssvt.request", 10, 980),
+    host("mssvt.vfe", 20, 40),
+    host("mssvt.backbone_3d", 60, 340),
+    host("mssvt.map_to_bev", 400, 50),
+    host("mssvt.backbone_2d", 450, 100),
+    host("mssvt.head", 550, 50),
+    host("mssvt.post", 600, 350),
+    ev("cudaLaunchKernel", "cuda_runtime", 2, 1, 6),
+    ev("cudaMemcpyAsync", "cuda_runtime", 15, 1, 12),
+    ev("cudaLaunchKernel", "cuda_runtime", 25, 1, 1),
+    ev("cudaLaunchKernel", "cuda_runtime", 70, 1, 2),
+    ev("cudaLaunchKernel", "cuda_runtime", 390, 1, 11),
+    ev("cudaLaunchKernel", "cuda_runtime", 410, 1, 3),
+    ev("cudaLaunchKernel", "cuda_runtime", 460, 1, 4),
+    ev("cudaLaunchKernel", "cuda_runtime", 560, 1, 5),
+    ev("cudaMemcpyAsync", "cuda_runtime", 610, 5, 7),
+    ev("cudaStreamSynchronize", "cuda_runtime", 616, 2, 8),
+    ev("cudaLaunchKernel", "cuda_runtime", 700, 1, 9),
+    ev("cudaDeviceSynchronize", "cuda_runtime", 800, 20, 13),
+    ev("cudaMemsetAsync", "cuda_runtime", 960, 1, 10),
+    ev("cudaStreamSynchronize", "cuda_runtime", 995, 2, 14),
+    ev("voxel_mean_kernel", "kernel", 30, 20, 1),
+    ev("attention_kernel", "kernel", 100, 200, 2),
+    ev("gather_kernel", "kernel", 400, 5, 11),
+    ev("scatter_kernel", "kernel", 410, 20, 3),
+    ev("cudnn_conv_kernel", "kernel", 460, 60, 4),
+    ev("cudnn_conv_kernel", "kernel", 560, 40, 5),
+    ev("nms_kernel", "kernel", 700, 20, 9),
+    ev("fill_kernel", "kernel", 3, 5, 6),
+    ev("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", 15, 3, 12),
+    ev("Memcpy DtoH (Device -> Pageable)", "gpu_memcpy", 612, 3, 7),
+    ev("Memset (Device)", "gpu_memset", 960, 10, 10),
+] + [ev("aten::__ior__", "cpu_op", 620 + 0.015 * i, 0.01)
+     for i in range(4500)]
+
+
+def rec(events=EVENTS):
+    return SimpleNamespace(events=events, requests=1, batch=2)
+
+
+def reader(name):
+    return spec.load_module(spec.BENCH / "metrics" / f"{name}.py")
+
+
+READINGS = {
+    # kernels launched in map_to_bev, backbone_2d, head: 20 + 60 + 40 us
+    "bev_head_device_ms.infer": 120 / 2e3,
+    # [60, 400) less [100, 300)
+    "backbone_idle_ms.infer": (340 - 200) / 2e3,
+    # [600, 950) less the copy's 3 and the kernel's 20 us
+    "post_idle_ms.infer": (350 - 23) / 2e3,
+    # [0, 1000) less the stages' [20, 950) and [3, 8), [15, 18), [960, 970)
+    "unstaged_idle_ms.infer": (1000 - 930 - 5 - 3 - 10) / 2e3,
+    # the DtoH copy with its stream sync, and the device sync
+    "host_syncs_per_frame.infer": 2 / 2,
+}
+
+
+@pytest.mark.parametrize("name", sorted(READINGS))
+def test_reader(name):
+    assert reader(name).read(rec()) == pytest.approx(READINGS[name])
+
+
+@pytest.mark.parametrize("name", sorted(READINGS))
+def test_reader_without_program_spans_returns_none(name):
+    bare = [e for e in EVENTS if not e["name"].startswith("mssvt.")]
+    assert reader(name).read(rec(bare)) is None
+
+
+def test_stage_idle_and_unstaged_idle_add_up_to_the_window_idle():
+    win = trace.window(EVENTS, "bench.request")
+    dev = [(e["ts"], e["ts"] + e["dur"]) for e in trace.device(EVENTS)]
+    staged = sum(r[1] - r[0] - trace.union(trace.clip(dev, r))
+                 for s in STAGES for r in trace.ranges(EVENTS, "mssvt." + s))
+    unstaged = reader("unstaged_idle_ms.infer").read(rec()) * 2e3
+    assert staged + unstaged == pytest.approx(
+        win[1] - win[0] - trace.busy(EVENTS, win))
+
+
+def test_no_sync_in_the_request_reads_zero():
+    quiet = [e for e in EVENTS if "Synchronize" not in e["name"]
+             and "DtoH" not in e["name"]]
+    assert reader("host_syncs_per_frame.infer").read(rec(quiet)) == 0.0
