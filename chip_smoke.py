@@ -26,8 +26,17 @@ Phases (any failed check raises and the script exits non-zero):
 5. the main path: ``mssvt.yaml`` CenterPoint, full width, bf16, seeded
    random weights: one warm-up request, then 10 requests cycling 3
    distinct scenes of batch 4, with the kernel launch counts of every
-   request checked; host-clock mean, median and min-max; then the headline
+   request checked (and one launch of the NMS scan, ``kernels/nms.py``, a
+   request); host-clock mean, median and min-max; then the headline
    number, the device time of one profiled request (``torch.profiler``);
+5b. the greedy NMS scan (``csrc/nms.cu``) against its plain version, the
+   loop, on the card at the benchmark cell's shape (B = 2, K = 500 from
+   ``mssvt.yaml``'s 500 decoded boxes) and at KITTI's K = 4 096 (B = 4,
+   the packed rows in the scratch buffer): equal selections and counts,
+   launches, ``work.nms_greedy``'s bound and CUDA-event ms: the kernel's
+   (``ms``, calls queued behind a sleep so the card runs them back to
+   back), the loop's, and back-to-back calls without the sleep (at K = 500
+   the wrapper's host time a call) (``# kernel nms_greedy`` lines);
 6a. small-input training reference: one f32 ``mssvt_tiny.yaml`` training
    step on the card against the CPU plain path (loss within 1e-4 relative,
    every gradient within 1e-3 of the global gradient norm);
@@ -269,6 +278,8 @@ SAMPLING_LAUNCHES = launches(fps_picks_warp=1, fps_picks_block=2)
 PIPELINE_STEP = TRAIN_LAUNCHES       # each training step of phase 8
 PIPELINE_REQUEST = EXPECTED_LAUNCHES  # each eval request of phase 8
 REQUESTS = 10     # measured requests after one warm-up, cycling the scenes
+NMS_PER_REQUEST = 1  # mssvt.yaml's one head: one NMS scan a request
+NMS_SHAPES = ((2, 500, 0.1), (4, 4096, 0.01))  # (B, K, IoU threshold)
 TRAIN_STEPS = 10  # measured steps of each kind after one warm-up step
 FPS_BLOCK_SHAPE = (4096, 2048, 512)  # K2c: rows, points a row, picks
 FPS_WIDE_SHAPE = (4, 16384, 4096)    # K2c at its widest N (PointRCNN's SA1)
@@ -302,6 +313,29 @@ def time_ms(torch, fn, reps, warm=1):
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(torch, fn, reps):
+    """Device ms a call of ``fn``: CUDA events around ``reps`` calls queued
+    behind a ``torch.cuda._sleep`` that outlasts their enqueueing, so the
+    card runs them back to back whatever the host takes a call (``time_ms``
+    reads the host's time a call where that is longer)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clocks
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    enqueued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if enqueued > 0.05:
+        raise AssertionError(f"queued_ms: enqueueing took {enqueued:.3f} s, "
+                             "too long for the sleep in front")
     return start.elapsed_time(end) / reps
 
 
@@ -3788,11 +3822,52 @@ def top_mechanisms(op_bytes, tally, what):
 
 
 # --------------------------------------------------------------- phase 5
+def nms_phase(torch):
+    """5b: the NMS scan against the loop at NMS_SHAPES, on candidates of
+    seeded boxes crowding a 40 m square (so many overlap) with scores of 8
+    levels (so most tie)."""
+    from mssvt_tpu_torch.kernels import nms, work
+    from mssvt_tpu_torch.ops import nms as ops_nms
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for b, k, thresh in NMS_SHAPES:
+        boxes = torch.cat([
+            torch.rand((b, k, 2), generator=g, device="cuda") * 40,
+            torch.rand((b, k, 1), generator=g, device="cuda"),
+            0.5 + torch.rand((b, k, 3), generator=g, device="cuda") * 4,
+            torch.rand((b, k, 1), generator=g, device="cuda") * 6.3], dim=-1)
+        scores = torch.randint(0, 8, (b, k), generator=g, device="cuda") / 8.0
+        cand, valid, order = ops_nms._candidates(boxes, scores, scores > 0.1,
+                                                 k)
+        a = (ops_nms._overlaps(cand[..., :7], thresh), valid, order, k)
+        before = nms.launches
+        got = nms.nms_greedy(*a)
+        launched = nms.launches - before
+        want = nms.greedy_plain(*a)
+        torch.cuda.synchronize()
+        if launched != 1 or not (torch.equal(got[0], want[0])
+                                 and torch.equal(got[1], want[1])):
+            raise AssertionError(f"nms_greedy at B={b} K={k}: {launched} "
+                                 "launches, or selections differ from the "
+                                 "loop's")
+        ms = queued_ms(torch, lambda: nms.nms_greedy(*a), reps=20)
+        host_ms = time_ms(torch, lambda: nms.nms_greedy(*a), reps=20, warm=2)
+        plain_ms = time_ms(torch, lambda: nms.greedy_plain(*a), reps=1,
+                           warm=1)
+        bound_ms, bound_by = work.nms_greedy(*a).bound()
+        log(f"# kernel nms_greedy: B={b} K={k} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+            f"back_to_back_ms={host_ms:.4f} launches={launched} a call, "
+            f"kept {got[1].tolist()}, selections equal; packed rows in "
+            f"{'shared memory' if nms.packed_in_shared(k) else 'scratch'}")
+
+
 def main_path(torch, model, scenes):
     """One warm-up request, then REQUESTS requests cycling the scenes, each
     with its launch counts checked. Returns (launch counts of the measured
     requests, their host-clock times in ms)."""
     from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.kernels import nms
 
     with torch.no_grad():
         model(scenes[-1])  # warm-up
@@ -3801,6 +3876,7 @@ def main_path(torch, model, scenes):
     for i in range(REQUESTS):
         seed = i % len(scenes)
         before = kernels.launch_counts()
+        nms_before = nms.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -3813,6 +3889,9 @@ def main_path(torch, model, scenes):
         if per != EXPECTED_LAUNCHES:
             raise AssertionError(f"request {i}: launches {per} != "
                                  f"{EXPECTED_LAUNCHES}")
+        if nms.launches - nms_before != NMS_PER_REQUEST:
+            raise AssertionError(f"request {i}: {nms.launches - nms_before} "
+                                 f"NMS launches, {NMS_PER_REQUEST} due")
         mask = out["final_mask"]
         for key in ("final_boxes", "final_scores"):
             if not torch.isfinite(out[key]).all():
@@ -3826,7 +3905,8 @@ def main_path(torch, model, scenes):
             raise AssertionError("identical outputs for different scenes")
         prev = out["final_scores"]
         log(f"# request {i} (scene seed {seed}, batch {BATCH}): {ms:.1f} ms, "
-            f"kept boxes per frame {mask.sum(dim=1).tolist()}, launches {per}")
+            f"kept boxes per frame {mask.sum(dim=1).tolist()}, launches {per}, "
+            f"nms_greedy {nms.launches - nms_before}")
     return kernels.launch_counts(), times
 
 
@@ -4335,6 +4415,7 @@ def main(argv):
                 raise AssertionError(f"kernel {name} was not launched on "
                                      "the main path")
     profile_request(torch, model, scenes[0], median(request_times))
+    nms_phase(torch)
     log(f"# inference: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "mssvt_attention_qk_bwd_plan": [VP, CI, VP],
     "mssvt_ffn": [VP, VP, VP, VP, VP, VP, VP, VP, CI, CI, CI, CF, CI, VP],
     "mssvt_ffn_plan": [CI, CI, VP],
+    "mssvt_nms_greedy": [VP, VP, VP, CI, CI, CI, VP, VP, VP, VP],
 }
 
 

@@ -257,6 +257,16 @@ def ffn(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6, compute_dtype=None):
     return Work(flops, flops, 2 * _nbytes(x) + 2 * c * f * 2, BF16_FLOPS)
 
 
+def nms_greedy(over, cand_valid, order, post_max):
+    """The greedy NMS scan: the (B, K, K) matrix, the validity and the
+    order read, the selections and counts written; its K serial steps a
+    sample as the operations (a step is a few integer operations on the
+    critical path, so the bound is the bytes')."""
+    b, k = cand_valid.shape
+    return Work(0, b * k, _nbytes(over, cand_valid, order)
+                + b * (int(post_max) + 1) * 4, F32_FLOPS)
+
+
 _DTYPE_NAMES = {
     torch.bool: "pred", torch.uint8: "u8", torch.int8: "s8",
     torch.int16: "s16", torch.int32: "s32", torch.int64: "s64",

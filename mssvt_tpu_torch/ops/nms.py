@@ -3,15 +3,17 @@
 
 Candidates are the ``pre_max`` top scores (a stable descending sort, so
 equal scores keep their input order, as ``lax.top_k`` does); a box is kept
-when no kept higher-scoring box suppresses it. Outputs are
-(selected (B, post_max) int32 indices into the input, -1 padded,
-num_selected (B,)).
+when no kept higher-scoring box suppresses it. The (B, K, K) suppression
+matrix is built here; the scan over it is ``kernels/nms.py``'s (one kernel
+on the card, the loop on the CPU). Outputs are (selected (B, post_max)
+int32 indices into the input, -1 padded, num_selected (B,)).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels import nms as nms_kernel
 from .box_ops import pairwise_iou_bev
 
 
@@ -19,29 +21,11 @@ def _candidates(boxes, scores, valid, pre_max):
     s = torch.where(valid, scores, float("-inf"))
     k = min(pre_max, boxes.shape[1])
     top, order = torch.sort(s, dim=1, descending=True, stable=True)
-    top, order = top[:, :k], order[:, :k]
+    # contiguous where pre_max cuts the rows: the scan kernel takes it so
+    top, order = top[:, :k], order[:, :k].contiguous()
     cand = torch.gather(boxes, 1, order[..., None].expand(-1, -1,
                                                           boxes.shape[-1]))
     return cand, torch.isfinite(top), order
-
-
-def _greedy(over, cand_valid, order, post_max):
-    """over[b, i, j]: candidate i suppresses j (only j > i is read)."""
-    b, k = cand_valid.shape
-    dev = over.device
-    over = over & torch.ones((k, k), dtype=torch.bool, device=dev).triu(1)
-    keep = torch.zeros((b, k), dtype=torch.bool, device=dev)
-    sup = torch.zeros((b, k), dtype=torch.bool, device=dev)
-    for i in range(k):
-        k_i = cand_valid[:, i] & ~sup[:, i]
-        keep[:, i] = k_i
-        sup |= over[:, i] & k_i[:, None]
-    slot = torch.cumsum(keep.to(torch.int32), dim=1) - 1
-    dest = torch.where(keep & (slot < post_max), slot, post_max).long()
-    sel = torch.full((b, post_max + 1), -1, dtype=torch.int32, device=dev)
-    sel.scatter_(1, dest, order.to(torch.int32))
-    num = torch.clamp(keep.sum(dim=1), max=post_max).to(torch.int32)
-    return sel[:, :post_max], num
 
 
 # candidate pairs a block of the pairwise IoU: its largest temporaries are
@@ -66,8 +50,8 @@ def nms_bev(boxes, scores, valid, thresh: float, pre_max: int,
             post_max: int):
     """Rotated-IoU greedy NMS over (B, N, 7+) boxes."""
     cand, cand_valid, order = _candidates(boxes, scores, valid, pre_max)
-    return _greedy(_overlaps(cand[..., :7], thresh), cand_valid, order,
-                   post_max)
+    return nms_kernel.nms_greedy(_overlaps(cand[..., :7], thresh), cand_valid,
+                                 order, post_max)
 
 
 def circle_nms(boxes, scores, valid, min_radius: float, pre_max: int,
@@ -77,4 +61,5 @@ def circle_nms(boxes, scores, valid, min_radius: float, pre_max: int,
     cand, cand_valid, order = _candidates(boxes, scores, valid, pre_max)
     c = cand[..., :2]
     d2 = ((c[:, :, None, :] - c[:, None, :, :]) ** 2).sum(-1)
-    return _greedy(d2 < float(min_radius) ** 2, cand_valid, order, post_max)
+    return nms_kernel.nms_greedy(d2 < float(min_radius) ** 2, cand_valid,
+                                 order, post_max)

@@ -5,7 +5,7 @@ nothing of JAX, so on a machine with a card and no JAX it runs as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Fill and FPS must match exactly; attention (forward and backward) and FFN
+Fill, FPS and the NMS scan must match exactly; attention (forward and backward) and FFN
 in f32 to 1e-4 (the same f32 math summed in another order) and in bf16 to
 2^-5 of the largest output magnitude (an intermediate may round one bf16 ulp
 apart).
@@ -23,8 +23,11 @@ from mssvt_tpu_torch.kernels import (
     ffn,
     fill,
     fps,
+    nms,
 )
+from mssvt_tpu_torch.ops import nms as ops_nms
 from mssvt_tpu_torch.runtime.train_utils import set_deterministic
+from test_torch_nms import HAND_CASES, hand_case
 
 
 @pytest.fixture
@@ -742,6 +745,106 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):  # mixed dtypes
         attention_qk.fused_window_attention(
             q, q.bfloat16(), proj, torch.zeros(3, 8, device=dev), (1, 1), 0.2)
+
+
+# ------------------------------------------------------ the NMS scan
+def _greedy_inputs(dev, b, k, density, seed):
+    """Random suppression matrices (the diagonal and lower triangle set
+    too: the scan must not read them), validity with invalid rows here and
+    there and, for B > 1, one sample with no valid candidate; ``order`` a
+    permutation of each row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    over = torch.rand((b, k, k), generator=g, device=dev) < density
+    valid = torch.rand((b, k), generator=g, device=dev) < 0.9
+    if b > 1:
+        valid[1] = False
+    order = torch.argsort(torch.rand((b, k), generator=g, device=dev), dim=1)
+    return over, valid, order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.002, 0.05, 0.5])
+@pytest.mark.parametrize("b", [1, 2, 4])
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 500, 1024, 1344, 1345, 4096,
+                               9000])
+def test_nms_kernel_matches_plain(dev, k, b, density):
+    """The kernel's selections and counts equal the loop's, bit for bit,
+    with the packed rows in shared memory (K <= 1 344; above 48 KiB from
+    K = 1 024) and in the scratch buffer (1 345, 4 096, 9 000), byte
+    loads (K % 4 != 0) and 4-byte loads, with post_max above and below
+    the kept count, and one launch a call."""
+    a = _greedy_inputs(dev, b, k, density, seed=k * 10 + b)
+    want = nms.greedy_plain(*a, k + 1)
+    kept = int(want[1].max())
+    for post_max in sorted({k + 1, max(kept // 2, 1), 0}):
+        before = nms.launches
+        got = nms.nms_greedy(*a, post_max)
+        assert nms.launches == before + 1
+        want = nms.greedy_plain(*a, post_max)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("name", sorted(HAND_CASES))
+def test_nms_kernel_keeps_hand_computed_indices(dev, name, b):
+    """The CPU tests' hand-computed cases (ties of the chain, invalid and
+    all-invalid rows, K = 1, a post_max cut, a row crossing a word)."""
+    args, want = hand_case(name, b)
+    args = tuple(t.to(dev) if isinstance(t, torch.Tensor) else t for t in args)
+    sel, num = nms.nms_greedy(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(sel.cpu(), want[0]) and torch.equal(num.cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,arg", [(ops_nms.nms_bev, 0.1),
+                                    (ops_nms.circle_nms, 1.5)])
+@pytest.mark.parametrize("b,n,pre_max,post_max", [(2, 500, 512, 500),
+                                                  (2, 700, 512, 83),
+                                                  (1, 4096, 4096, 500)])
+def test_nms_on_card_matches_the_loop_without_host_sync(dev, monkeypatch, fn,
+                                                        arg, b, n, pre_max,
+                                                        post_max):
+    """``nms_bev`` and ``circle_nms`` on the card: one launch and no host
+    sync a call (``set_sync_debug_mode("error")``), and the same indices
+    as with the loop in the kernel's place. Scores take 8 values, so most
+    candidates tie; boxes crowd a 40 m square, so many overlap."""
+    g = torch.Generator(device=dev).manual_seed(n + b)
+    boxes = torch.cat([torch.rand((b, n, 2), generator=g, device=dev) * 40,
+                       torch.rand((b, n, 1), generator=g, device=dev),
+                       0.5 + torch.rand((b, n, 3), generator=g, device=dev) * 4,
+                       torch.rand((b, n, 1), generator=g, device=dev) * 6.3],
+                      dim=-1)
+    scores = torch.randint(0, 8, (b, n), generator=g, device=dev) / 8.0
+    valid = scores > 0.1
+    before = nms.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn(boxes, scores, valid, arg, pre_max, post_max)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert nms.launches == before + 1
+    monkeypatch.setattr(nms, "nms_greedy", nms.greedy_plain)
+    want = fn(boxes, scores, valid, arg, pre_max, post_max)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].min()) > 1
+
+
+@pytest.mark.cuda
+def test_nms_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    over, valid, order = _greedy_inputs(dev, 2, 10, 0.1, seed=0)
+    for bad in ((over.to(torch.uint8), valid, order),
+                (over, valid, order.to(torch.int32)),
+                (over.transpose(1, 2), valid, order),
+                (over[:, :, :9], valid, order)):
+        with pytest.raises((TypeError, ValueError)):
+            nms.nms_greedy(*bad, 4)
+    with pytest.raises(ValueError):
+        nms.nms_greedy(over, valid.cpu(), order, 4)  # devices differ
 
 
 # ------------------------------------ the sparse-conv and anchor families
