@@ -8,6 +8,12 @@ capacities are static: each downsampling layer keeps
 ``max(int(input_capacity * f), 64)`` output sites, ``f`` from
 :data:`CAPACITY_FRACTIONS`. The input width of every layer is fixed at
 construction (flax infers it): ``in_channels`` is the VFE's output width.
+
+The sites live on ``grid_size`` as given, as the JAX module's do; with
+``pcdet_sparse_shape`` on pcdet's ``grid_size[::-1] + [1, 0, 0]``
+(spconv_backbone.py:97), one cell deeper in z, which at KITTI's 40 cells
+gives z 41 -> 21 -> 11 -> 5 -> 2 and a 2 x 128-channel BEV map. Site sets
+and neighbour tables are built in the span ``mssvt.spconv_rules``.
 """
 
 from __future__ import annotations
@@ -26,11 +32,39 @@ from ...ops.sparse_conv import (
     downsample_output_sites,
     sparse_conv,
 )
+from ...runtime import tracing
 from ..model_utils.layers import MaskedBatchNorm
 
 # each stage's output sites as a fraction of the input capacity: conv_input
 # and conv1, conv2-4's strided layers, conv_out
 CAPACITY_FRACTIONS = (1.0, 0.8, 0.6, 0.4, 0.3)
+# (kernel, stride, padding), each (x, y, z), of conv2-4's strided layers and
+# conv_out; ref conv4 zero-pads z only
+DOWN_LAYERS = (((3, 3, 3), (2, 2, 2), (1, 1, 1)),
+               ((3, 3, 3), (2, 2, 2), (1, 1, 1)),
+               ((3, 3, 3), (2, 2, 2), (1, 1, 0)),
+               ((1, 1, 3), (1, 1, 2), (0, 0, 0)))
+
+
+def down_shape(spatial_shape, kernel_size, stride, padding):
+    """The output grid of a strided sparse conv over ``spatial_shape``."""
+    return tuple((int(d) + 2 * padding[i] - kernel_size[i]) // stride[i] + 1
+                 for i, d in enumerate(spatial_shape))
+
+
+def sparse_shape_8x(grid_size, pcdet_sparse_shape: bool = False):
+    """The grid the 8x backbones' input sites live on: ``grid_size``, or
+    with ``pcdet_sparse_shape`` pcdet's, one cell deeper in z."""
+    x, y, z = (int(g) for g in grid_size)
+    return (x, y, z + 1) if pcdet_sparse_shape else (x, y, z)
+
+
+def out_spatial_shape_8x(grid_size, pcdet_sparse_shape: bool = False):
+    """The 8x backbones' output grid (no module built)."""
+    shape = sparse_shape_8x(grid_size, pcdet_sparse_shape)
+    for geo in DOWN_LAYERS:
+        shape = down_shape(shape, *geo)
+    return shape
 
 
 class SparseConvKernel(nn.Module):
@@ -88,23 +122,23 @@ class SparseConvDownLayer(SparseConvKernel):
         self.bn = MaskedBatchNorm(out_channels)
 
     def out_shape(self, spatial_shape) -> Tuple[int, int, int]:
-        return tuple((int(d) + 2 * self.padding[i] - self.kernel_size[i])
-                     // self.stride[i] + 1
-                     for i, d in enumerate(spatial_shape))
+        return down_shape(spatial_shape, self.kernel_size, self.stride,
+                          self.padding)
 
     def forward(self, sp: SparseVoxels) -> SparseVoxels:
         geo = (self.kernel_size, self.stride, self.padding)
-        out_coords, out_valid, out_shape = downsample_output_sites(
-            sp.coords, sp.valid, sp.spatial_shape, *geo, self.max_out)
-        rows = build_strided_neighbor_table(
-            sp.coords, sp.valid, sp.index, sp.spatial_shape, out_coords,
-            out_valid, *geo)
-        out = SparseVoxels.create(
-            features=None, coords=out_coords, valid=out_valid,
-            batch_size=sp.batch_size, spatial_shape=out_shape,
-            voxel_size=tuple(sp.voxel_size[i] * self.stride[i]
-                             for i in range(3)),
-            point_cloud_range=sp.point_cloud_range)
+        with tracing.span("spconv_rules"):
+            out_coords, out_valid, out_shape = downsample_output_sites(
+                sp.coords, sp.valid, sp.spatial_shape, *geo, self.max_out)
+            rows = build_strided_neighbor_table(
+                sp.coords, sp.valid, sp.index, sp.spatial_shape, out_coords,
+                out_valid, *geo)
+            out = SparseVoxels.create(
+                features=None, coords=out_coords, valid=out_valid,
+                batch_size=sp.batch_size, spatial_shape=out_shape,
+                voxel_size=tuple(sp.voxel_size[i] * self.stride[i]
+                                 for i in range(3)),
+                point_cloud_range=sp.point_cloud_range)
         x = self.conv(sp.features, rows, lambda: build_inverse_neighbor_table(
             sp.coords, sp.valid, out.index, out_shape, *geo))
         x = torch.relu(self.bn(x, out_valid)) * out_valid[:, None]
@@ -135,8 +169,9 @@ class _SubMStage(nn.Module):
             c_in = c
 
     def forward(self, sp: SparseVoxels) -> SparseVoxels:
-        rows = build_subm_neighbor_table(sp.coords, sp.valid, sp.index,
-                                         sp.spatial_shape)
+        with tracing.span("spconv_rules"):
+            rows = build_subm_neighbor_table(sp.coords, sp.valid, sp.index,
+                                             sp.spatial_shape)
         if not self.residual:
             for i in range(self.n):
                 sp = getattr(self, f"subm_{i}")(sp, rows)
@@ -153,13 +188,15 @@ class _SubMStage(nn.Module):
 class VoxelBackBone8x(nn.Module):
     """Ref: spconv_backbone.py:69-146. Returns the stride-8 SparseVoxels
     after ``conv_out``'s z compression (and, with ``return_stages``, the
-    ``x_conv1``..``x_conv4`` stages)."""
+    ``x_conv1``..``x_conv4`` stages). The input's sites are taken onto
+    ``sparse_shape`` (re-indexed where its grid or index differs)."""
 
     def __init__(self, in_channels: int, input_capacity: int,
                  grid_size: Sequence[int],
                  num_filters: Sequence[int] = (16, 32, 64, 64),
                  out_channels: int = 128, residual: bool = False,
-                 return_stages: bool = False, dtype=torch.float32):
+                 return_stages: bool = False,
+                 pcdet_sparse_shape: bool = False, dtype=torch.float32):
         super().__init__()
         self.return_stages = return_stages
         caps = [max(int(input_capacity * f), 64) for f in CAPACITY_FRACTIONS]
@@ -167,28 +204,31 @@ class VoxelBackBone8x(nn.Module):
         self.conv_input = _SubMStage(in_channels, (f[0],), dtype=dtype)
         self.conv1 = _SubMStage(f[0], (f[0],) * (2 if residual else 1),
                                 residual=residual, dtype=dtype)
-        shape = tuple(int(g) for g in grid_size)
+        self.sparse_shape = sparse_shape_8x(grid_size, pcdet_sparse_shape)
         c_in = f[0]
         # the width of each returned stage (the VoxelRCNN head's inputs)
         self.stage_channels = {f"x_conv{i + 1}": c for i, c in enumerate(f)}
-        for i, (c, cap) in enumerate(zip(f[1:], caps[1:4]), start=2):
-            # padding tuples are (x, y, z); ref conv4 zero-pads z only
-            pad = (1, 1, 1) if i < 4 else (1, 1, 0)
-            down = SparseConvDownLayer(c_in, c, stride=(2, 2, 2), padding=pad,
-                                       max_out=cap, dtype=dtype)
-            shape = down.out_shape(shape)
-            self.add_module(f"conv{i}_down", down)
+        for i, (c, cap, geo) in enumerate(zip(f[1:], caps[1:4], DOWN_LAYERS),
+                                          start=2):
+            self.add_module(f"conv{i}_down", SparseConvDownLayer(
+                c_in, c, *geo, max_out=cap, dtype=dtype))
             self.add_module(f"conv{i}_subm", _SubMStage(
                 c, (c, c), residual=residual, dtype=dtype))
             c_in = c
         self.conv_out = SparseConvDownLayer(
-            c_in, out_channels, kernel_size=(1, 1, 3), stride=(1, 1, 2),
-            padding=(0, 0, 0), max_out=caps[4], dtype=dtype)
-        self.out_spatial_shape = self.conv_out.out_shape(shape)
+            c_in, out_channels, *DOWN_LAYERS[3], max_out=caps[4],
+            dtype=dtype)
+        self.out_spatial_shape = out_spatial_shape_8x(grid_size,
+                                                      pcdet_sparse_shape)
         # the width of the BEV map of the output (z-major D*C channels)
         self.num_bev_features = self.out_spatial_shape[2] * out_channels
 
     def forward(self, sp: SparseVoxels, generator=None):
+        if sp.index is None or tuple(sp.spatial_shape) != self.sparse_shape:
+            with tracing.span("spconv_rules"):
+                sp = SparseVoxels.create(
+                    sp.features, sp.coords, sp.valid, sp.batch_size,
+                    self.sparse_shape, sp.voxel_size, sp.point_cloud_range)
         stages = {}
         sp = self.conv1(self.conv_input(sp))
         stages["x_conv1"] = sp

@@ -94,14 +94,18 @@ VFE["DynVFE"] = VFE["DynamicVFE"] = lambda cfg, ctx: DynamicVFE(
 
 def _spconv8x(cls):
     """The sparse-conv backbone on the MeanVFE's point features, with the
-    JAX builder's input capacity ``max_voxels * batch_size``."""
+    JAX builder's input capacity ``max_voxels * batch_size``; with
+    ``PCDET_SPARSE_SHAPE`` its sites on pcdet's grid, one cell deeper in z
+    (the JAX builder's grid without it)."""
     return lambda cfg, ctx: cls(
         in_channels=ctx.num_point_features,
         input_capacity=ctx.max_voxels * ctx.batch_size,
         grid_size=tuple(ctx.grid_size),
         num_filters=tuple(cfg.get("NUM_FILTERS", [16, 32, 64, 64])),
         out_channels=int(cfg.get("OUT_CHANNELS", 128)),
-        return_stages=bool(cfg.get("RETURN_STAGES", False)), dtype=ctx.dtype)
+        return_stages=bool(cfg.get("RETURN_STAGES", False)),
+        pcdet_sparse_shape=bool(cfg.get("PCDET_SPARSE_SHAPE", False)),
+        dtype=ctx.dtype)
 
 
 BACKBONE_3D = {

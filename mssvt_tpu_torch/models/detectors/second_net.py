@@ -8,7 +8,13 @@ backbone output's ``SparseVoxels.bev()`` and the 2D backbone takes the
 width that map has (output depth x OUT_CHANNELS), not the config's
 ``NUM_BEV_FEATURES``. The JAX backbone's grid is ``grid_size`` as given,
 where the reference's is one cell deeper in z, so at KITTI's grid the
-map has 128 channels where ``second.yaml`` says 256 (ROADMAP.md Queue 3).
+map has 128 channels where ``second.yaml`` says 256; ``BACKBONE_3D``'s
+``PCDET_SPARSE_SHAPE: True`` builds the sites on the reference's grid
+(2 x 128 = 256 channels, z-major).
+
+The stages are the spans ``mssvt.vfe``, ``mssvt.backbone_3d`` (which
+builds the sorted-key index on its own grid), ``mssvt.map_to_bev``,
+``mssvt.backbone_2d``, ``mssvt.head`` and ``mssvt.post``.
 
 Inputs as ``CenterPoint``'s (padded to static capacities, on the model's
 device); in eval mode it returns detections, in train mode the loss of
@@ -23,6 +29,7 @@ import torch
 from torch import nn
 
 from ...core.sparse import SparseVoxels
+from ...runtime import tracing
 from ..builders import (
     build_backbone_2d,
     build_backbone_3d,
@@ -62,10 +69,12 @@ class SECONDNet(nn.Module):
         sp = SparseVoxels.create(
             apply_vfe(self.vfe, batch), batch["voxel_coords"],
             batch["voxel_valid"], self.batch_size, self.grid_size,
-            self.voxel_size, self.point_cloud_range)
+            self.voxel_size, self.point_cloud_range, with_index=False)
         sp = apply_backbone_3d(self.backbone_3d, sp, generator)
-        spatial_features = sp.bev()  # (B, H, W, D*C) at stride 8
-        spatial_features_2d = self.backbone_2d(spatial_features)
+        with tracing.span("map_to_bev"):
+            spatial_features = sp.bev()  # (B, H, W, D*C) at stride 8
+        with tracing.span("backbone_2d"):
+            spatial_features_2d = self.backbone_2d(spatial_features)
         out = run_dense_head(self.dense_head, spatial_features_2d, batch,
                              train=self.training,
                              post_cfg=self.model_cfg.get("POST_PROCESSING"))

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..bridge import from_flax_layout
+from ..models.backbones_3d.spconv_backbone import out_spatial_shape_8x
 from ..models.model_utils.layers import (
     BatchNorm,
     Conv2d,
@@ -240,10 +241,16 @@ def convert_state_dict(state: Dict[str, Any], model, bev_depth: int = 0):
 
 
 def bev_depth_of(model_cfg, grid_z: int) -> int:
-    """z-depth of the backbone's last sparse tensor: each compress block
-    divides the grid's z by its window's."""
+    """z-depth of the backbone's last sparse tensor: for MsSVT each
+    compress block divides the grid's z by its window's; for the sparse-conv
+    backbones (no ``PARAMS``) it is their output grid's z (at KITTI's 40
+    cells 1, or 2 with ``PCDET_SPARSE_SHAPE``)."""
+    b3d = model_cfg["BACKBONE_3D"]
+    if "PARAMS" not in b3d:
+        return out_spatial_shape_8x(
+            (1, 1, grid_z), bool(b3d.get("PCDET_SPARSE_SHAPE", False)))[2]
     depth = int(grid_z)
-    for p in model_cfg["BACKBONE_3D"]["PARAMS"]:
+    for p in b3d["PARAMS"]:
         if p["name"].endswith("CompressBlock"):
             depth //= int(p["window_size"][0][2])
     return depth

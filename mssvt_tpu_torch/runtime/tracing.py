@@ -4,14 +4,27 @@
 range ``mssvt.<name>``, so the stage lands in the same trace as the
 kernels, copies and runtime calls it caused, on the same clock. Without
 an active profiler it is a null context: one flag read, no
-``record_function``. Spans open at stage boundaries only, never inside a
-loop, a block or a kernel wrapper.
+``record_function``. Stage spans open at stage boundaries only, never
+inside a loop, a block or a kernel wrapper; the one finer span,
+``mssvt.spconv_rules``, opens once for each table a sparse-conv layer
+builds, never inside a kernel wrapper.
 
-The spans of an eval request (``runtime/eval_utils.eval_step`` and the
-detectors' ``generic_post`` helpers): ``mssvt.request`` around the
-forward, and inside it, in order and without overlap, ``mssvt.vfe``,
-``mssvt.backbone_3d``, ``mssvt.map_to_bev``, ``mssvt.backbone_2d``,
-``mssvt.head`` and ``mssvt.post``.
+The spans of an eval request: ``mssvt.request`` around the forward, and
+inside it, in order and without overlap, the six stages; the sparse-conv
+backbones add ``mssvt.spconv_rules`` inside ``mssvt.backbone_3d``:
+
+- ``mssvt.request``: ``eval_utils.eval_step``, the eval forward;
+- ``mssvt.vfe``: ``generic_post.apply_vfe``, the voxel features;
+- ``mssvt.backbone_3d``: ``generic_post.apply_backbone_3d``, the 3-D
+  backbone;
+- ``mssvt.spconv_rules``: ``backbones_3d/spconv_backbone.py``, each
+  sorted-key index, output-site set and neighbour table of the
+  sparse-conv engine (many a request, inside ``mssvt.backbone_3d``);
+- ``mssvt.map_to_bev``: ``CenterPoint.forward`` and ``SECONDNet.forward``,
+  the sparse-to-dense BEV map;
+- ``mssvt.backbone_2d``: the same, the 2-D backbone;
+- ``mssvt.head``: ``generic_post.run_dense_head``, the head's maps;
+- ``mssvt.post``: the same, decode, score threshold and NMS.
 """
 
 from __future__ import annotations
