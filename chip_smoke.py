@@ -26,8 +26,8 @@ Phases (any failed check raises and the script exits non-zero):
 5. the main path: ``mssvt.yaml`` CenterPoint, full width, bf16, seeded
    random weights: one warm-up request, then 10 requests cycling 3
    distinct scenes of batch 4, with the kernel launch counts of every
-   request checked (and one launch of the NMS scan, ``kernels/nms.py``, a
-   request); host-clock mean, median and min-max; then the headline
+   request checked (and one launch of the NMS scan, ``kernels/nms.py``, and
+   one of its IoU mask, ``kernels/nms_iou.py``, a request); host-clock mean, median and min-max; then the headline
    number, the device time of one profiled request (``torch.profiler``);
 5b. the greedy NMS scan (``csrc/nms.cu``) against its plain version, the
    loop, on the card at the benchmark cell's shape (B = 2, K = 500 from
@@ -36,7 +36,15 @@ Phases (any failed check raises and the script exits non-zero):
    launches, ``work.nms_greedy``'s bound and CUDA-event ms: the kernel's
    (``ms``, calls queued behind a sleep so the card runs them back to
    back), the loop's, and back-to-back calls without the sleep (at K = 500
-   the wrapper's host time a call) (``# kernel nms_greedy`` lines);
+   the wrapper's host time a call) (``# kernel nms_greedy`` lines); then
+   the rotated-IoU mask (``csrc/nms_iou.cu``) at the same candidates
+   (thresholds 0.7 as ``mssvt.yaml`` runs it, and 0.01): its bits against
+   the plain IoU's in row blocks (equal but within 1e-5 of the threshold,
+   counted), ``nms_bev``'s selections bit-equal to the plain route's,
+   CUDA-event ms, ``work.nms_iou_mask``'s bound (and the every-pair
+   figure), the plain version's ms, the share of pairs past the early-out,
+   and ``nms_bev`` (mask + scan) against the plain route a call
+   (``# kernel nms_iou_mask`` lines);
 6a. small-input training reference: one f32 ``mssvt_tiny.yaml`` training
    step on the card against the CPU plain path (loss within 1e-4 relative,
    every gradient within 1e-3 of the global gradient norm);
@@ -126,8 +134,8 @@ print the device time of each launch inside one K5 and one K7 call
    requests), printing voxels a frame against the 16 000 / 40 000 caps, the
    BEV width (128, 64), each synchronised step and request, the anchor
    post-processing's (NMS) share of a request by the host clock and under
-   the profiler, and the peak memory, also of a request with the NMS's
-   pairwise IoU at once instead of in row blocks (``# 10a``/``# 10b``
+   the profiler, the peak memory of a request and the share of its NMS
+   candidates' pairs past the IoU mask's early-out (``# 10a``/``# 10b``
    lines).
 11. the file-backed datasets, on seeded trees in their on-disk layouts
    under ``output/chip_smoke/data/`` (``datasets/synthetic_files.py``; no
@@ -278,8 +286,10 @@ SAMPLING_LAUNCHES = launches(fps_picks_warp=1, fps_picks_block=2)
 PIPELINE_STEP = TRAIN_LAUNCHES       # each training step of phase 8
 PIPELINE_REQUEST = EXPECTED_LAUNCHES  # each eval request of phase 8
 REQUESTS = 10     # measured requests after one warm-up, cycling the scenes
-NMS_PER_REQUEST = 1  # mssvt.yaml's one head: one NMS scan a request
-NMS_SHAPES = ((2, 500, 0.1), (4, 4096, 0.01))  # (B, K, IoU threshold)
+NMS_PER_REQUEST = 1  # mssvt.yaml's one head: one NMS (scan, mask) a request
+# (B, K, IoU threshold of the scan's line, of the mask's): the mask at
+# mssvt.yaml's 0.7 and the second cell's 0.01, the scan at 0.1 and 0.01
+NMS_SHAPES = ((2, 500, 0.1, 0.7), (4, 4096, 0.01, 0.01))
 TRAIN_STEPS = 10  # measured steps of each kind after one warm-up step
 FPS_BLOCK_SHAPE = (4096, 2048, 512)  # K2c: rows, points a row, picks
 FPS_WIDE_SHAPE = (4, 16384, 4096)    # K2c at its widest N (PointRCNN's SA1)
@@ -1649,12 +1659,12 @@ def profile_kitti_request(torch, model, batch, name, card):
     post-processing (max over classes, score threshold, greedy rotated
     NMS over NMS_PRE_MAXSIZE candidates a frame): its share of the
     request by the host clock and, under ``torch.profiler``, by device
-    kernel time; then the request's peak memory with the pairwise IoU in
-    row blocks (``ops.nms.IOU_BLOCK_PAIRS``) and at once."""
+    kernel time; then the request's peak memory and the share of the
+    candidates' pairs past the IoU mask's early-out."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from mssvt_tpu_torch.kernels import nms_iou
     from mssvt_tpu_torch.models.detectors import generic_post
-    from mssvt_tpu_torch.ops import nms
     from mssvt_tpu_torch.runtime.eval_utils import eval_step
 
     post = generic_post.post_process_anchor
@@ -1708,23 +1718,32 @@ def profile_kitti_request(torch, model, batch, name, card):
         f"{[round(100 * x, 1) for x in share]}% (host clock); profiled: "
         f"device kernels {dev_all:.3f} ms over {len(kern)} kernels, "
         f"{dev_post} [{card}]")
-    peaks = {}
-    for label, pairs in (("row blocks", nms.IOU_BLOCK_PAIRS),
-                         ("at once", 1 << 62)):
-        saved, nms.IOU_BLOCK_PAIRS = nms.IOU_BLOCK_PAIRS, pairs
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            eval_step(model, batch)
-            torch.cuda.synchronize()
-            peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2**30
-        finally:
-            nms.IOU_BLOCK_PAIRS = saved
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cands = []
+    mask = nms_iou.nms_iou_mask
+
+    def captured(boxes, thresh):
+        cands.append(boxes)
+        return mask(boxes, thresh)
+
+    nms_iou.nms_iou_mask = captured
+    try:
+        eval_step(model, batch)
+    finally:
+        nms_iou.nms_iou_mask = mask
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    b, k = cands[0].shape[:2]
+    near = sum(nms_iou.near_pairs(c) for c in cands)
+    pairs = len(cands) * b * k * (k - 1) // 2
     log(f"# 10b {name} request peak above the resident model and batch: "
-        f"IoU in row blocks {peaks['row blocks']:.2f} GiB, at once "
-        f"{peaks['at once']:.2f} GiB [{card}]")
+        f"{peak:.2f} GiB (the IoU mask packed on the card, no (B, K, K) "
+        f"matrix); NMS candidates {len(cands)} x (B {b}, K {k}), pairs past "
+        f"the IoU mask's early-out {near} of {pairs} "
+        f"({100 * near / pairs:.2f}%) [{card}]")
     return walls, post_s
 
 
@@ -3823,14 +3842,16 @@ def top_mechanisms(op_bytes, tally, what):
 
 # --------------------------------------------------------------- phase 5
 def nms_phase(torch):
-    """5b: the NMS scan against the loop at NMS_SHAPES, on candidates of
-    seeded boxes crowding a 40 m square (so many overlap) with scores of 8
-    levels (so most tie)."""
-    from mssvt_tpu_torch.kernels import nms, work
+    """5b: the NMS scan against the loop, and the rotated-IoU mask against
+    its plain version (the IoU in row blocks, packed), at NMS_SHAPES, on
+    candidates of seeded boxes crowding a 40 m square (so many overlap)
+    with scores of 8 levels (so most tie)."""
+    from mssvt_tpu_torch.kernels import nms, nms_iou, work
+    from mssvt_tpu_torch.ops import box_ops
     from mssvt_tpu_torch.ops import nms as ops_nms
 
     g = torch.Generator(device="cuda").manual_seed(21)
-    for b, k, thresh in NMS_SHAPES:
+    for b, k, thresh, mask_thresh in NMS_SHAPES:
         boxes = torch.cat([
             torch.rand((b, k, 2), generator=g, device="cuda") * 40,
             torch.rand((b, k, 1), generator=g, device="cuda"),
@@ -3839,7 +3860,7 @@ def nms_phase(torch):
         scores = torch.randint(0, 8, (b, k), generator=g, device="cuda") / 8.0
         cand, valid, order = ops_nms._candidates(boxes, scores, scores > 0.1,
                                                  k)
-        a = (ops_nms._overlaps(cand[..., :7], thresh), valid, order, k)
+        a = (nms_iou.overlaps(cand[..., :7], thresh), valid, order, k)
         before = nms.launches
         got = nms.nms_greedy(*a)
         launched = nms.launches - before
@@ -3860,6 +3881,67 @@ def nms_phase(torch):
             f"back_to_back_ms={host_ms:.4f} launches={launched} a call, "
             f"kept {got[1].tolist()}, selections equal; packed rows in "
             f"{'shared memory' if nms.packed_in_shared(k) else 'scratch'}")
+        nms_mask_line(torch, nms, nms_iou, work, box_ops, ops_nms, boxes,
+                      scores, cand, valid, order, mask_thresh)
+
+
+def nms_mask_line(torch, nms, nms_iou, work, box_ops, ops_nms, boxes, scores,
+                  cand, valid, order, thresh):
+    """5b's ``# kernel nms_iou_mask`` line: the mask's bits against the
+    plain IoU's (equal but where the plain IoU lies within 1e-5 of the
+    threshold, and there counted), ``nms_bev``'s selections against the
+    plain route's (bit-equal), CUDA-event ms, the bound, the plain
+    version's ms, launches, the share of pairs past the early-out, the
+    packed scan's ms."""
+    b, k = valid.shape
+    before = nms_iou.launches
+    words = nms_iou.nms_iou_mask(cand, thresh)
+    launched = nms_iou.launches - before
+    over = nms_iou.overlaps(cand[..., :7], thresh)
+    up = nms_iou.upper_words(k, "cuda")
+    tri = torch.ones((k, k), dtype=torch.bool, device="cuda").triu(1)
+    diff = (nms_iou.unpack(torch.where(up, words, 0), k) != over) & tri
+    rows = max(1, nms_iou.IOU_BLOCK_PAIRS // (b * k))
+    iou = torch.cat([box_ops.pairwise_iou_bev(cand[:, i:i + rows, :7],
+                                              cand[..., :7])
+                     for i in range(0, k, rows)], dim=1)
+    band = ((iou - thresh).abs() <= 1e-5) & tri
+    outside = int((diff & ~band).sum())
+    post_max = k
+    got = ops_nms.nms_bev(boxes, scores, scores > 0.1, thresh, k, post_max)
+    want = nms.greedy_plain(over, valid, order, post_max)
+    torch.cuda.synchronize()
+    if launched != 1 or outside or not (torch.equal(got[0], want[0])
+                                        and torch.equal(got[1], want[1])):
+        raise AssertionError(
+            f"nms_iou_mask at B={b} K={k}: {launched} launches, {outside} "
+            "bits differ from the plain IoU's outside 1e-5 of the threshold, "
+            "or nms_bev's selections differ from the plain route's")
+    near = nms_iou.near_pairs(cand)
+    pairs = b * k * (k - 1) // 2
+    ms = queued_ms(torch, lambda: nms_iou.nms_iou_mask(cand, thresh), reps=20)
+    scan_ms = queued_ms(torch, lambda: nms.nms_greedy_packed(
+        words, valid, order, post_max), reps=20)
+    plain_ms = time_ms(torch, lambda: nms_iou.overlaps(cand[..., :7],
+                                                       thresh), reps=2)
+    route_ms = time_ms(torch, lambda: ops_nms.nms_bev(
+        boxes, scores, scores > 0.1, thresh, k, post_max), reps=10, warm=2)
+    plain_route_ms = time_ms(torch, lambda: nms.greedy_plain(
+        nms_iou.overlaps(ops_nms._candidates(
+            boxes, scores, scores > 0.1, k)[0][..., :7], thresh),
+        valid, order, post_max), reps=1)
+    bound_ms, bound_by = work.nms_iou_mask(cand, near).bound()
+    every_ms = pairs * work.NMS_IOU_PAIR_OPS / work.F32_FLOPS * 1e3
+    log(f"# kernel nms_iou_mask: B={b} K={k} thresh={thresh} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
+        f"{every_ms:.4f} were no pair skipped) launches={launched} a call; "
+        f"bits differing {int(diff.sum())}, of them outside 1e-5 of the "
+        f"threshold {outside}, pairs within it {int(band.sum())}; pairs past "
+        f"the early-out {near} of {pairs} ({100 * near / pairs:.2f}%); "
+        f"nms_bev selections equal to the plain route's (kept "
+        f"{got[1].tolist()}): the scan of the packed rows {scan_ms:.4f} ms; "
+        f"nms_bev {route_ms:.4f} ms a call back to back (mask + scan), the "
+        f"plain route {plain_route_ms:.4f} ms")
 
 
 def main_path(torch, model, scenes):
@@ -3867,7 +3949,7 @@ def main_path(torch, model, scenes):
     with its launch counts checked. Returns (launch counts of the measured
     requests, their host-clock times in ms)."""
     from mssvt_tpu_torch import kernels
-    from mssvt_tpu_torch.kernels import nms
+    from mssvt_tpu_torch.kernels import nms, nms_iou
 
     with torch.no_grad():
         model(scenes[-1])  # warm-up
@@ -3876,7 +3958,7 @@ def main_path(torch, model, scenes):
     for i in range(REQUESTS):
         seed = i % len(scenes)
         before = kernels.launch_counts()
-        nms_before = nms.launches
+        nms_before, mask_before = nms.launches, nms_iou.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -3889,9 +3971,11 @@ def main_path(torch, model, scenes):
         if per != EXPECTED_LAUNCHES:
             raise AssertionError(f"request {i}: launches {per} != "
                                  f"{EXPECTED_LAUNCHES}")
-        if nms.launches - nms_before != NMS_PER_REQUEST:
+        if (nms.launches - nms_before, nms_iou.launches - mask_before) != (
+                NMS_PER_REQUEST, NMS_PER_REQUEST):
             raise AssertionError(f"request {i}: {nms.launches - nms_before} "
-                                 f"NMS launches, {NMS_PER_REQUEST} due")
+                                 f"NMS scans, {nms_iou.launches - mask_before}"
+                                 f" masks, {NMS_PER_REQUEST} each due")
         mask = out["final_mask"]
         for key in ("final_boxes", "final_scores"):
             if not torch.isfinite(out[key]).all():

@@ -5,8 +5,9 @@
 // (kernels/nms.py greedy_plain) is a host loop of K iterations of five
 // small launches each, which left the card idle for the whole post-
 // processing. The suppression matrix (B, K, K) bool stays where
-// ops/nms.py computes it (rotated IoU or centre distance); this kernel
-// only walks it in score order, with the same result bit for bit: a
+// ops/nms.py computes it (centre distance, or the rotated IoU on the CPU),
+// or arrives packed (the rotated IoU on the card, csrc/nms_iou.cu); this
+// kernel only walks it in score order, with the same result bit for bit: a
 // candidate is kept when it is valid and no kept candidate before it
 // suppresses it; only over[i][j] with j > i counts.
 //
@@ -19,7 +20,10 @@
 //      words left of the diagonal are neither written nor read. The rows
 //      stay in shared memory while ((K + 4) * ceil(K / 64) + 1) * 8 bytes
 //      fit, else they go to a global scratch buffer the wrapper allocates
-//      (K > 1 344).
+//      (K > 1 344). The packed entry (mssvt_nms_greedy_packed) takes rows
+//      already packed so (csrc/nms_iou.cu writes them): it copies their
+//      upper words to shared memory where they fit, else scans them in
+//      place;
 //   2. one warp scans 64 candidates a step: the step's diagonal words are
 //      fetched a step ahead (two a lane) and broadcast by shuffles, so the
 //      serial chain of a candidate is a few 32-bit register operations on
@@ -117,9 +121,15 @@ __device__ __forceinline__ void pack_rows(const uint8_t* __restrict__ ob,
   }
 }
 
-template <bool WIDE>
+// Where the rows come from: the bool matrix packed by pack_rows<WIDE>,
+// or rows packed already (csrc/nms_iou.cu), copied to shared memory or
+// scanned in place in device memory.
+enum Source { SRC_BYTES, SRC_WIDE, SRC_PACKED_COPY, SRC_PACKED_IN_PLACE };
+
+template <Source SRC>
 __global__ void __launch_bounds__(NMS_THREADS)
 nms_greedy_kernel(const uint8_t* __restrict__ over,
+                  const u64* __restrict__ packed,
                   const uint8_t* __restrict__ valid,
                   const int64_t* __restrict__ order, int k, int post_max,
                   u64* __restrict__ scratch, int* __restrict__ sel,
@@ -133,7 +143,10 @@ nms_greedy_kernel(const uint8_t* __restrict__ over,
   u64* keepw = smem + 2 * words;    // kept candidates
   int* base = (int*)(smem + 3 * words);  // kept before each word
   int* s_kept = (int*)(smem + 4 * words);  // kept in all
-  u64* rows = scratch ? scratch + (size_t)b * k * words : smem + 4 * words + 1;
+  u64* own = scratch ? scratch + (size_t)b * k * words : smem + 4 * words + 1;
+  const u64* in =
+      SRC >= SRC_PACKED_COPY ? packed + (size_t)b * k * words : nullptr;
+  const u64* rows = SRC == SRC_PACKED_IN_PLACE ? in : own;
   const uint8_t* vb = valid + (size_t)b * k;
 
   // 1. pack the validity and the rows' strict upper triangles
@@ -144,7 +157,14 @@ nms_greedy_kernel(const uint8_t* __restrict__ over,
     const unsigned hi = __ballot_sync(FULL, j1 < k && vb[j1]);
     if (lane == 0) vbits[w] = ((u64)hi << 32) | lo;
   }
-  pack_rows<WIDE>(over + (size_t)b * k * k, k, words, rows, lane, warp);
+  if (SRC == SRC_BYTES || SRC == SRC_WIDE) {
+    pack_rows<(SRC == SRC_WIDE)>(over + (size_t)b * k * k, k, words, own,
+                                 lane, warp);
+  } else if (SRC == SRC_PACKED_COPY) {
+    // the words at or right of each row's diagonal word, coalesced
+    for (int x = threadIdx.x; x < k * words; x += NMS_THREADS)
+      if (x % words >= x / words / 64) own[x] = in[x];
+  }
   __syncthreads();
 
   // 2. the ordered scan, 64 candidates a step, by warp 0; the next step's
@@ -220,23 +240,24 @@ nms_greedy_kernel(const uint8_t* __restrict__ over,
   if (threadIdx.x == 0) num[b] = n;
 }
 
-template <bool WIDE>
-int launch(const void* over, const void* valid, const void* order, int b,
-           int k, int post_max, void* scratch, void* sel, void* num,
-           size_t smem, cudaStream_t stream) {
+template <Source SRC>
+int launch(const void* over, const void* packed, const void* valid,
+           const void* order, int b, int k, int post_max, void* scratch,
+           void* sel, void* num, size_t smem, cudaStream_t stream) {
   // the kernel has no static shared memory, so all of SMEM_MAX may be
   // dynamic
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        nms_greedy_kernel<WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        nms_greedy_kernel<SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
-  nms_greedy_kernel<WIDE><<<b, NMS_THREADS, smem, stream>>>(
-      (const uint8_t*)over, (const uint8_t*)valid, (const int64_t*)order, k,
-      post_max, (u64*)scratch, (int*)sel, (int*)num);
+  nms_greedy_kernel<SRC><<<b, NMS_THREADS, smem, stream>>>(
+      (const uint8_t*)over, (const u64*)packed, (const uint8_t*)valid,
+      (const int64_t*)order, k, post_max, (u64*)scratch, (int*)sel,
+      (int*)num);
   return launch_status();
 }
 
@@ -256,8 +277,30 @@ MSSVT_API int mssvt_nms_greedy(const void* over, const void* valid,
   const size_t smem = ((scratch ? 4 : k + 4) * words + 1) * sizeof(u64);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   if (k % 4 == 0 && (uintptr_t)over % 4 == 0)
-    return launch<true>(over, valid, order, b, k, post_max, scratch, sel,
-                        num, smem, stream);
-  return launch<false>(over, valid, order, b, k, post_max, scratch, sel, num,
-                       smem, stream);
+    return launch<SRC_WIDE>(over, nullptr, valid, order, b, k, post_max,
+                            scratch, sel, num, smem, stream);
+  return launch<SRC_BYTES>(over, nullptr, valid, order, b, k, post_max,
+                           scratch, sel, num, smem, stream);
+}
+
+// rows (B, K, ceil(K / 64)) 8-byte words as mssvt_nms_iou_mask writes them
+// (bit j of row i's word j / 64 for j > i; words left of the diagonal are
+// not read); valid, order, sel, num as above. The rows are copied to shared
+// memory where ((K + 4) * ceil(K / 64) + 1) * 8 bytes fit, else read in
+// place.
+MSSVT_API int mssvt_nms_greedy_packed(const void* rows, const void* valid,
+                                      const void* order, int b, int k,
+                                      int post_max, void* sel, void* num,
+                                      cudaStream_t stream) {
+  if (k < 0 || post_max < 0) return (int)cudaErrorInvalidValue;
+  if (b <= 0) return 0;
+  const size_t words = (size_t)(k + 63) / 64;
+  const size_t shared = ((k + 4) * words + 1) * sizeof(u64);
+  if (shared <= SMEM_MAX)
+    return launch<SRC_PACKED_COPY>(nullptr, rows, valid, order, b, k,
+                                   post_max, nullptr, sel, num, shared,
+                                   stream);
+  return launch<SRC_PACKED_IN_PLACE>(nullptr, rows, valid, order, b, k,
+                                     post_max, nullptr, sel, num,
+                                     (4 * words + 1) * sizeof(u64), stream);
 }

@@ -4,15 +4,16 @@ Each wrapper module (``fill``, ``fps``, ``attention``, ``attention_bwd``,
 ``attention_qk``, ``attention_qk_bwd``, ``ffn``) takes the plain version for
 CPU tensors and launches its CUDA kernel for CUDA tensors (or raises); it
 adds one to its kernel's module-level launch counter at each launch.
-``nms`` (the greedy NMS scan of the post-processing) does the same, and is
-counted on its own (``nms.launches``): it runs in every detector's
+``nms`` (the greedy NMS scan of the post-processing) and ``nms_iou`` (its
+rotated-IoU mask) do the same, and are counted on their own
+(``nms.launches``, ``nms_iou.launches``): they run in every detector's
 post-processing and in the two-stage proposals, outside the MsSVT blocks
 whose kernels ``KERNELS`` lists. Importing this package needs neither
 ``nvcc`` nor a card: the kernels are built on first use (``_lib.lib()``).
 """
 
 from . import (attention, attention_bwd, attention_qk, attention_qk_bwd, ffn,
-               fill, fps, nms)
+               fill, fps, nms, nms_iou)
 
 # kernel name -> (wrapper module, name of its launch counter there)
 KERNELS = {"fill": fill, "fps": fps, "fps_picks_warp": fps,

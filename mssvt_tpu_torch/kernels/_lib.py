@@ -54,6 +54,8 @@ _SIGNATURES = {
     "mssvt_ffn": [VP, VP, VP, VP, VP, VP, VP, VP, CI, CI, CI, CF, CI, VP],
     "mssvt_ffn_plan": [CI, CI, VP],
     "mssvt_nms_greedy": [VP, VP, VP, CI, CI, CI, VP, VP, VP, VP],
+    "mssvt_nms_greedy_packed": [VP, VP, VP, CI, CI, CI, VP, VP, VP],
+    "mssvt_nms_iou_mask": [VP, CI, CI, CI, CF, VP, VP],
 }
 
 

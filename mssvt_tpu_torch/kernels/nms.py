@@ -13,6 +13,10 @@ kept candidates in order, -1 padded, num_selected (B,) int32, at most
 CUDA tensors go to ``csrc/nms.cu`` (one CTA a sample, the rows packed into
 64-bit words, one ordered scan on the card); CPU tensors to
 :func:`greedy_plain`, the loop. Both give the same indices bit for bit.
+:func:`nms_greedy_packed` takes the rows already packed
+(``kernels/nms_iou.py``'s words) in place of the bool matrix, on the card
+only: on the CPU, ``ops.nms.nms_bev`` scans the bool matrix, so there is
+one plain route.
 """
 
 from __future__ import annotations
@@ -82,5 +86,34 @@ def nms_greedy(over, cand_valid, order, post_max: int):
         post_max, _lib.ptr(scratch), sel.data_ptr(), num.data_ptr(),
         _lib.stream_ptr(over))
     _lib.check(err, "mssvt_nms_greedy")
+    launches += 1
+    return sel, num
+
+
+@work.counted("nms_greedy_packed", work.nms_greedy_packed)
+def nms_greedy_packed(words, cand_valid, order, post_max: int):
+    """The greedy scan of rows packed as ``kernels/nms_iou.nms_iou_mask``
+    writes them: words (B, K, ceil(K / 64)) int64 (only the words at and
+    right of each row's diagonal word are read), cand_valid (B, K) bool,
+    order (B, K) int64, all contiguous. Same result as :func:`nms_greedy`
+    on the unpacked matrix. CUDA tensors only (see the module docstring)."""
+    global launches
+    b, k = cand_valid.shape
+    dev = words.device
+    _lib.require(words, "words", torch.int64, (b, k, (k + 63) // 64), dev)
+    _lib.require(cand_valid, "cand_valid", torch.bool, (b, k), dev)
+    _lib.require(order, "order", torch.int64, (b, k), dev)
+    post_max = int(post_max)
+    if post_max < 0:
+        raise ValueError(f"nms_greedy_packed: post_max {post_max} < 0")
+    if dev.type != "cuda":
+        raise RuntimeError("nms_greedy_packed: CUDA tensors only; on the "
+                           "CPU, scan the bool matrix (nms_greedy)")
+    sel = torch.empty((b, post_max), dtype=torch.int32, device=dev)
+    num = torch.empty((b,), dtype=torch.int32, device=dev)
+    err = _lib.lib().mssvt_nms_greedy_packed(
+        words.data_ptr(), cand_valid.data_ptr(), order.data_ptr(), b, k,
+        post_max, sel.data_ptr(), num.data_ptr(), _lib.stream_ptr(words))
+    _lib.check(err, "mssvt_nms_greedy_packed")
     launches += 1
     return sel, num

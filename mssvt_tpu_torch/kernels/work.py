@@ -267,6 +267,44 @@ def nms_greedy(over, cand_valid, order, post_max):
                 + b * (int(post_max) + 1) * 4, F32_FLOPS)
 
 
+def _upper_word_bytes(b, k):
+    """Bytes of the packed rows' words at and right of each row's
+    diagonal word, the words the mask writes and the scan reads."""
+    words = (k + 63) // 64
+    return b * 8 * sum(min(64, k - 64 * t) * (words - t)
+                       for t in range(words))
+
+
+def nms_greedy_packed(words, cand_valid, order, post_max):
+    """The scan on packed rows: the rows' upper words, the validity and
+    the order read, the selections and counts written; K serial steps a
+    sample, as :func:`nms_greedy`."""
+    b, k = cand_valid.shape
+    return Work(0, b * k, _upper_word_bytes(b, k)
+                + _nbytes(cand_valid, order) + b * (int(post_max) + 1) * 4,
+                F32_FLOPS)
+
+
+# f32 arithmetic (adds, subtractions, products, divisions; compares and
+# selects not counted) of csrc/nms_iou.cu: a pair's early-out test (two
+# differences, two squares, two sums, the reach squared) and a pair past
+# it: the A pass 4 x (4 x 10 + 11) + 3, the B pass with its anti-parallel
+# test 4 x (4 x 13 + 11) + 3, and the IoU's 5
+NMS_IOU_TEST_OPS = 7
+NMS_IOU_PAIR_OPS = 467
+
+
+def nms_iou_mask(boxes, near: int):
+    """The rotated-IoU mask: the boxes read, each row's words at and right
+    of its diagonal word written; every upper-triangle pair's early-out
+    test, and the full IoU of the ``near`` pairs past it (counted on the
+    data, ``kernels/nms_iou.near_pairs``)."""
+    b, k = boxes.shape[:2]
+    ops = (b * k * (k - 1) // 2 * NMS_IOU_TEST_OPS
+           + int(near) * NMS_IOU_PAIR_OPS)
+    return Work(0, ops, _nbytes(boxes) + _upper_word_bytes(b, k), F32_FLOPS)
+
+
 _DTYPE_NAMES = {
     torch.bool: "pred", torch.uint8: "u8", torch.int8: "s8",
     torch.int16: "s16", torch.int32: "s32", torch.int64: "s64",

@@ -3,10 +3,15 @@
 
 Candidates are the ``pre_max`` top scores (a stable descending sort, so
 equal scores keep their input order, as ``lax.top_k`` does); a box is kept
-when no kept higher-scoring box suppresses it. The (B, K, K) suppression
-matrix is built here; the scan over it is ``kernels/nms.py``'s (one kernel
-on the card, the loop on the CPU). Outputs are (selected (B, post_max)
-int32 indices into the input, -1 padded, num_selected (B,)).
+when no kept higher-scoring box suppresses it. The scan is
+``kernels/nms.py``'s (one kernel on the card, the loop on the CPU). The
+rotated-IoU suppression of :func:`nms_bev` is, on the card,
+``kernels/nms_iou.py``'s kernel, which writes the scan's packed rows (two
+launches in all); on the CPU, the (B, K, K) bool matrix in row blocks
+(``kernels/nms_iou.overlaps``, the kernel's plain version), scanned by the
+loop. Outputs are (selected (B, post_max) int32 indices into the input, -1
+padded, num_selected (B,)).
+Both open the span ``mssvt.nms`` (``runtime/tracing.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ from __future__ import annotations
 import torch
 
 from ..kernels import nms as nms_kernel
-from .box_ops import pairwise_iou_bev
+from ..kernels import nms_iou
+from ..runtime import tracing
 
 
 def _candidates(boxes, scores, valid, pre_max):
@@ -28,38 +34,26 @@ def _candidates(boxes, scores, valid, pre_max):
     return cand, torch.isfinite(top), order
 
 
-# candidate pairs a block of the pairwise IoU: its largest temporaries are
-# (B, rows, K, 4, 2) f32, 256 MiB at this many pairs (a whole 4 x 4096^2
-# matrix at once would take ~2 GiB each)
-IOU_BLOCK_PAIRS = 1 << 23
-
-
-def _overlaps(c7, thresh: float):
-    """(B, K, K) ``pairwise_iou_bev(c7, c7) > thresh``, computed in row
-    blocks of at most ``IOU_BLOCK_PAIRS`` pairs (each element's IoU is
-    the same whatever the block)."""
-    b, k = c7.shape[:2]
-    rows = max(1, IOU_BLOCK_PAIRS // max(1, b * k))
-    if rows >= k:
-        return pairwise_iou_bev(c7, c7) > thresh
-    return torch.cat([pairwise_iou_bev(c7[:, i:i + rows], c7) > thresh
-                      for i in range(0, k, rows)], dim=1)
-
-
 def nms_bev(boxes, scores, valid, thresh: float, pre_max: int,
             post_max: int):
     """Rotated-IoU greedy NMS over (B, N, 7+) boxes."""
-    cand, cand_valid, order = _candidates(boxes, scores, valid, pre_max)
-    return nms_kernel.nms_greedy(_overlaps(cand[..., :7], thresh), cand_valid,
-                                 order, post_max)
+    with tracing.span("nms"):
+        cand, cand_valid, order = _candidates(boxes, scores, valid, pre_max)
+        if cand.is_cuda:
+            words = nms_iou.nms_iou_mask(cand, thresh)
+            return nms_kernel.nms_greedy_packed(words, cand_valid, order,
+                                                post_max)
+        return nms_kernel.nms_greedy(nms_iou.overlaps(cand[..., :7], thresh),
+                                     cand_valid, order, post_max)
 
 
 def circle_nms(boxes, scores, valid, min_radius: float, pre_max: int,
                post_max: int):
     """Centre-distance greedy suppression: a candidate is dropped when its
     centre lies within ``min_radius`` of a kept higher-scoring box."""
-    cand, cand_valid, order = _candidates(boxes, scores, valid, pre_max)
-    c = cand[..., :2]
-    d2 = ((c[:, :, None, :] - c[:, None, :, :]) ** 2).sum(-1)
-    return nms_kernel.nms_greedy(d2 < float(min_radius) ** 2, cand_valid,
-                                 order, post_max)
+    with tracing.span("nms"):
+        cand, cand_valid, order = _candidates(boxes, scores, valid, pre_max)
+        c = cand[..., :2]
+        d2 = ((c[:, :, None, :] - c[:, None, :, :]) ** 2).sum(-1)
+        return nms_kernel.nms_greedy(d2 < float(min_radius) ** 2, cand_valid,
+                                     order, post_max)

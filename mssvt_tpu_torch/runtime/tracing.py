@@ -5,13 +5,15 @@ range ``mssvt.<name>``, so the stage lands in the same trace as the
 kernels, copies and runtime calls it caused, on the same clock. Without
 an active profiler it is a null context: one flag read, no
 ``record_function``. Stage spans open at stage boundaries only, never
-inside a loop, a block or a kernel wrapper; the one finer span,
-``mssvt.spconv_rules``, opens once for each table a sparse-conv layer
-builds, never inside a kernel wrapper.
+inside a loop, a block or a kernel wrapper; the two finer spans,
+``mssvt.spconv_rules`` and ``mssvt.nms``, open once for each table a
+sparse-conv layer builds and once for each NMS call, never inside a kernel
+wrapper.
 
 The spans of an eval request: ``mssvt.request`` around the forward, and
 inside it, in order and without overlap, the six stages; the sparse-conv
-backbones add ``mssvt.spconv_rules`` inside ``mssvt.backbone_3d``:
+backbones add ``mssvt.spconv_rules`` inside ``mssvt.backbone_3d``, the
+NMS ``mssvt.nms`` inside ``mssvt.post``:
 
 - ``mssvt.request``: ``eval_utils.eval_step``, the eval forward;
 - ``mssvt.vfe``: ``generic_post.apply_vfe``, the voxel features;
@@ -24,7 +26,10 @@ backbones add ``mssvt.spconv_rules`` inside ``mssvt.backbone_3d``:
   the sparse-to-dense BEV map;
 - ``mssvt.backbone_2d``: the same, the 2-D backbone;
 - ``mssvt.head``: ``generic_post.run_dense_head``, the head's maps;
-- ``mssvt.post``: the same, decode, score threshold and NMS.
+- ``mssvt.post``: the same, decode, score threshold and NMS;
+- ``mssvt.nms``: ``ops/nms.py``'s ``nms_bev`` and ``circle_nms``, each
+  greedy NMS call (candidates, suppression mask, scan; one a request for
+  one head, inside ``mssvt.post``; the two-stage proposals open it too).
 """
 
 from __future__ import annotations

@@ -389,10 +389,12 @@ def test_post_process_anchor_matches_jax(pre_max, post_max):
 
 @pytest.mark.parametrize("pairs", [1, 7 * 300, 2 * 300 * 64])
 def test_nms_iou_row_blocks_change_nothing(pairs, monkeypatch):
-    """``nms_bev`` computes the pairwise IoU in row blocks of at most
+    """On the CPU, ``nms_bev`` computes the pairwise IoU in row blocks
+    (``kernels/nms_iou.overlaps``) of at most
     ``IOU_BLOCK_PAIRS`` pairs (KITTI's 4 x 4096 candidates at once would
     hold ~2 GiB temporaries each): the overlaps and the kept boxes equal
     the one-block computation exactly, for blocks of one row up."""
+    from mssvt_tpu_torch.kernels import nms_iou
     from mssvt_tpu_torch.ops import box_ops, nms
 
     rng = np.random.default_rng(pairs)
@@ -406,8 +408,8 @@ def test_nms_iou_row_blocks_change_nothing(pairs, monkeypatch):
     scores = _t(rng.uniform(0, 1, (2, n)).astype(np.float32))
     want_over = box_ops.pairwise_iou_bev(b, b) > 0.1
     want = nms.nms_bev(b, scores, scores > 0.2, 0.1, 256, 64)
-    monkeypatch.setattr(nms, "IOU_BLOCK_PAIRS", pairs)
-    assert torch.equal(nms._overlaps(b, 0.1), want_over)
+    monkeypatch.setattr(nms_iou, "IOU_BLOCK_PAIRS", pairs)
+    assert torch.equal(nms_iou.overlaps(b, 0.1), want_over)
     got = nms.nms_bev(b, scores, scores > 0.2, 0.1, 256, 64)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -5,7 +5,7 @@ nothing of JAX, so on a machine with a card and no JAX it runs as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Fill, FPS and the NMS scan must match exactly; attention (forward and backward) and FFN
+Fill, FPS, the NMS scan and its IoU mask must match exactly; attention (forward and backward) and FFN
 in f32 to 1e-4 (the same f32 math summed in another order) and in bf16 to
 2^-5 of the largest output magnitude (an intermediate may round one bf16 ulp
 apart).
@@ -24,10 +24,18 @@ from mssvt_tpu_torch.kernels import (
     fill,
     fps,
     nms,
+    nms_iou,
 )
+from mssvt_tpu_torch.ops import box_ops
 from mssvt_tpu_torch.ops import nms as ops_nms
 from mssvt_tpu_torch.runtime.train_utils import set_deterministic
-from test_torch_nms import HAND_CASES, hand_case
+from test_torch_nms import (
+    EDGE_CASES,
+    HAND_CASES,
+    _near_boundary_boxes,
+    _rows,
+    hand_case,
+)
 
 
 @pytest.fixture
@@ -807,9 +815,10 @@ def test_nms_kernel_keeps_hand_computed_indices(dev, name, b):
 def test_nms_on_card_matches_the_loop_without_host_sync(dev, monkeypatch, fn,
                                                         arg, b, n, pre_max,
                                                         post_max):
-    """``nms_bev`` and ``circle_nms`` on the card: one launch and no host
-    sync a call (``set_sync_debug_mode("error")``), and the same indices
-    as with the loop in the kernel's place. Scores take 8 values, so most
+    """``nms_bev`` and ``circle_nms`` on the card: one scan (and for
+    ``nms_bev`` one mask) launch and no host sync a call
+    (``set_sync_debug_mode("error")``), and the same indices as the plain
+    route's (the IoU in row blocks, the loop). Scores take 8 values, so most
     candidates tie; boxes crowd a 40 m square, so many overlap."""
     g = torch.Generator(device=dev).manual_seed(n + b)
     boxes = torch.cat([torch.rand((b, n, 2), generator=g, device=dev) * 40,
@@ -819,7 +828,7 @@ def test_nms_on_card_matches_the_loop_without_host_sync(dev, monkeypatch, fn,
                       dim=-1)
     scores = torch.randint(0, 8, (b, n), generator=g, device=dev) / 8.0
     valid = scores > 0.1
-    before = nms.launches
+    before, before_mask = nms.launches, nms_iou.launches
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -827,11 +836,113 @@ def test_nms_on_card_matches_the_loop_without_host_sync(dev, monkeypatch, fn,
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert nms.launches == before + 1
+    assert nms_iou.launches == before_mask + (fn is ops_nms.nms_bev)
+    # the plain route on the card: the IoU in row blocks, the loop
     monkeypatch.setattr(nms, "nms_greedy", nms.greedy_plain)
+    monkeypatch.setattr(nms_iou, "nms_iou_mask", nms_iou.iou_mask_plain)
+    monkeypatch.setattr(nms, "nms_greedy_packed", lambda w, v, o, p:
+                        nms.greedy_plain(nms_iou.unpack(w, v.shape[1]), v,
+                                         o, p))
     want = fn(boxes, scores, valid, arg, pre_max, post_max)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(got[1].min()) > 1
+
+
+def _mask_case_boxes(dev, name):
+    if name in EDGE_CASES:
+        return _rows(EDGE_CASES[name]).to(dev)
+    b, k = (int(v) for v in name.split("x"))
+    g = torch.Generator(device=dev).manual_seed(k * 7 + b)
+    return torch.cat([torch.rand((b, k, 2), generator=g, device=dev) * 40,
+                      torch.rand((b, k, 1), generator=g, device=dev),
+                      0.5 + torch.rand((b, k, 3), generator=g, device=dev) * 4,
+                      torch.rand((b, k, 1), generator=g, device=dev) * 6.3,
+                      torch.rand((b, k, 2), generator=g, device=dev)], dim=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thresh", [0.0, 0.01, 0.1, 0.7])
+@pytest.mark.parametrize("name", sorted(EDGE_CASES) + [
+    "1x1", "1x63", "2x64", "2x65", "2x500", "1x1344", "3x1345", "4x4096"])
+def test_nms_iou_mask_matches_plain(dev, name, thresh):
+    """The mask kernel's words at and right of each row's diagonal word
+    equal the plain version's on the card (the IoU in row blocks, packed)
+    bit for bit, on (B, K, 9) boxes (velocities after the 7), with one
+    launch a call; the words left of the diagonal are not written."""
+    boxes = _mask_case_boxes(dev, name)
+    b, k = boxes.shape[:2]
+    up = nms_iou.upper_words(k, dev)
+    out = torch.full((b, k, nms_iou.words_of(k)), 12345, dtype=torch.int64,
+                     device=dev)
+    before = nms_iou.launches
+    got = nms_iou.nms_iou_mask(boxes, thresh)
+    assert nms_iou.launches == before + 1
+    want = nms_iou.iou_mask_plain(boxes, thresh)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, up], want[:, up])
+    # the C entry writes into a given buffer: left of the diagonal untouched
+    err = nms_iou._lib.lib().mssvt_nms_iou_mask(
+        boxes.data_ptr(), b, k, boxes.shape[-1], float(thresh),
+        out.data_ptr(), nms_iou._lib.stream_ptr(boxes))
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, up], want[:, up])
+    assert (out[:, ~up] == 12345).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_nms_iou_mask_early_out_on_the_card(dev, seed):
+    """Boxes placed just past the early-out's reach (and degenerate ones):
+    the kernel's bits equal the plain IoU's at threshold 0, where a pair
+    skipped wrongly would show as a missing bit."""
+    boxes = _near_boundary_boxes(seed).to(dev)
+    k = boxes.shape[1]
+    up = nms_iou.upper_words(k, dev)
+    got = nms_iou.nms_iou_mask(boxes, 0.0)
+    want = nms_iou.pack_upper(box_ops.pairwise_iou_bev(boxes, boxes) > 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, up], want[:, up])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.002, 0.05])
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 500, 1344, 1345, 4096, 9000])
+def test_nms_packed_scan_matches_plain(dev, k, b, density):
+    """The scan of packed rows keeps what the loop keeps, bit for bit, with
+    the rows copied to shared memory (K <= 1 344) and read in place (1 345
+    up), whatever the words left of the diagonal hold; one launch a
+    call."""
+    over, valid, order = _greedy_inputs(dev, b, k, density, seed=k * 3 + b)
+    words = nms_iou.pack_upper(over)
+    words[:, ~nms_iou.upper_words(k, dev)] = -1
+    for post_max in (k + 1, 7, 0):
+        before = nms.launches
+        got = nms.nms_greedy_packed(words, valid, order, post_max)
+        assert nms.launches == before + 1
+        want = nms.greedy_plain(over, valid, order, post_max)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_nms_mask_and_packed_scan_refuse_what_the_kernels_do_not_take(dev):
+    boxes = _mask_case_boxes(dev, "2x65")[..., :7].contiguous()
+    for bad in ((boxes.bfloat16(), 0.1), (boxes.double(), 0.1),
+                (boxes, -0.5), (boxes[..., :6].contiguous(), 0.1),
+                (boxes.transpose(0, 1), 0.1)):
+        with pytest.raises((TypeError, ValueError)):
+            nms_iou.nms_iou_mask(*bad)
+    words = nms_iou.nms_iou_mask(boxes, 0.1)
+    valid = torch.ones((2, 65), dtype=torch.bool, device=dev)
+    order = torch.arange(65, device=dev).expand(2, 65).contiguous()
+    for bad in ((words.to(torch.int32), valid, order),
+                (words[:, :, :1].contiguous(), valid, order),
+                (words, valid.cpu(), order)):
+        with pytest.raises((TypeError, ValueError)):
+            nms.nms_greedy_packed(*bad, 4)
 
 
 @pytest.mark.cuda

@@ -277,7 +277,7 @@ def test_kernel_sources_are_present():
     names = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert names == {"fill.cu", "fps.cu", "attention.cu", "attention_bwd.cu",
                      "attention_qk.cu", "attention_qk_bwd.cu", "ffn.cu",
-                     "nms.cu"}
+                     "nms.cu", "nms_iou.cu"}
     headers = {p.name for p in (PORT / "csrc").glob("*.cuh")}
     assert headers == {"attention_common.cuh", "attention_bwd_common.cuh"}
     # the host voxelizer's C++ lies outside the nvcc glob (csrc/*.cu)
@@ -285,6 +285,6 @@ def test_kernel_sources_are_present():
             if p.suffix == ".cpp"] == ["voxelizer.cpp"]
     mods = {m.name for m in pkgutil.iter_modules([str(PORT / "kernels")])}
     assert {"fill", "fps", "attention", "attention_bwd", "attention_qk",
-            "attention_qk_bwd", "ffn", "nms", "_lib"} <= mods
+            "attention_qk_bwd", "ffn", "nms", "nms_iou", "_lib"} <= mods
     assert importlib.import_module("mssvt_tpu_torch.kernels._lib").BUILD_DIR \
         == ROOT / "build" / "kernels"

@@ -56,14 +56,18 @@ def span_names(events):
 
 
 def test_request_makes_seven_spans_in_order(tiny, tmp_path):
+    """The request and its six stages, in order and disjoint; the one NMS
+    call's ``mssvt.nms`` nests in ``mssvt.post``."""
     _, events = profiled_request(*tiny, tmp_path)
-    want = ["mssvt." + s for s in ("request",) + STAGES]
+    want = ["mssvt." + s for s in ("request",) + STAGES + ("nms",)]
     assert span_names(events) == sorted(want)
     (req,) = trace.ranges(events, "mssvt.request")
     stages = [trace.ranges(events, "mssvt." + s)[0] for s in STAGES]
     assert req[0] <= stages[0][0] and stages[-1][1] <= req[1]
     for (_, end), (start, _) in zip(stages, stages[1:]):
         assert end <= start
+    (nms,) = trace.ranges(events, "mssvt.nms")
+    assert stages[-1][0] <= nms[0] and nms[1] <= stages[-1][1]
 
 
 def test_no_record_function_without_a_profiler(tiny, monkeypatch):
@@ -83,7 +87,7 @@ def test_spans_change_no_output(tiny, tmp_path, monkeypatch):
                         lambda name: contextlib.nullcontext())
     want, plain = profiled_request(*tiny, tmp_path)
     assert span_names(plain) == []
-    assert len(span_names(events)) == 7
+    assert len(span_names(events)) == 8  # the request, six stages, the NMS
     assert int(want[3].sum()) > 0  # some boxes kept
     for g, w in zip(got, want):
         assert torch.equal(g, w)
