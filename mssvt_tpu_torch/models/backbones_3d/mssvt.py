@@ -361,10 +361,11 @@ class MsSVTCompressBlock(nn.Module):
         if self.out_channels != self.in_channels:
             new = self.out_linear(new)
         new = new * win_valid[:, None].to(new.dtype)
+        # no index: the sparse-conv backbone that reads one builds it
         return SparseVoxels.create(
             new, win_coords, win_valid, bsz, win_grid,
             tuple(sp.voxel_size[i] * self.win1[i] for i in range(3)),
-            sp.point_cloud_range, with_index=sp.index is not None)
+            sp.point_cloud_range, with_index=False)
 
 
 class MixedScaleSparseTransformer(nn.Module):

@@ -185,6 +185,18 @@ class _SubMStage(nn.Module):
         return sp
 
 
+def on_grid(sp: SparseVoxels, shape) -> SparseVoxels:
+    """``sp`` with its sorted-key index on ``shape``, built in the span
+    ``mssvt.spconv_rules`` where it is missing or on another grid. The rule:
+    the sparse-conv backbone that reads the index builds it."""
+    if sp.index is not None and tuple(sp.spatial_shape) == tuple(shape):
+        return sp
+    with tracing.span("spconv_rules"):
+        return SparseVoxels.create(sp.features, sp.coords, sp.valid,
+                                   sp.batch_size, shape, sp.voxel_size,
+                                   sp.point_cloud_range)
+
+
 class VoxelBackBone8x(nn.Module):
     """Ref: spconv_backbone.py:69-146. Returns the stride-8 SparseVoxels
     after ``conv_out``'s z compression (and, with ``return_stages``, the
@@ -224,11 +236,7 @@ class VoxelBackBone8x(nn.Module):
         self.num_bev_features = self.out_spatial_shape[2] * out_channels
 
     def forward(self, sp: SparseVoxels, generator=None):
-        if sp.index is None or tuple(sp.spatial_shape) != self.sparse_shape:
-            with tracing.span("spconv_rules"):
-                sp = SparseVoxels.create(
-                    sp.features, sp.coords, sp.valid, sp.batch_size,
-                    self.sparse_shape, sp.voxel_size, sp.point_cloud_range)
+        sp = on_grid(sp, self.sparse_shape)
         stages = {}
         sp = self.conv1(self.conv_input(sp))
         stages["x_conv1"] = sp

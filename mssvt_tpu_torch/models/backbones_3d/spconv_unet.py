@@ -41,6 +41,7 @@ from .spconv_backbone import (
     SparseConvDownLayer,
     SubMConvLayer,
     _SubMStage,
+    on_grid,
 )
 
 
@@ -55,7 +56,7 @@ class UNetV2(nn.Module):
         self.compute_dtype = dtype
         self.conv_input = _SubMStage(in_channels, (f[0],), dtype=dtype)
         self.conv1 = _SubMStage(f[0], (f[0],), dtype=dtype)
-        shape = tuple(int(g) for g in grid_size)
+        shape = self.sparse_shape = tuple(int(g) for g in grid_size)
         self.geometry = []  # (kernel, stride, padding) a down level
         c_in = f[0]
         for i, (c, cap) in enumerate(zip(f[1:], caps[1:4]), start=2):
@@ -98,7 +99,8 @@ class UNetV2(nn.Module):
                         / np.sqrt(w.shape[0] * w.shape[1]))
 
     def forward(self, sp: SparseVoxels, generator=None):
-        sp = self.conv1(self.conv_input(sp))
+        # the backbone that reads the index builds it, on its own grid
+        sp = self.conv1(self.conv_input(on_grid(sp, self.sparse_shape)))
         stages = [sp]
         for i in range(2, 2 + self.levels):
             sp = getattr(self, f"conv{i}_subm")(

@@ -15,49 +15,38 @@ training ``gt_boxes`` and optionally ``depth_maps`` (B, H, W) and
 
 from __future__ import annotations
 
-from typing import Any, Sequence
-
-import torch
-from torch import nn
-
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
 from ..backbones_2d.map_to_bev import Conv2DCollapse
 from ..backbones_3d.image_vfe import ImageVFE, ddn_loss
-from ..builders import build_ctx
 from ..dense_heads.anchor_head import AnchorHeadSingle
-from .generic_post import run_dense_head
+from .detector3d_template import Detector3DTemplate
+from .generic_post import apply_vfe, run_dense_head
 
 
-class CaDDN(nn.Module):
-    def __init__(self, model_cfg: Any, num_class: int,
-                 class_names: Sequence[str], grid_size, voxel_size,
-                 point_cloud_range, batch_size: int, max_voxels: int,
-                 max_points_per_voxel: int, num_point_features: int = 4,
-                 dtype=torch.float32):
-        super().__init__()
-        self.model_cfg = model_cfg
-        ctx = build_ctx(num_class, class_names, grid_size, voxel_size,
-                        point_cloud_range, batch_size, max_voxels,
-                        max_points_per_voxel, num_point_features, dtype)
-        self.batch_size = ctx.batch_size
-        vfe_cfg = model_cfg["VFE"]
+class CaDDN(Detector3DTemplate):
+    def build_networks(self):
+        cfg, ctx = self.model_cfg, self.ctx
+        vfe_cfg = cfg["VFE"]
         self.vfe = ImageVFE(vfe_cfg, ctx.grid_size, ctx.voxel_size,
-                            ctx.point_cloud_range, dtype=dtype)
+                            ctx.point_cloud_range, dtype=ctx.dtype)
         c_img = int(vfe_cfg.get("FFN", {}).get("DDN_CFG", {}).get(
             "NUM_CHANNELS", 32))
         self.map_to_bev = Conv2DCollapse(
             ctx.grid_size[2] * c_img,
-            int(model_cfg["MAP_TO_BEV"]["NUM_BEV_FEATURES"]), dtype=dtype)
-        b2d = model_cfg["BACKBONE_2D"]
+            int(cfg["MAP_TO_BEV"]["NUM_BEV_FEATURES"]), dtype=ctx.dtype)
+        b2d = cfg["BACKBONE_2D"]
         self.backbone_2d = BaseBEVBackbone(
             self.map_to_bev.num_bev_features, tuple(b2d["LAYER_NUMS"]),
             tuple(b2d["LAYER_STRIDES"]), tuple(b2d["NUM_FILTERS"]),
             tuple(b2d.get("UPSAMPLE_STRIDES", [])),
-            tuple(b2d.get("NUM_UPSAMPLE_FILTERS", [])), dtype=dtype)
+            tuple(b2d.get("NUM_UPSAMPLE_FILTERS", [])), dtype=ctx.dtype)
         self.dense_head = AnchorHeadSingle(
-            model_cfg["DENSE_HEAD"], self.backbone_2d.num_bev_features,
+            cfg["DENSE_HEAD"], self.backbone_2d.num_bev_features,
             ctx.num_class, ctx.class_names, ctx.grid_size,
-            ctx.point_cloud_range, dtype=dtype)
+            ctx.point_cloud_range, dtype=ctx.dtype)
+
+    def to_bev(self, x, batch):
+        return self.map_to_bev(x)
 
     def depth_loss(self, depth_logits, depth_maps, gt_boxes2d=None):
         """:func:`ddn_loss` with the VFE config's bins and loss arguments."""
@@ -82,11 +71,8 @@ class CaDDN(nn.Module):
         the anchor loss plus ``LOSS_WEIGHT`` x the depth loss (when the batch
         holds ``depth_maps``). With ``return_intermediates`` also the voxel
         grid, the depth logits and the two BEV maps."""
-        vox, depth_logits = self.vfe(batch["images"],
-                                     batch["trans_lidar_to_cam"],
-                                     batch["trans_cam_to_img"])
-        bev = self.map_to_bev(vox)
-        spatial_2d = self.backbone_2d(bev)
+        vox, depth_logits = apply_vfe(self.vfe, batch)
+        bev, spatial_2d = self.bev_stages(vox, batch)
         out = run_dense_head(self.dense_head, spatial_2d, batch,
                              train=self.training,
                              post_cfg=self.model_cfg.get("POST_PROCESSING"))

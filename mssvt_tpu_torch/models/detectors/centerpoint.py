@@ -1,4 +1,4 @@
-"""CenterPoint detector shell (torch counterpart of
+"""CenterPoint (torch counterpart of
 ``mssvt_tpu/models/detectors/centerpoint.py``): MeanVFE ->
 MixedScaleSparseTransformer -> HeightCompression -> BaseBEVBackbone ->
 CenterHead. In eval mode it returns detections; in train mode (after
@@ -15,42 +15,29 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 import torch
-from torch import nn
 
-from ...core.sparse import SparseVoxels
-from ..builders import (
-    build_backbone_2d,
-    build_backbone_3d,
-    build_ctx,
-    build_dense_head,
-    build_map_to_bev,
-    build_vfe,
-)
-from ...runtime import tracing
-from .generic_post import apply_backbone_3d, apply_vfe, run_dense_head
+from ..builders import build_map_to_bev
+from .detector3d_template import Detector3DTemplate
 
 
-class CenterPoint(nn.Module):
+class CenterPoint(Detector3DTemplate):
     def __init__(self, model_cfg: Any, num_class: int,
                  class_names: Sequence[str], grid_size, voxel_size,
                  point_cloud_range, batch_size: int, max_voxels: int,
                  max_points_per_voxel: int, num_point_features: int = 5,
                  dtype=torch.float32):
-        super().__init__()
-        self.model_cfg = model_cfg
-        ctx = build_ctx(num_class, class_names, grid_size, voxel_size,
-                        point_cloud_range, batch_size, max_voxels,
-                        max_points_per_voxel, num_point_features, dtype)
-        self.grid_size, self.voxel_size = ctx.grid_size, ctx.voxel_size
-        self.point_cloud_range = ctx.point_cloud_range
-        self.batch_size = ctx.batch_size
-        self.vfe = build_vfe(model_cfg["VFE"], ctx)
-        self.backbone_3d = build_backbone_3d(model_cfg["BACKBONE_3D"], ctx)
-        self.map_to_bev = build_map_to_bev(model_cfg["MAP_TO_BEV"], ctx)
-        self.backbone_2d = build_backbone_2d(
-            model_cfg["BACKBONE_2D"], ctx, self.map_to_bev.num_bev_features)
-        self.dense_head = build_dense_head(
-            model_cfg["DENSE_HEAD"], ctx, self.backbone_2d.num_bev_features)
+        super().__init__(model_cfg, num_class, class_names, grid_size,
+                         voxel_size, point_cloud_range, batch_size,
+                         max_voxels, max_points_per_voxel, num_point_features,
+                         dtype)
+
+    def build_map_to_bev(self) -> int:
+        self.map_to_bev = build_map_to_bev(self.model_cfg["MAP_TO_BEV"],
+                                           self.ctx)
+        return self.map_to_bev.num_bev_features
+
+    def to_bev(self, x, batch):
+        return self.map_to_bev(x)
 
     def forward(self, batch, return_intermediates: bool = False,
                 generator=None):
@@ -58,19 +45,7 @@ class CenterPoint(nn.Module):
         Train: ``loss`` and ``tb_dict`` (DropPath draws from ``generator``,
         a ``torch.Generator`` on the model's device). With
         ``return_intermediates`` also the backbone voxels and BEV maps."""
-        sp = SparseVoxels.create(
-            apply_vfe(self.vfe, batch), batch["voxel_coords"],
-            batch["voxel_valid"], self.batch_size, self.grid_size,
-            self.voxel_size, self.point_cloud_range, with_index=False)
-        sp = apply_backbone_3d(self.backbone_3d, sp, generator)
-        with tracing.span("map_to_bev"):
-            spatial_features = self.map_to_bev(sp)
-        with tracing.span("backbone_2d"):
-            spatial_features_2d = self.backbone_2d(spatial_features)
-        out = run_dense_head(self.dense_head, spatial_features_2d, batch,
-                             train=self.training)
-        out["feature_map_size"] = tuple(spatial_features_2d.shape[1:3])
-        if return_intermediates:
-            out.update(backbone_voxels=sp, spatial_features=spatial_features,
-                       spatial_features_2d=spatial_features_2d)
+        first = self.first_stage(batch, generator)
+        out = self.one_stage(batch, first, return_intermediates)
+        out["feature_map_size"] = tuple(first[2].shape[1:3])
         return out

@@ -16,52 +16,29 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 import torch
-from torch import nn
 
-from ...core.sparse import SparseVoxels
-from ..builders import (
-    build_backbone_2d,
-    build_backbone_3d,
-    build_ctx,
-    build_dense_head,
-    build_vfe,
-)
 from ..roi_heads.ct3d_head import CT3DHead
-from ..roi_heads.roi_head_template import (
-    assign_proposal_targets,
-    head_valid,
-    propose,
-    refine_boxes,
-    target_kwargs,
-    two_stage_loss,
-)
-from .generic_post import apply_vfe
+from .detector3d_template import Detector3DTemplate
 
 CAT_KEYS = ("Car", "Ped", "Cyc")  # CAT_THRE's keys, labels 1, 2, 3
 
 
-class CT3D3CAT(nn.Module):
+class CT3D3CAT(Detector3DTemplate):
     def __init__(self, model_cfg: Any, num_class: int,
                  class_names: Sequence[str], grid_size, voxel_size,
                  point_cloud_range, batch_size: int, max_voxels: int,
                  max_points_per_voxel: int, num_point_features: int = 4,
                  max_points: int = 16384, dtype=torch.float32):
-        super().__init__()
-        self.model_cfg = model_cfg
-        ctx = build_ctx(num_class, class_names, grid_size, voxel_size,
-                        point_cloud_range, batch_size, max_voxels,
-                        max_points_per_voxel, num_point_features, dtype)
-        self.grid_size, self.voxel_size = ctx.grid_size, ctx.voxel_size
-        self.point_cloud_range = ctx.point_cloud_range
-        self.batch_size, self.max_points = ctx.batch_size, int(max_points)
-        self.vfe = build_vfe(model_cfg["VFE"], ctx)
-        self.backbone_3d = build_backbone_3d(model_cfg["BACKBONE_3D"], ctx)
-        self.backbone_2d = build_backbone_2d(
-            model_cfg["BACKBONE_2D"], ctx, self.backbone_3d.num_bev_features)
-        self.dense_head = build_dense_head(
-            model_cfg["DENSE_HEAD"], ctx, self.backbone_2d.num_bev_features)
-        self.roi_cfg = model_cfg["ROI_HEAD"]
-        self.roi_head = CT3DHead(self.roi_cfg, dtype=dtype)
+        super().__init__(model_cfg, num_class, class_names, grid_size,
+                         voxel_size, point_cloud_range, batch_size,
+                         max_voxels, max_points_per_voxel, num_point_features,
+                         dtype)
+        self.max_points = int(max_points)
+
+    def build_networks(self):
+        super().build_networks()
+        self.roi_cfg = self.model_cfg["ROI_HEAD"]
+        self.roi_head = CT3DHead(self.roi_cfg, dtype=self.ctx.dtype)
 
     def cat_thresholds(self, roi_labels):
         """(B, R) per-RoI score thresholds of POST_PROCESSING.CAT_THRE by
@@ -78,39 +55,24 @@ class CT3D3CAT(nn.Module):
         """Eval: ``final_*`` (the refined, gated RoIs); train: ``loss`` and
         ``tb_dict``. With ``return_intermediates`` also the RoIs (and, in
         training, the sampled targets)."""
-        sp = SparseVoxels.create(
-            apply_vfe(self.vfe, batch), batch["voxel_coords"],
-            batch["voxel_valid"], self.batch_size, self.grid_size,
-            self.voxel_size, self.point_cloud_range)
-        spatial_2d = self.backbone_2d(self.backbone_3d(sp).bev())
-        preds = self.dense_head(spatial_2d)
-        rois, _, roi_labels, roi_valid = propose(
-            self.dense_head, preds, self.roi_cfg, self.training)
-        pts = batch["points"].reshape(self.batch_size, self.max_points, -1)
-        pvalid = batch["points_valid"].reshape(self.batch_size,
-                                               self.max_points)
-        out = {"pred_dicts": preds}
-        if return_intermediates:
-            out.update(rois=rois, roi_valid=roi_valid)
-        if self.training:
-            targets = assign_proposal_targets(
-                rois, roi_valid, batch["gt_boxes"],
-                **target_kwargs(self.roi_cfg))
-            cls, reg = self.roi_head(pts, pvalid, targets["rois"],
-                                     head_valid(targets))
-            out["loss"], out["tb_dict"] = two_stage_loss(
-                self.dense_head, preds, batch["gt_boxes"], cls, reg, targets,
-                self.roi_cfg)
-            if return_intermediates:
-                out["targets"] = targets
-            return out
-        cls, reg = self.roi_head(pts, pvalid, rois, roi_valid)
+        return self.two_stage(batch, self.first_stage(batch, generator),
+                              return_intermediates, generator)
+
+    def roi_inputs(self, batch, first, rois, roi_valid):
+        b, p = self.batch_size, self.max_points
+        return {"points": batch["points"].reshape(b, p, -1),
+                "points_valid": batch["points_valid"].reshape(b, p)}, {}
+
+    def run_roi_head(self, rin, rois, roi_valid, generator=None):
+        return self.roi_head(rin["points"], rin["points_valid"], rois,
+                             roi_valid)
+
+    def final_scores(self, cls, roi_scores, roi_labels, roi_valid):
+        """sigmoid(RoI logit), zeroed under the class's ``CAT_THRE``; the
+        mask keeps the RoIs scoring above 0."""
         scores = torch.sigmoid(cls) * roi_valid
         thr = self.cat_thresholds(roi_labels)
         if thr is not None:
             scores = torch.where(scores < thr, 0.0, scores)
         keep = roi_valid & (scores > 0)
-        out.update(final_boxes=refine_boxes(rois, reg) * keep[..., None],
-                   final_scores=scores * keep, final_labels=roi_labels,
-                   final_mask=keep)
-        return out
+        return scores * keep, keep

@@ -1,5 +1,5 @@
-"""Family dispatch around the detector stages and the anchor heads'
-post-processing (torch counterpart of
+"""Family dispatch around the detector stages (the VFE's inputs, the dense
+head's ending) and the anchor heads' post-processing (torch counterpart of
 ``mssvt_tpu/models/detectors/generic_post.py``; ref:
 detector3d_template.py:178-284)."""
 
@@ -9,6 +9,7 @@ import torch
 
 from ...ops.nms import nms_bev
 from ...runtime import tracing
+from ..backbones_3d.image_vfe import ImageVFE
 from ..backbones_3d.vfe import DynamicVFE, HardVFE, MeanVFE, PillarVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle
 from ..dense_heads.anchor_head_multi import AnchorHeadMulti
@@ -18,7 +19,7 @@ from ..dense_heads.center_head import CenterHead
 def apply_vfe(vfe, batch):
     """The batch onto the VFE family's inputs (the reference's VFEs read
     different batch keys: mean_vfe.py:14, pillar_vfe.py:52,
-    dynamic_vfe.py:13), in the span ``mssvt.vfe``."""
+    dynamic_vfe.py:13, image_vfe.py), in the span ``mssvt.vfe``."""
     with tracing.span("vfe"):
         if isinstance(vfe, MeanVFE):
             return vfe(batch["voxels"], batch["voxel_num_points"])
@@ -28,6 +29,9 @@ def apply_vfe(vfe, batch):
         if isinstance(vfe, DynamicVFE):
             return vfe(batch["points"], batch["point_voxel_rows"],
                        batch["voxel_coords"])
+        if isinstance(vfe, ImageVFE):
+            return vfe(batch["images"], batch["trans_lidar_to_cam"],
+                       batch["trans_cam_to_img"])
         raise NotImplementedError(f"VFE {type(vfe).__name__} (see ROADMAP.md)")
 
 
@@ -39,14 +43,6 @@ def per_sample_points(batch, batch_size: int, max_points: int):
     m = valid[..., None].to(pts.dtype)
     feat = pts[..., 3:] * m
     return pts[..., :3] * m, (feat if feat.shape[-1] else None), valid
-
-
-def apply_backbone_3d(b3d, sp, generator=None):
-    """The 3D backbone on ``sp`` (DropPath and dropout draw from
-    ``generator`` where the family has them), in the span
-    ``mssvt.backbone_3d``."""
-    with tracing.span("backbone_3d"):
-        return b3d(sp, generator)
 
 
 def run_dense_head(head, spatial_2d, batch=None, train: bool = False,

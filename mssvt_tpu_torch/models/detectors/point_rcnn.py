@@ -19,7 +19,7 @@ from torch import nn
 
 from ...ops.pointnet2 import roipoint_pool3d
 from ..backbones_3d.pointnet2_backbone import SharedMLP
-from ..builders import build_backbone_3d, build_ctx
+from ..builders import build_backbone_3d
 from ..dense_heads.point_head import PointHeadBox, assign_point_targets
 from ..model_utils.layers import BatchNorm, Dense
 from ..roi_heads.roi_head_template import (
@@ -28,10 +28,10 @@ from ..roi_heads.roi_head_template import (
     head_valid,
     nms_kwargs,
     proposal_layer,
-    refine_boxes,
     roi_box_loss,
     roi_cls_loss,
 )
+from .detector3d_template import Detector3DTemplate
 from .generic_post import per_sample_points
 
 MEAN_SIZES_DEFAULT = [[3.9, 1.6, 1.56], [0.8, 0.6, 1.73], [1.76, 0.6, 1.73]]
@@ -90,33 +90,39 @@ class PointRCNNRoIHead(nn.Module):
                 self.reg_out(x).float() * m[..., None])
 
 
-class PointRCNN(nn.Module):
+class PointRCNN(Detector3DTemplate):
     def __init__(self, model_cfg: Any, num_class: int,
                  class_names: Sequence[str], grid_size, voxel_size,
                  point_cloud_range, batch_size: int, max_voxels: int,
                  max_points_per_voxel: int, num_point_features: int = 4,
                  max_points: int = 16384, dtype=torch.float32):
-        super().__init__()
-        self.model_cfg = model_cfg
-        ctx = build_ctx(num_class, class_names, grid_size, voxel_size,
-                        point_cloud_range, batch_size, max_voxels,
-                        max_points_per_voxel, num_point_features, dtype)
-        self.num_class = ctx.num_class
-        self.batch_size, self.max_points = ctx.batch_size, int(max_points)
-        self.backbone_3d = build_backbone_3d(model_cfg["BACKBONE_3D"], ctx)
+        super().__init__(model_cfg, num_class, class_names, grid_size,
+                         voxel_size, point_cloud_range, batch_size,
+                         max_voxels, max_points_per_voxel, num_point_features,
+                         dtype)
+        self.max_points = int(max_points)
+
+    def build_networks(self):
+        cfg, ctx = self.model_cfg, self.ctx
+        self.backbone_3d = build_backbone_3d(cfg["BACKBONE_3D"], ctx)
         c_pt = self.backbone_3d.num_point_features
-        self.point_head = PointHeadBox(model_cfg["POINT_HEAD"], c_pt,
-                                       num_class=ctx.num_class, dtype=dtype)
-        self.roi_cfg = model_cfg["ROI_HEAD"]
+        self.point_head = PointHeadBox(cfg["POINT_HEAD"], c_pt,
+                                       num_class=ctx.num_class,
+                                       dtype=ctx.dtype)
+        self.roi_cfg = cfg["ROI_HEAD"]
         self.roi_head = PointRCNNRoIHead(
             self.roi_cfg, c_pt,
-            int(self.roi_cfg.get("NUM_SAMPLED_POINTS", 128)), dtype=dtype)
+            int(self.roi_cfg.get("NUM_SAMPLED_POINTS", 128)), dtype=ctx.dtype)
         # the class mean sizes live on the model's device (no host copy a
         # forward); not a parameter, not in the state dict
         self.register_buffer("mean_sizes", torch.tensor(
-            model_cfg["POINT_HEAD"].get("MEAN_SIZES",
-                                        MEAN_SIZES_DEFAULT[:ctx.num_class]),
+            cfg["POINT_HEAD"].get("MEAN_SIZES",
+                                  MEAN_SIZES_DEFAULT[:ctx.num_class]),
             dtype=torch.float32), persistent=False)
+
+    def run_roi_head(self, rin, rois, roi_valid, generator=None):
+        return self.roi_head(rin["xyz"], rin["point_features"], rin["valid"],
+                             rois, roi_valid)
 
     def forward(self, batch, return_intermediates: bool = False,
                 generator=None):
@@ -132,7 +138,7 @@ class PointRCNN(nn.Module):
         scores = torch.sigmoid(cls_logits).amax(dim=-1) * valid
         boxes = PointHeadBox.decode_point_boxes(xyz, box_preds, labels_pred,
                                                 self.mean_sizes)
-        rois, _, roi_labels, roi_valid = proposal_layer(
+        rois, roi_scores, roi_labels, roi_valid = proposal_layer(
             boxes, scores, valid, labels=labels_pred,
             **nms_kwargs(self.roi_cfg, self.training))
         out = {}
@@ -164,9 +170,7 @@ class PointRCNN(nn.Module):
             if return_intermediates:
                 out["targets"] = targets
             return out
-        r_cls, r_reg = self.roi_head(xyz, point_features, valid, rois,
-                                     roi_valid)
-        out.update(final_boxes=refine_boxes(rois, r_reg) * roi_valid[..., None],
-                   final_scores=torch.sigmoid(r_cls) * roi_valid,
-                   final_labels=roi_labels, final_mask=roi_valid)
+        out.update(self.roi_detections(
+            {"xyz": xyz, "point_features": point_features, "valid": valid},
+            rois, roi_scores, roi_labels, roi_valid))
         return out

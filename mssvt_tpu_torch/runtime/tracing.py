@@ -11,25 +11,31 @@ sparse-conv layer builds and once for each NMS call, never inside a kernel
 wrapper.
 
 The spans of an eval request: ``mssvt.request`` around the forward, and
-inside it, in order and without overlap, the six stages; the sparse-conv
-backbones add ``mssvt.spconv_rules`` inside ``mssvt.backbone_3d``, the
-NMS ``mssvt.nms`` inside ``mssvt.post``:
+inside it, in order and without overlap, the six stages, opened by the
+detectors' shell (``models/detectors/detector3d_template.py``) for every
+voxel detector; the sparse-conv backbones add ``mssvt.spconv_rules``
+inside ``mssvt.backbone_3d``, the NMS ``mssvt.nms`` inside ``mssvt.post``:
 
 - ``mssvt.request``: ``eval_utils.eval_step``, the eval forward;
 - ``mssvt.vfe``: ``generic_post.apply_vfe``, the voxel features;
-- ``mssvt.backbone_3d``: ``generic_post.apply_backbone_3d``, the 3-D
+- ``mssvt.backbone_3d``: ``Detector3DTemplate.first_stage``, the 3-D
   backbone;
 - ``mssvt.spconv_rules``: ``backbones_3d/spconv_backbone.py``, each
   sorted-key index, output-site set and neighbour table of the
   sparse-conv engine (many a request, inside ``mssvt.backbone_3d``);
-- ``mssvt.map_to_bev``: ``CenterPoint.forward`` and ``SECONDNet.forward``,
-  the sparse-to-dense BEV map;
+- ``mssvt.map_to_bev``: ``Detector3DTemplate.bev_stages``, the BEV map;
 - ``mssvt.backbone_2d``: the same, the 2-D backbone;
-- ``mssvt.head``: ``generic_post.run_dense_head``, the head's maps;
-- ``mssvt.post``: the same, decode, score threshold and NMS;
+- ``mssvt.head``: ``generic_post.run_dense_head`` (one stage) or
+  ``Detector3DTemplate.two_stage``, the dense head's maps;
+- ``mssvt.post``: the same, decode, score threshold and NMS, or the
+  proposals, the RoI head and the refinement;
 - ``mssvt.nms``: ``ops/nms.py``'s ``nms_bev`` and ``circle_nms``, each
   greedy NMS call (candidates, suppression mask, scan; one a request for
-  one head, inside ``mssvt.post``; the two-stage proposals open it too).
+  one head or the proposals, inside ``mssvt.post``).
+
+PointPillar and CaDDN open ``mssvt.vfe``, ``mssvt.map_to_bev``,
+``mssvt.backbone_2d``, ``mssvt.head`` and ``mssvt.post`` through the same
+code.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@ detectors (from the shipped yaml of each, SECONDNetIoU from ``second.yaml``
 with chip_smoke's BEV-grid RoI head, the ``SECOND`` alias from
 ``second.yaml`` renamed), ``VFE``, ``MAP_TO_BEV`` and ``DENSE_HEAD``. The
 names are read from ``mssvt_tpu``, never from the port; the models are
-built on the CPU at the yamls' widths and not run."""
+built on the CPU at the yamls' widths and not run. Each detector is built
+on the port's shell and registers its first stage first."""
 
 from pathlib import Path
 
@@ -17,12 +18,16 @@ from mssvt_tpu_torch.config import cfg_from_yaml_file
 from mssvt_tpu_torch.models import build_network
 from mssvt_tpu_torch.models import builders as t_builders
 from mssvt_tpu_torch.models.detectors import __all__ as t_detectors
+from mssvt_tpu_torch.models.detectors.detector3d_template import (
+    Detector3DTemplate,
+)
 from mssvt_tpu_torch.utils.edict import EasyDict
 from test_model_forward import tiny_model_cfg
 from test_second_pointpillar import anchor_head_cfg
 from test_torch_anchor_multi import multi_head_cfg
 
 ROOT = Path(__file__).resolve().parent.parent
+FIRST_STAGE = ("vfe", "backbone_3d", "map_to_bev", "backbone_2d", "dense_head")
 YAMLS = sorted((ROOT / "tools" / "cfgs").glob("*_models/*.yaml"))
 
 
@@ -66,8 +71,14 @@ def test_every_jax_detector_builds_in_the_port(name):
     model_cfg.NAME = name
     model = build_network(model_cfg, **kw, device="cpu")
     assert type(model) is t_detectors[name]
+    assert isinstance(model, Detector3DTemplate)
     assert type(model).__name__ == j_detectors.__all__[name].__name__
     assert not model.training and sum(p.numel() for p in model.parameters())
+    # the shell registers the first stage first, in this order (the seeded
+    # weights draw in named_modules() order)
+    top = [n for n, _ in model.named_children()]
+    first = [n for n in FIRST_STAGE if n in top]
+    assert first and top[:len(first)] == first
 
 
 def _ctx(grid=(16, 16, 4)):

@@ -337,6 +337,47 @@ def _tsp(coords, valid, feats, grad=False):
                       BATCH, GRID, VS, PCR)
 
 
+def _sparse_outputs(out):
+    """A backbone's SparseVoxels outputs in a fixed order."""
+    if isinstance(out, TSV):
+        return [out]
+    if isinstance(out, dict):
+        return [v for _, v in sorted(out.items())]
+    return [sp for o in out for sp in _sparse_outputs(o)]
+
+
+@pytest.mark.parametrize("name", ["VoxelBackBone8x", "UNetV2"])
+def test_backbone_builds_the_index_it_reads(name):
+    """The sparse-conv backbone that reads the sorted-key index builds it on
+    its own grid: voxels without an index give the bits of the same voxels
+    with one, every output and stage, their sites and indexes."""
+    from mssvt_tpu_torch.models.backbones_3d.spconv_unet import UNetV2
+    from mssvt_tpu_torch.models.network import init_weights
+
+    coords, valid, feats = _scene(12)
+    if name == "UNetV2":
+        tm = UNetV2(in_channels=4, grid_size=GRID, **BACKBONE_KW)
+    else:
+        tm = t_bb.VoxelBackBone8x(in_channels=4, grid_size=GRID,
+                                  return_stages=True, **BACKBONE_KW)
+    init_weights(tm, 0).eval()
+    bare = TSV.create(_t(feats), _t(coords), _t(valid), BATCH, GRID, VS, PCR,
+                      with_index=False)
+    assert bare.index is None
+    with torch.no_grad():
+        got = _sparse_outputs(tm(bare))
+        want = _sparse_outputs(tm(_tsp(coords, valid, feats)))
+    assert len(got) == len(want) >= 2
+    for g, w in zip(got, want):
+        for field in ("features", "coords", "valid"):
+            assert torch.equal(getattr(g, field), getattr(w, field)), field
+        assert tuple(g.spatial_shape) == tuple(w.spatial_shape)
+        if w.index is not None:
+            assert torch.equal(g.index.sorted_keys, w.index.sorted_keys)
+            assert torch.equal(g.index.sorted_rows, w.index.sorted_rows)
+    assert float(got[0].features.abs().sum()) > 0
+
+
 def _assert_sites_and_features(got, want, name):
     np.testing.assert_array_equal(_np(got.coords), np.asarray(want.coords),
                                   err_msg=name)

@@ -1,7 +1,9 @@
-"""The port's stage spans (``runtime/tracing.py``) on a tiny CenterPoint,
-and the benchmark's five readers of them on a hand-made chrome trace."""
+"""The port's stage spans (``runtime/tracing.py``) on the tiny voxel
+detectors, and the benchmark's five readers of them on a hand-made chrome
+trace."""
 
 import contextlib
+import json
 from types import SimpleNamespace
 
 import numpy as np
@@ -24,6 +26,15 @@ from test_model_forward import (
     synthetic_batch,
     tiny_model_cfg,
 )
+from test_parta2 import parta2_cfg
+from test_second_pointpillar import make_batch as second_batch
+from test_torch_ct3d import ct3d_batch, ct3d_cfg
+from test_torch_pvrcnn import PAIRS as PVRCNN_CFGS
+from test_torch_pvrcnn import point_batch
+from test_torch_roi import build_kw, make_batch, second_iou_cfg
+from test_torch_second import _build_kw as second_kw
+from test_torch_second import _cfg as second_cfg
+from test_voxel_rcnn import voxelrcnn_cfg
 
 STAGES = ("vfe", "backbone_3d", "map_to_bev", "backbone_2d", "head", "post")
 KEYS = ("voxels", "voxel_num_points", "voxel_coords", "voxel_valid")
@@ -38,6 +49,34 @@ def tiny():
         device="cpu")
     b = synthetic_batch(np.random.default_rng(1))
     return model, {k: torch.as_tensor(np.array(b[k])) for k in KEYS}
+
+
+def _two_stage(cfg, batch):
+    """A tiny two-stage detector of the RoI harness's sizes (seeded
+    weights) and its batch as tensors."""
+    model = build_network(EasyDict(json.loads(json.dumps(cfg))), **build_kw(),
+                          num_point_features=4, device="cpu")
+    return model, {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+# each voxel family's tiny config and batch, as its own test builds them
+VOXEL_DETECTORS = {
+    "SECONDNet": lambda: (
+        build_network(EasyDict(second_cfg("second")),
+                      **second_kw("second"), num_point_features=4,
+                      device="cpu"),
+        {k: torch.as_tensor(v) for k, v in
+         second_batch(np.random.default_rng(0)).items()}),
+    "SECONDNetIoU": lambda: _two_stage(
+        second_iou_cfg(), make_batch(np.random.default_rng(0))),
+    "VoxelRCNN": lambda: _two_stage(voxelrcnn_cfg(),
+                                    make_batch(np.random.default_rng(0))),
+    "PVRCNN": lambda: _two_stage(PVRCNN_CFGS["pvrcnn"](), point_batch()),
+    "PartA2": lambda: _two_stage(parta2_cfg(),
+                                 make_batch(np.random.default_rng(0))),
+    "CT3D_3CAT": lambda: _two_stage(ct3d_cfg(),
+                                    ct3d_batch(np.random.default_rng(0))),
+}
 
 
 def profiled_request(model, batch, tmp_path):
@@ -55,12 +94,19 @@ def span_names(events):
                   and e["name"].startswith(tracing.PREFIX))
 
 
-def test_request_makes_seven_spans_in_order(tiny, tmp_path):
-    """The request and its six stages, in order and disjoint; the one NMS
-    call's ``mssvt.nms`` nests in ``mssvt.post``."""
-    _, events = profiled_request(*tiny, tmp_path)
+@pytest.mark.parametrize("name", ["CenterPoint"] + sorted(VOXEL_DETECTORS))
+def test_request_makes_seven_spans_in_order(name, tiny, tmp_path):
+    """The request and its six stages, in order and disjoint, for every
+    voxel detector; the one NMS call's ``mssvt.nms`` nests in
+    ``mssvt.post``, the sparse-conv tables' ``mssvt.spconv_rules`` in
+    ``mssvt.backbone_3d``."""
+    model, batch = tiny if name == "CenterPoint" else VOXEL_DETECTORS[name]()
+    _, events = profiled_request(model, batch, tmp_path)
     want = ["mssvt." + s for s in ("request",) + STAGES + ("nms",)]
-    assert span_names(events) == sorted(want)
+    names = span_names(events)
+    rules = names.count("mssvt.spconv_rules")
+    assert names == sorted(want + ["mssvt.spconv_rules"] * rules)
+    assert (rules > 0) == (name != "CenterPoint")
     (req,) = trace.ranges(events, "mssvt.request")
     stages = [trace.ranges(events, "mssvt." + s)[0] for s in STAGES]
     assert req[0] <= stages[0][0] and stages[-1][1] <= req[1]
@@ -68,6 +114,8 @@ def test_request_makes_seven_spans_in_order(tiny, tmp_path):
         assert end <= start
     (nms,) = trace.ranges(events, "mssvt.nms")
     assert stages[-1][0] <= nms[0] and nms[1] <= stages[-1][1]
+    for start, end in trace.ranges(events, "mssvt.spconv_rules"):
+        assert stages[1][0] <= start and end <= stages[1][1]
 
 
 def test_no_record_function_without_a_profiler(tiny, monkeypatch):
