@@ -516,9 +516,12 @@ def capture_first_calls(torch, model, batch):
         saved[name] = orig
 
         def rec(*a, _n=name, _f=orig, **k):
-            captured.setdefault(_n, (a, k))
-            if _n in ALL_BLOCKS:
-                captured.setdefault(_n + "_all", []).append((a, k))
+            # a CUDA graph's capture calls the wrappers on tensors that
+            # hold nothing yet: only the eager call is recorded
+            if not torch.cuda.is_current_stream_capturing():
+                captured.setdefault(_n, (a, k))
+                if _n in ALL_BLOCKS:
+                    captured.setdefault(_n + "_all", []).append((a, k))
             return _f(*a, **k)
 
         setattr(mod, fname, rec)
@@ -3736,8 +3739,12 @@ def bytes_phase(torch, card, bench_out):
     for line in buf.getvalue().splitlines():
         if line:
             log(f"# 16a map {line}")
+    # the backbone's CUDA graph holds the kernels it captured: the plain
+    # versions' warm request captures its own, dropped after it
+    built[1].backbone_3d.graph.clear()
     with plain_wrappers():
         plain = op_bytes.count(built)
+    built[1].backbone_3d.graph.clear()
     if (kern.kernel_bytes, kern.aten_bytes(), kern.groups) != \
             (plain.kernel_bytes, plain.aten_bytes(), plain.groups):
         raise AssertionError(
@@ -3944,15 +3951,52 @@ def nms_mask_line(torch, nms, nms_iou, work, box_ops, ops_nms, boxes, scores,
         f"plain route {plain_route_ms:.4f} ms")
 
 
+# the kernels the MsSVT backbone's CUDA graph holds, by their family in
+# a device trace (tools/profile_top_ops_torch.py), one a wrapper's launch
+GRAPH_FAMILIES = {"K1 fill": "fill", "K2/K2b fps": "fps",
+                  "K3 attention": "attention", "K4 ffn": "ffn"}
+
+
+def traced_launches(torch, fn):
+    """Runs ``fn`` under the profiler and synchronises: the launches of
+    the GRAPH_FAMILIES kernels that the card ran (``launches`` form),
+    issued one by one or replayed from a CUDA graph."""
+    from torch.profiler import ProfilerActivity, profile
+
+    family = load_tool("profile_top_ops_torch").family
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        name = GRAPH_FAMILIES.get(family(e.name))
+        if name and "CUDA" in str(getattr(e, "device_type", "")):
+            counts[name] = counts.get(name, 0) + 1
+    return launches(**counts)
+
+
 def main_path(torch, model, scenes):
-    """One warm-up request, then REQUESTS requests cycling the scenes, each
-    with its launch counts checked. Returns (launch counts of the measured
-    requests, their host-clock times in ms)."""
+    """One warm-up request, one profiled request whose K1-K4 launches the
+    device trace shows (the backbone replays its CUDA graph, which
+    launches through no wrapper), then REQUESTS requests cycling the
+    scenes, each with its launch counts checked. Returns (launch counts of
+    the measured requests, their host-clock times in ms)."""
     from mssvt_tpu_torch import kernels
     from mssvt_tpu_torch.kernels import nms, nms_iou
 
     with torch.no_grad():
-        model(scenes[-1])  # warm-up
+        model(scenes[-1])  # warm-up: the backbone's graph is captured
+        before = kernels.launch_counts()
+        traced = traced_launches(torch, lambda: model(scenes[-1]))
+    after = kernels.launch_counts()
+    counted = {n: after[n] - before[n] for n in after}
+    if traced != EXPECTED_LAUNCHES or counted != EXPECTED_LAUNCHES:
+        raise AssertionError(f"replayed request: {traced} launches in the "
+                             f"device trace, {counted} counted, "
+                             f"{EXPECTED_LAUNCHES} due")
+    log(f"# replayed request: K1-K4 launches in the device trace {traced}, "
+        f"the counters' {counted}")
     times, prev = [], None
     kernels.reset_launch_counts()
     for i in range(REQUESTS):
@@ -4018,9 +4062,12 @@ def profile_request(torch, model, scene, request_ms):
             model(scene)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    # the device-side annotations of the stage spans (``mssvt.*``) span
+    # their kernels: left out
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None
-              and "CUDA" in str(e.device_type)]
+              and "CUDA" in str(e.device_type)
+              and not e.key.startswith("mssvt.")]
     total = sum(e.self_device_time_total for e in events) / 1e3
     log(f"# headline: one request, device kernels {total:.3f} ms = "
         f"{100 * total / request_ms:.1f}% of the median request time "

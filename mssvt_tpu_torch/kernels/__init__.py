@@ -3,7 +3,11 @@
 Each wrapper module (``fill``, ``fps``, ``attention``, ``attention_bwd``,
 ``attention_qk``, ``attention_qk_bwd``, ``ffn``) takes the plain version for
 CPU tensors and launches its CUDA kernel for CUDA tensors (or raises); it
-adds one to its kernel's module-level launch counter at each launch.
+adds one to its kernel's module-level launch counter at each launch. A
+replayed CUDA graph launches through no wrapper: it adds the launches its
+capture counted (``add_launch_counts``), and the capture adds none.
+chip_smoke's main path and the card tests hold that count against the
+kernels a profiled replay runs.
 ``nms`` (the greedy NMS scan of the post-processing) and ``nms_iou`` (its
 rotated-IoU mask) do the same, and are counted on their own
 (``nms.launches``, ``nms_iou.launches``): they run in every detector's
@@ -32,3 +36,12 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name, mod in KERNELS.items():
         setattr(mod, _COUNTERS.get(name, "launches"), 0)
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Adds ``delta`` (kernel name -> launches, negative to take back) to
+    the launch counters."""
+    for name, n in delta.items():
+        counter = _COUNTERS.get(name, "launches")
+        mod = KERNELS[name]
+        setattr(mod, counter, getattr(mod, counter) + n)

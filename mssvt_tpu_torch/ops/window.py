@@ -388,6 +388,19 @@ def _gather_candidates(win_coords, win_valid, coords, valid, win_grid,
     return out
 
 
+def neighbour_windows(win_coords, tables: QueryTables):
+    """(NW, D, 4) (b, z, y, x) of each window's D candidate windows: the
+    window's batch, its (z, y, x) plus each delta. The deltas are reversed
+    to (dz, dy, dx) once and cached on the device, so the call copies
+    nothing from the host (a list index would, and a CUDA graph cannot
+    capture that copy)."""
+    deltas = device_constant(tables.deltas[:, ::-1], win_coords.device,
+                             win_coords.dtype)
+    nw, d = win_coords.shape[0], deltas.shape[0]
+    return torch.cat([win_coords[:, None, 0:1].expand(nw, d, 1),
+                      win_coords[:, None, 1:4] + deltas[None]], dim=-1)
+
+
 def gather_window_voxels(win_coords, win_valid, coords, valid, spatial_shape,
                          win1_size, tables: QueryTables, max_num_win1: int,
                          max_num_win2: Optional[int] = None,
@@ -449,11 +462,8 @@ def gather_window_voxels(win_coords, win_valid, coords, valid, spatial_shape,
                            device=dev)
         table[row * cv + lid.long()] = vox
         table = table.view(n_cells + 2, cv)
-        deltas = device_constant(tables.deltas, dev, win_coords.dtype)
-        d = deltas.shape[0]
-        nbr_xyz = win_coords[:, None, [3, 2, 1]] + deltas[None]
-        nbr = torch.cat([win_coords[:, None, 0:1].expand(nw, d, 1),
-                         nbr_xyz.flip(-1)], dim=-1)
+        nbr = neighbour_windows(win_coords, tables)
+        d = nbr.shape[1]
         nbr_key = linearize_coords(nbr, win_grid, valid=win_valid[:, None])
         nbr_row = torch.where(nbr_key != INVALID_KEY, nbr_key.long(), n_cells)
         box = table[nbr_row].reshape(nw, d * cv)

@@ -5,10 +5,11 @@ range ``mssvt.<name>``, so the stage lands in the same trace as the
 kernels, copies and runtime calls it caused, on the same clock. Without
 an active profiler it is a null context: one flag read, no
 ``record_function``. Stage spans open at stage boundaries only, never
-inside a loop, a block or a kernel wrapper; the two finer spans,
-``mssvt.spconv_rules`` and ``mssvt.nms``, open once for each table a
-sparse-conv layer builds and once for each NMS call, never inside a kernel
-wrapper.
+inside a loop, a block or a kernel wrapper; the finer spans,
+``mssvt.spconv_rules``, ``mssvt.nms`` and ``mssvt.backbone_graph``, open
+once for each table a sparse-conv layer builds, once for each NMS call and
+once for each replay of the MsSVT backbone's CUDA graph, never inside a
+kernel wrapper.
 
 The spans of an eval request: ``mssvt.request`` around the forward, and
 inside it, in order and without overlap, the six stages, opened by the
@@ -23,6 +24,12 @@ inside ``mssvt.backbone_3d``, the NMS ``mssvt.nms`` inside ``mssvt.post``:
 - ``mssvt.spconv_rules``: ``backbones_3d/spconv_backbone.py``, each
   sorted-key index, output-site set and neighbour table of the
   sparse-conv engine (many a request, inside ``mssvt.backbone_3d``);
+- ``mssvt.backbone_graph``: ``backbones_3d/mssvt.py``'s
+  ``BackboneGraph.run``, the input copies, replay and output clones of
+  the MsSVT backbone's CUDA graph (inside ``mssvt.backbone_3d``; its
+  capture, once a key, is ``mssvt.backbone_graph_capture``, and a forward
+  whose key failed to capture runs eagerly in
+  ``mssvt.backbone_graph_eager``);
 - ``mssvt.map_to_bev``: ``Detector3DTemplate.bev_stages``, the BEV map;
 - ``mssvt.backbone_2d``: the same, the 2-D backbone;
 - ``mssvt.head``: ``generic_post.run_dense_head`` (one stage) or

@@ -11,10 +11,15 @@ in f32 to 1e-4 (the same f32 math summed in another order) and in bf16 to
 apart).
 """
 
+import warnings
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
+import yaml
 
+from mssvt_tpu_torch import kernels
 from mssvt_tpu_torch.kernels import (
     attention,
     attention_bwd,
@@ -1414,3 +1419,188 @@ def test_late_kitti_configs_build_on_cuda_by_default(dev, name, cls):
     model = build_network(**_kitti_kw(name))
     assert type(model).__name__ == cls
     assert all(p.device.type == "cuda" for p in model.parameters())
+
+
+# ----------------------------------------------------------------------
+# The MsSVT backbone's inference forward as a CUDA graph, at mssvt.yaml's
+# shapes (bf16, seeded LeCun weights), batch 2 of Waymo-scale scenes
+
+MSSVT_YAML = (Path(__file__).resolve().parent.parent / "tools" / "cfgs"
+              / "waymo_models" / "mssvt.yaml")
+WAYMO_GRID = (480, 480, 32)
+
+
+def _waymo_voxels(seed, batch=2):
+    from mssvt_tpu_torch.core.sparse import SparseVoxels
+    from mssvt_tpu_torch.datasets.synthetic_scene import (
+        make_waymo_scale_scene,
+    )
+
+    scene, _ = make_waymo_scale_scene(90_000 * batch, WAYMO_GRID, seed=seed,
+                                      batch=batch)
+    pts = torch.as_tensor(scene["voxel_num_points"]).clamp(min=1)
+    feats = torch.as_tensor(scene["voxels"]).sum(1) / pts[:, None]
+    return SparseVoxels.create(
+        feats.cuda(), torch.as_tensor(scene["voxel_coords"]).cuda(),
+        torch.as_tensor(scene["voxel_valid"]).cuda(), batch, WAYMO_GRID,
+        (0.32, 0.32, 0.1875), (-76.8, -76.8, -2.0, 76.8, 76.8, 4.0),
+        with_index=False)
+
+
+@pytest.fixture(scope="module")
+def mssvt_graph():
+    """(backbone, two scenes, each scene's eager ``stages``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels run only there")
+    from mssvt_tpu_torch.models.backbones_3d.mssvt import (
+        MixedScaleSparseTransformer,
+    )
+    from mssvt_tpu_torch.models.network import init_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    set_deterministic()
+    with open(MSSVT_YAML) as f:
+        params = yaml.safe_load(f)["MODEL"]["BACKBONE_3D"]["PARAMS"]
+    model = init_weights(MixedScaleSparseTransformer(
+        params, 5, dtype=torch.bfloat16)).cuda().eval()
+    scenes = [_waymo_voxels(seed) for seed in (0, 1)]
+    with torch.no_grad():
+        eager = [model.stages(sp) for sp in scenes]
+    return model, scenes, eager
+
+
+def _same(a, b):
+    return (torch.equal(a.features, b.features)
+            and torch.equal(a.coords, b.coords)
+            and torch.equal(a.valid, b.valid))
+
+
+@pytest.mark.cuda
+def test_mssvt_backbone_graph_equals_eager(mssvt_graph):
+    """One graph serves two scenes in turn, bit for bit the eager forward's
+    (the replay reads the static inputs anew). The device trace of three
+    replays holds the K1-K4 launches of three eager forwards, as the
+    launch counters read them, and the replays open
+    ``mssvt.backbone_graph``."""
+    import chip_smoke
+
+    model, scenes, eager = mssvt_graph
+    model.graph.clear()
+    with torch.no_grad():
+        before = kernels.launch_counts()
+        eager_traced = chip_smoke.traced_launches(
+            torch, lambda: model.stages(scenes[0]))
+        mid = kernels.launch_counts()
+        first = model(scenes[0])
+        assert model.graph.captured is not None
+        outs = []
+        before_replays = kernels.launch_counts()
+        replays_traced = chip_smoke.traced_launches(
+            torch, lambda: outs.extend(model(scenes[i]) for i in (1, 0, 1)))
+        after = kernels.launch_counts()
+    assert _same(first, eager[0][-1])
+    for i, out in zip((1, 0, 1), outs):
+        assert _same(out, eager[i][-1])
+    assert not torch.equal(eager[0][-1].features, eager[1][-1].features)
+    one = chip_smoke.launches(fill=5, fps=3, attention=3, ffn=3)
+    assert eager_traced == {n: mid[n] - before[n] for n in mid} == one
+    assert replays_traced == {n: after[n] - before_replays[n] for n in after}
+    assert replays_traced == {n: 3 * v for n, v in one.items()}
+
+
+@pytest.mark.cuda
+def test_mssvt_backbone_replays_open_their_span(mssvt_graph):
+    model, scenes, _ = mssvt_graph
+    with torch.no_grad():
+        model(scenes[0])  # the set-up, if this key has none yet
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            for i in (1, 0, 1):
+                model(scenes[i])
+    spans = [e.name for e in prof.events() if e.name.startswith("mssvt.")]
+    assert spans == ["mssvt.backbone_graph"] * 3
+
+
+@pytest.mark.cuda
+def test_mssvt_backbone_replay_makes_no_host_sync(mssvt_graph):
+    model, scenes, eager = mssvt_graph
+    with torch.no_grad():
+        model(scenes[0])  # the set-up, if this key has none yet
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = model(scenes[1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert model.graph.captured is not None
+    assert _same(out, eager[1][-1])
+
+
+@pytest.mark.cuda
+def test_mssvt_backbone_capture_failure_falls_back_to_eager(mssvt_graph,
+                                                            monkeypatch):
+    """A capture that raises (here a device sync inside it) leaves the key
+    eager, with one warning; both calls give the eager output, the second
+    inside ``mssvt.backbone_graph_eager``."""
+    model, scenes, eager = mssvt_graph
+    model.graph.clear()
+    model.graph.warned = False
+    fused = ffn.fused_residual_ffn
+
+    def syncing(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return fused(*a, **k)
+
+    monkeypatch.setattr(ffn, "fused_residual_ffn", syncing)
+    try:
+        with torch.no_grad():
+            with pytest.warns(RuntimeWarning, match="capture failed"):
+                first = model(scenes[0])
+            assert model.graph.key is not None
+            assert model.graph.captured is None
+            with warnings.catch_warnings(), torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                warnings.simplefilter("error")
+                second = model(scenes[0])
+    finally:
+        model.graph.clear()
+    assert _same(first, eager[0][-1]) and _same(second, eager[0][-1])
+    spans = [e.name for e in prof.events() if e.name.startswith("mssvt.")]
+    assert spans == ["mssvt.backbone_graph_eager"]
+
+
+@pytest.mark.cuda
+def test_mssvt_backbone_outputs_survive_the_next_replay(mssvt_graph):
+    model, scenes, eager = mssvt_graph
+    with torch.no_grad():
+        model(scenes[0])
+        a = model(scenes[0])
+        b = model(scenes[1])
+    assert _same(a, eager[0][-1]) and _same(b, eager[1][-1])
+
+
+@pytest.mark.cuda
+def test_mssvt_backbone_replay_runs_the_blocks_forward_hooks(mssvt_graph):
+    """Forward hooks on the blocks (the benchmark keeps each block's
+    output through them) see each block's input and output after a
+    replay, and keep them through the next replay."""
+    model, scenes, eager = mssvt_graph
+    seen = []
+    handles = [b.register_forward_hook(
+        lambda m, a, o, i=i: seen.append((i, a[0], o)))
+        for i, b in enumerate(model.blocks())]
+    try:
+        with torch.no_grad():
+            model(scenes[1])
+            seen.clear()
+            model(scenes[0])
+            model(scenes[1])
+    finally:
+        for h in handles:
+            h.remove()
+    assert [i for i, _, _ in seen] == list(range(5)) * 2
+    for i, inp, out in seen[:5]:
+        assert _same(inp, eager[0][i]) and _same(out, eager[0][i + 1])
+    for i, inp, out in seen[5:]:
+        assert _same(out, eager[1][i + 1])

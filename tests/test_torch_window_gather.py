@@ -10,12 +10,21 @@ tables, the candidate path against the port's own-cell path. Every
 buffer's rows, packed offsets, masks (and the even run's start, and the
 voxel -> (window, slot) inverse where the path has one) exactly."""
 
+from pathlib import Path
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from mssvt_tpu.ops import window as j_window
+from mssvt_tpu_torch.core.index import linearize_coords
+from mssvt_tpu_torch.core.sparse import SparseVoxels
+from mssvt_tpu_torch.models.backbones_3d.mssvt import (
+    MixedScaleSparseTransformer,
+)
 from mssvt_tpu_torch.ops import window as t_window
 
 GRID = (24, 24, 8)
@@ -148,3 +157,126 @@ def test_candidate_gather_equals_own_cell_path(scales):
             live = own["inv_win1"]["valid"]
             assert torch.equal(a[live], b[live]), key
         assert torch.equal(cand["inv_win1"]["valid"], own["inv_win1"]["valid"])
+
+
+# the window sizes of mssvt.yaml's blocks: blocks 0 and 2, the compress
+# blocks, block 4
+MSSVT_WINDOWS = {"blocks_0_2": ((3, 3, 8), (9, 9, 8)),
+                 "compress": ((2, 2, 4), None),
+                 "block_4": ((3, 3, 2), (9, 9, 2))}
+
+
+@pytest.mark.parametrize("name", sorted(MSSVT_WINDOWS))
+def test_neighbour_windows_equal_the_list_index_form(name):
+    """The own-cell gather's candidate windows (``neighbour_windows``, the
+    deltas cached in (z, y, x) order) and their keys are the former list
+    index's (``win_coords[:, None, [3, 2, 1]] + deltas``, flipped) exactly,
+    padded window rows included."""
+    w1, w2 = MSSVT_WINDOWS[name]
+    tables = t_window.build_query_tables(w1, w2)
+    coords, valid = _voxels(11)
+    wc, wv, *_ = t_window.window_partition(
+        torch.as_tensor(coords), torch.as_tensor(valid), GRID, w1, 600, B)
+    assert bool(wv.any()) and not bool(wv.all())
+    deltas = torch.as_tensor(tables.deltas, dtype=wc.dtype)
+    d = deltas.shape[0]
+    want = torch.cat([wc[:, None, 0:1].expand(wc.shape[0], d, 1),
+                      (wc[:, None, [3, 2, 1]] + deltas[None]).flip(-1)], -1)
+    got = t_window.neighbour_windows(wc, tables)
+    assert torch.equal(got, want)
+    grid = tuple(g // w for g, w in zip(GRID, w1))
+    assert torch.equal(linearize_coords(got, grid, valid=wv[:, None]),
+                       linearize_coords(want, grid, valid=wv[:, None]))
+
+
+TINY_YAML = (Path(__file__).resolve().parent.parent / "tools" / "cfgs"
+             / "synthetic_models" / "mssvt_tiny.yaml")
+
+
+def _tiny_backbone():
+    with open(TINY_YAML) as f:
+        params = yaml.safe_load(f)["MODEL"]["BACKBONE_3D"]["PARAMS"]
+    torch.manual_seed(0)
+    return MixedScaleSparseTransformer(params, in_features=5).eval()
+
+
+def _tiny_voxels():
+    coords, valid = _voxels(5)
+    feats = torch.randn(V, 5, generator=torch.Generator().manual_seed(5))
+    return SparseVoxels.create(
+        feats * torch.as_tensor(valid)[:, None], torch.as_tensor(coords),
+        torch.as_tensor(valid), B, GRID, (0.4, 0.4, 0.5),
+        (0.0, -4.8, -2.0, 9.6, 4.8, 2.0), with_index=False)
+
+
+def _route(model, case):
+    """(whether ``case`` would take the graph on the card, the forward's
+    output on the CPU, its spans)."""
+    sp = _tiny_voxels()
+    gen = torch.Generator().manual_seed(1) if case == "generator" else None
+    if case == "train":
+        model.train()
+    handles = []
+    if case == "pre_hook_on_block":
+        handles.append(model.blocks()[0].register_forward_pre_hook(
+            lambda m, a: None))
+    elif case == "hook_inside_block":
+        handles.append(model.blocks()[0].norm1.register_forward_hook(
+            lambda m, a, o: None))
+    elif case == "hook_on_block":
+        handles.append(model.blocks()[0].register_forward_hook(
+            lambda m, a, o: None))
+    elif case == "kwargs_hook_on_block":
+        handles.append(model.blocks()[0].register_forward_hook(
+            lambda m, a, k, o: None, with_kwargs=True))
+    card_like = SimpleNamespace(
+        features=SimpleNamespace(is_cuda=case != "cpu"), index=None)
+    with torch.set_grad_enabled(case == "grad"):
+        graphed = model._graphed(card_like, gen)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = model(sp, gen)
+    for h in handles:
+        h.remove()
+    return graphed, out, {e.name for e in prof.events()}
+
+
+# the route's conditions one at a time; the last three: plain forward
+# hooks on a block are run after a replay, other hooks see the ops one by
+# one
+ROUTES = {"cpu": False, "train": False, "grad": False, "generator": False,
+          "pre_hook_on_block": False, "hook_inside_block": False,
+          "kwargs_hook_on_block": False, "hook_on_block": True,
+          "card_eval_no_grad": True}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_backbone_graph_route(case):
+    """Only an inference call on the card (eval, no autograd, no
+    generator, no hook but plain forward hooks on the blocks) takes the CUDA
+    graph; on the CPU every call runs the eager forward, opens no
+    ``mssvt.backbone_graph`` span and keeps no graph."""
+    model = _tiny_backbone()
+    graphed, out, names = _route(model, case)
+    assert graphed == ROUTES[case]
+    assert not any(n.startswith("mssvt.backbone_graph") for n in names)
+    assert model.graph.key is None
+    model.eval()
+    with torch.no_grad():
+        want = model.stages(_tiny_voxels())[-1]
+    if case in ("train", "generator", "grad"):
+        assert out.features.shape == want.features.shape
+    else:
+        assert torch.equal(out.features, want.features)
+    assert torch.equal(out.coords, want.coords)
+
+
+def test_train_mode_drops_the_backbone_graphs():
+    """Training never replays, so ``train()`` frees the graph; ``eval()``
+    keeps it."""
+    model = _tiny_backbone()
+    model.graph.key, model.graph.captured = "key", "graph"
+    model.eval()
+    assert (model.graph.key, model.graph.captured) == ("key", "graph")
+    model.train()
+    assert (model.graph.key, model.graph.captured) == (None, None)

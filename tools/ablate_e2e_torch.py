@@ -204,6 +204,9 @@ def measure(ablate, run, n_iter=12):
             with torch.no_grad():
                 return float(model(scene)["final_scores"].cpu().sum())
 
+    # the backbone's CUDA graphs hold the code they captured: capture anew
+    # under the cut (its warm-up), and again after it
+    model.backbone_3d.graph.clear()
     with cut(ablate):
         t0 = time.perf_counter()
         for s in scenes:  # warm-up: records the replayed outputs
@@ -216,6 +219,7 @@ def measure(ablate, run, n_iter=12):
             step(scenes[i % len(scenes)])
         ms = (time.perf_counter() - t0) / n_iter / batch * 1e3
         launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    model.backbone_3d.graph.clear()
     key = "train_ms_per_frame" if train else "ms_per_frame"
     print(json.dumps({"ablate": ablate, key: round(ms, 4),
                       "launches": launches}), flush=True)
