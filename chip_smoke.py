@@ -270,8 +270,8 @@ ROOT = Path(__file__).resolve().parent
 # outputs must agree to 2^-5 of their largest magnitude.
 BF16_TOL = 2.0 ** -5
 KERNEL_NAMES = ("fill", "fps", "fps_picks_warp", "fps_picks_block",
-                "attention", "attention_bwd", "attention_qk",
-                "attention_qk_bwd", "ffn")
+                "fps_picks_masked", "attention", "attention_bwd",
+                "attention_qk", "attention_qk_bwd", "ffn")
 
 
 def launches(**counts):
@@ -486,9 +486,12 @@ TPU_COUNTERPART = {
                       "farthest_point_sample_planes_pallas_t",
     "fps_picks_block": "mssvt_tpu/ops/pallas_fps.py:278 "
                        "farthest_point_sample_planes_pallas",
+    "fps_picks_masked": "none (mssvt_tpu/ops/sampling.py:302 "
+                        "farthest_point_sample_masked, a plain loop)",
 }
 SOURCE = {n: f"mssvt_tpu_torch/csrc/{n}.cu" for n in KERNEL_NAMES}
 SOURCE["fps_picks_warp"] = SOURCE["fps_picks_block"] = SOURCE["fps"]
+SOURCE["fps_picks_masked"] = SOURCE["fps"]
 
 
 def kernel_row(name, err, ms, plain_ms, bound_ms, bound_by):
@@ -2720,7 +2723,7 @@ POINT_TINY = ("pvrcnn", "pvrcnn_plusplus", "pointrcnn")
 POINT_YAMLS = ("pv_rcnn", "pv_rcnn_plusplus", "pointrcnn")
 POINT_LAUNCHES = {  # each step and request of 13b
     "pv_rcnn": launches(fps_picks_block=1),
-    "pv_rcnn_plusplus": launches(),
+    "pv_rcnn_plusplus": launches(fps_picks_masked=2),
     "pointrcnn": launches(fps_picks_block=3, fps_picks_warp=1)}
 POINT_FILES = dict(train=[f"{i:06d}" for i in range(4)],
                    val=[f"{i:06d}" for i in range(4, 6)], points=120_000)
@@ -2955,15 +2958,16 @@ def point_tiny_check(torch, name, seed):
 
 def point_tiny_reference(torch):
     """13a: ``point_tiny_check`` for the tiny PV-RCNN, PV-RCNN++ and
-    PointRCNN: K2c launched by PV-RCNN and PointRCNN, K2b by PointRCNN, no
-    other kernel of K1-K7 by any."""
+    PointRCNN: K2c launched by PV-RCNN and PointRCNN, K2b by PointRCNN, the
+    masked FPS by PV-RCNN++, no other kernel of K1-K7 by any."""
     from mssvt_tpu_torch import kernels
 
     for name in POINT_TINY:
         kernels.reset_launch_counts()
         r = point_tiny_check(torch, name, seed=23)
         counts = {k: v for k, v in kernels.launch_counts().items() if v}
-        want = {"pvrcnn": {"fps_picks_block"}, "pvrcnn_plusplus": set(),
+        want = {"pvrcnn": {"fps_picks_block"},
+                "pvrcnn_plusplus": {"fps_picks_masked"},
                 "pointrcnn": {"fps_picks_block", "fps_picks_warp"}}[name]
         if set(counts) != want:
             raise AssertionError(f"13a {name}: launches {counts}")
@@ -2999,58 +3003,105 @@ def point_sites():
 
 def request_fps_check(torch, model, batch, name, card):
     """13b: every FPS call of one request of ``model`` on a full-width
-    request's own points (PV-RCNN's keypoints, 2 x 16 384 -> 2 048; PointRCNN's
-    four set abstractions, 16 384 -> 4 096, 4 096 -> 1 024, 1 024 -> 256 on
-    K2c and 256 -> 64 on K2b) recorded as the model makes it; each call's
-    picks, which the kernel made, equal to ``fps_plain``'s on the same card
-    planes, and both timed (CUDA events), with the kernel's bound (the planes
-    read once, the picks written once, vs ~10 f32 operations a point and
-    iteration). One line a call."""
+    request's own points (PV-RCNN's keypoints, 2 x 16 384 -> 2 048;
+    PointRCNN's four set abstractions, 16 384 -> 4 096, 4 096 -> 1 024,
+    1 024 -> 256 on K2c and 256 -> 64 on K2b; PV-RCNN++'s sector FPS, the
+    masked FPS over 2 frames x 6 sectors of 16 384 points -> 342, then over
+    the 2 x 2 052 sector picks -> 2 048) recorded as the model makes it;
+    each call's picks, which the kernel made, equal to the plain version's
+    (``fps_plain``, ``fps_masked_plain``) on the same card planes, and both
+    timed (CUDA events), with the kernel's bound (the planes read once, the
+    picks written once, vs ~10 f32 operations a point and iteration). One
+    line a call; returns the masked FPS's kernel row (PV-RCNN++), else
+    None."""
     from mssvt_tpu_torch.kernels import fps, work
     from mssvt_tpu_torch.models.backbones_3d import pfe, pointnet2_backbone
+    from mssvt_tpu_torch.ops import sampling
     from mssvt_tpu_torch.runtime.eval_utils import eval_step
 
-    calls, sites = [], (pfe, pointnet2_backbone)
-    original = pfe.farthest_point_sample
+    calls = []
+    masked = name == "pv_rcnn_plusplus"
+    sites = ((sampling, "farthest_point_sample_masked") if masked else
+             (pfe, "farthest_point_sample"),
+             (pointnet2_backbone, "farthest_point_sample"))
+    originals = [getattr(mod, attr) for mod, attr in sites]
 
-    def recorded(xyz, npoint):
-        picks = original(xyz, npoint)
-        calls.append((xyz.detach().float(), int(npoint), picks))
-        return picks
+    def recorder(original):
+        def recorded(xyz, *args):
+            picks = original(xyz, *args)
+            calls.append((xyz.detach().float(), args, picks))
+            return picks
+        return recorded
 
     try:
-        for mod in sites:
-            mod.farthest_point_sample = recorded
+        for (mod, attr), original in zip(sites, originals):
+            setattr(mod, attr, recorder(original))
         model.eval()
         eval_step(model, batch)
     finally:
-        for mod in sites:
-            mod.farthest_point_sample = original
-    want = {"pv_rcnn": [(16384, 2048)],
-            "pointrcnn": [(16384, 4096), (4096, 1024), (1024, 256),
-                          (256, 64)]}[name]
-    got = [(xyz.shape[1], npoint) for xyz, npoint, _ in calls]
+        for (mod, attr), original in zip(sites, originals):
+            setattr(mod, attr, original)
+    want = {"pv_rcnn": [(2, 16384, 2048)],
+            "pv_rcnn_plusplus": [(12, 16384, 342), (2, 2052, 2048)],
+            "pointrcnn": [(2, 16384, 4096), (2, 4096, 1024), (2, 1024, 256),
+                          (2, 256, 64)]}[name]
+    got = [(picks.shape[0], xyz.shape[1], int(args[-1]))
+           for xyz, args, picks in calls]
     if got != want:
-        raise AssertionError(f"13b {name}: FPS calls (N, npoint) {got} != "
-                             f"{want}")
-    for xyz, npoint, picks in calls:
+        raise AssertionError(f"13b {name}: FPS calls (rows, N, npoint) {got}"
+                             f" != {want}")
+    row = None
+    for xyz, args, picks in calls:
         x, y, z = (xyz[..., i].contiguous() for i in range(3))
-        b, n = x.shape
-        kernel = "K2b" if n <= fps.MAX_N else "K2c"
+        npoint = int(args[-1])
+        if masked:
+            valid = args[0].contiguous()
+            kernel, rows = "masked FPS", valid.shape[0]
+            w = work.fps_masked(x, y, z, valid, npoint)
+
+            def run():
+                return fps.fps_picks_masked(x, y, z, valid, npoint)
+
+            def plain_fn():
+                return fps.fps_masked_plain(x, y, z, valid, npoint)
+        else:
+            rows = x.shape[0]
+            kernel = "K2b" if x.shape[1] <= fps.MAX_N else "K2c"
+            w = work.fps_picks(x, y, z, npoint)
+
+            def run():
+                return fps.fps_picks(x, y, z, npoint)
+
+            def plain_fn():
+                return fps.fps_plain(x, y, z, (), npoint)[0]
+        n = x.shape[1]
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        plain = fps.fps_plain(x, y, z, (), npoint)[0]
+        plain = plain_fn()
         end.record()
         torch.cuda.synchronize()
         if not torch.equal(picks, plain):
-            raise AssertionError(f"13b {name}: {kernel}'s picks at {b} x {n} "
-                                 f"-> {npoint} != fps_plain's")
-        ms = time_ms(torch, lambda: fps.fps_picks(x, y, z, npoint), reps=5)
-        bound_ms, bound_by = work.fps_picks(x, y, z, npoint).bound()
-        log(f"# 13b {name} {kernel} on the request's own points ({b} x {n} "
-            f"-> {npoint}): picks equal fps_plain's; ms={ms:.4f} "
-            f"plain_ms={start.elapsed_time(end):.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) [{card}]")
+            raise AssertionError(f"13b {name}: {kernel}'s picks at {rows} x "
+                                 f"{n} -> {npoint} != the plain version's")
+        ms = time_ms(torch, run, reps=5)
+        plain_ms = start.elapsed_time(end)
+        bound_ms, bound_by = w.bound()
+        log(f"# 13b {name} {kernel} on the request's own points ({rows} x {n}"
+            f" -> {npoint}): picks equal the plain version's; ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+            f"[{card}]")
+        if masked:
+            if row is None:
+                row = kernel_row("fps_picks_masked", 0.0, 0.0, 0.0, 0.0,
+                                 bound_by)
+            row["ms"] += ms
+            row["plain_ms"] += plain_ms
+            row["bound_ms"] += bound_ms
+    if row is not None:
+        log(f"# 13b {name} masked FPS, both passes of a request: "
+            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} [{card}]")
+    return row
 
 
 def point_files_path(torch, card):
@@ -3059,13 +3110,12 @@ def point_files_path(torch, card):
     (2 steps) and served (1 request) through the entry points from a
     file-backed KITTI tree with gt_sampling on, then the official R40
     evaluation of ``result.pkl``. Each step and request launches K2c/K2b
-    as ``POINT_LAUNCHES`` says and nothing else. Prints points a frame
+    and the masked FPS as ``POINT_LAUNCHES`` says and nothing else. Prints points a frame
     against MAX_POINTS, live RoIs a frame, each synchronised step and
     request with the proposal NMS's share, the profiled step and request
-    of PV-RCNN and PointRCNN (K2c's and K2b's device time, the groupings,
-    the 3-NN, the interpolation, the RoI point pool; PV-RCNN++'s ~90 000
-    launches a step and a request cost ~25 s to profile, and its sector
-    FPS is timed by the host clock), the peaks and the phase's seconds."""
+    of each (K2c's, K2b's and the masked FPS's device time, the groupings,
+    the 3-NN, the interpolation, the RoI point pool), the peaks and the
+    phase's seconds; returns the masked FPS's kernel row."""
     import shutil
 
     from mssvt_tpu_torch.datasets.kitti import KittiDataset, create_kitti_infos
@@ -3078,7 +3128,9 @@ def point_files_path(torch, card):
     write_kitti_tree(root, POINT_FILES["train"], POINT_FILES["val"],
                      POINT_FILES["points"], seed=0)
     sites = point_sites()
-    kernel_names = (("K2c", "fps_block_kernel"), ("K2b", "fps_kernel"))
+    kernel_names = (("K2c", "fps_block_kernel"), ("K2b", "fps_kernel"),
+                    ("masked FPS", "fps_masked_kernel"))
+    rows = {}
     prepared = False
     for name in POINT_YAMLS:
         t_model = time.time()
@@ -3126,20 +3178,23 @@ def point_files_path(torch, card):
         kitti_official_check(seen["result"], root, ds, classes, label)
         runs = {kind: (seen[f"{kind}_model"], seen[kind][-1][1])
                 for kind in ("step", "request")}
-        if name != "pv_rcnn_plusplus":  # its keypoints: the masked FPS
-            request_fps_check(torch, *runs["request"], name, card)
+        row = request_fps_check(torch, *runs["request"], name, card)
+        if row is not None:
+            # the launches of the counted request, held to POINT_LAUNCHES
+            row["launches"] = seen["request"][-1][0]["fps_picks_masked"]
+            rows["fps_picks_masked"] = row
         shares = [nms_share(torch, *runs[kind], cfg, kind, sites)
                   for kind in runs]
         log(f"# {label}: proposal NMS share by the host clock, "
             + "; ".join(shares) + f" [{card}]")
-        if name != "pv_rcnn_plusplus":  # its sector FPS: ~90 000 launches
-            profile_two_stage(torch, runs, cfg, name, card, sites=sites,
-                              phase="13b", kernel_names=kernel_names)
+        profile_two_stage(torch, runs, cfg, name, card, sites=sites,
+                          phase="13b", kernel_names=kernel_names)
         log(f"# {label}: entry points {seen['seconds']:.1f} s; model "
             f"{time.time() - t_model:.1f} s [{card}]")
         del runs, seen
         torch.cuda.empty_cache()
     log(f"# 13b: phase {time.time() - t_phase:.1f} s [{card}]")
+    return rows
 
 
 # -------------------------------------------------------------- phase 14
@@ -4664,7 +4719,7 @@ def main(argv):
     # phase 13: the point-based two-stage family (K2c and K2b on its FPS)
     t13 = time.time()
     point_tiny_reference(torch)
-    point_files_path(torch, card)
+    rows.update(point_files_path(torch, card))
     log(f"# 13: phase {time.time() - t13:.1f} s [{card}]")
     torch.cuda.empty_cache()
     # phase 14: CaDDN, CT3D_3CAT and AnchorHeadMulti/ATSS (no kernel of

@@ -1,4 +1,5 @@
-// K2, K2b, K2c: farthest-point sampling (FPS) over coordinate planes.
+// K2, K2b, K2c and the masked FPS: farthest-point sampling over coordinate
+// planes.
 //
 // K2 (fps_kernel<G, P, true>): FPS with selected plane values.
 // Replaces the TPU kernel farthest_point_sample_planes_pallas_t_sel
@@ -70,6 +71,18 @@
 //     barrier first;
 //   - the picks go to a list in shared memory and out once as 16-byte rows
 //     (thread 0 stores each pick directly where the list does not fit).
+//
+// The masked FPS (fps_masked_kernel, no TPU kernel: the JAX package's
+// sector FPS is a plain loop) is K2c's loop with a row of valid flags:
+// PV-RCNN++'s sectorised keypoint sampling, the sectors' rows (frame-major
+// planes read once a frame, rows r of frame r % frames) and then the
+// union's. An invalid point's min-distance is -1 and never moves, the first
+// pick is the first valid point, and the keys the warps compare map -1 to 0
+// and a finite f32 >= +0 to its bits plus one, so every valid point wins
+// over every invalid one and ties still go to the lowest index. It computes
+// what the plain loop (kernels/fps.py fps_masked_plain) computes, pick for
+// pick. It shares K2c's body (fps_block_body, MASKED a template parameter),
+// so K2c compiles to the code it had.
 #include <math.h>
 
 #include "common.h"
@@ -233,18 +246,20 @@ constexpr int SMEM_MAX = 227 * 1024;
 // bit 0, N % 4 == 0 and the planes 16-byte aligned (float4 loads); bit 1,
 // npoint % 4 == 0 (16-byte pick rows); bit 2, the pick list fits in shared
 // memory (always so for the register form; else thread 0 stores each pick
-// as it is made).
-template <int MAXT, int MINB, bool SMEM_XYZ>
-__global__ void __launch_bounds__(MAXT, MINB)
-fps_block_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                 const float* __restrict__ z, int n, int npoint,
-                 int* __restrict__ idx, int flags) {
+// as it is made). MASKED: the masked FPS (see the top of the file); row r
+// reads the planes of frame r % frames and its own row of valid flags, and
+// padding starts at -1 with the invalid points.
+template <int MAXT, bool SMEM_XYZ, bool MASKED>
+__device__ __forceinline__ void fps_block_body(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ z, const uint8_t* __restrict__ valid,
+    int frames, int n, int npoint, int* __restrict__ idx, int flags) {
   extern __shared__ __align__(16) float fsm[];
-  __shared__ uint2 skey[2][32];    // a warp's winner: (bits, index)
+  __shared__ uint2 skey[2][32];    // a warp's winner: (key, index)
   __shared__ float4 sxyz[2][32];   // and its coordinates
   const int nt = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = nt >> 5, ns = (n + 3) & ~3;
-  const size_t off = (size_t)blockIdx.x * n;
+  const size_t off = (size_t)(MASKED ? blockIdx.x % frames : blockIdx.x) * n;
   const float* xr = x + off;
   const float* yr = y + off;
   const float* zr = z + off;
@@ -293,14 +308,33 @@ fps_block_kernel(const float* __restrict__ x, const float* __restrict__ y,
       }
     }
   }
+  int first = 0;
+  if constexpr (MASKED) {
+    __shared__ int sfirst;
+    const uint8_t* vr = valid + (size_t)blockIdx.x * n;
+    int own = n;  // the thread's first valid point
 #pragma unroll
-  for (int s = 0; s < PB; ++s) md[s] = tid * PB + s < n ? 1e10f : 0.f;  // padding: +0
+    for (int s = PB - 1; s >= 0; --s) {
+      const int j = tid * PB + s;
+      const bool ok = j < n && __ldg(vr + j) != 0;
+      md[s] = ok ? 1e10f : -1.f;  // invalid and padding: -1
+      if (ok) own = j;
+    }
+    if (tid == 0) sfirst = n;
+    __syncthreads();
+    if (own < n) atomicMin(&sfirst, own);
+    __syncthreads();
+    first = sfirst < n ? sfirst : 0;
+  } else {
+#pragma unroll
+    for (int s = 0; s < PB; ++s) md[s] = tid * PB + s < n ? 1e10f : 0.f;  // padding: +0
+  }
   if (tid == 0) {
-    if (list) spick[0] = 0;
-    else irow[0] = 0;
+    if (list) spick[0] = first;
+    else irow[0] = first;
   }
   __syncthreads();
-  float lx = __ldg(xr), ly = __ldg(yr), lz = __ldg(zr);
+  float lx = __ldg(xr + first), ly = __ldg(yr + first), lz = __ldg(zr + first);
   // iteration i writes slot buffer i & 1; two iterations a turn make it a
   // constant (fewer address instructions than the loop spends otherwise)
   auto step = [&](int i, int buf) {
@@ -331,8 +365,9 @@ fps_block_kernel(const float* __restrict__ x, const float* __restrict__ y,
     float best = gm[0];
 #pragma unroll
     for (int q = 1; q < PB / 4; ++q) best = fmaxf(best, gm[q]);
-    // the warp's first maximum: a max of the bits, the lowest lane holding it
-    const unsigned bits = __float_as_uint(best);
+    // the warp's first maximum: a max of the keys, the lowest lane holding it
+    const unsigned bits = MASKED ? (best < 0.f ? 0u : __float_as_uint(best) + 1u)
+                                 : __float_as_uint(best);
     const unsigned m = __reduce_max_sync(0xffffffffu, bits);
     const int wl = __ffs(__ballot_sync(0xffffffffu, bits == m)) - 1;
     if (lane == wl) {
@@ -396,8 +431,26 @@ fps_block_kernel(const float* __restrict__ x, const float* __restrict__ y,
 }
 
 template <int MAXT, int MINB, bool SMEM_XYZ>
-int launch_block(const float* x, const float* y, const float* z, int rows,
-                 int n, int npoint, int* idx, cudaStream_t stream) {
+__global__ void __launch_bounds__(MAXT, MINB)
+fps_block_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                 const float* __restrict__ z, int n, int npoint,
+                 int* __restrict__ idx, int flags) {
+  fps_block_body<MAXT, SMEM_XYZ, false>(x, y, z, nullptr, 1, n, npoint, idx, flags);
+}
+
+// The masked FPS: rows of frames r % frames, each with its own valid flags.
+template <int MAXT, int MINB, bool SMEM_XYZ>
+__global__ void __launch_bounds__(MAXT, MINB)
+fps_masked_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                  const float* __restrict__ z, const uint8_t* __restrict__ valid,
+                  int frames, int n, int npoint, int* __restrict__ idx, int flags) {
+  fps_block_body<MAXT, SMEM_XYZ, true>(x, y, z, valid, frames, n, npoint, idx, flags);
+}
+
+template <int MAXT, int MINB, bool SMEM_XYZ, bool MASKED>
+int launch_block(const float* x, const float* y, const float* z,
+                 const uint8_t* valid, int frames, int rows, int n, int npoint,
+                 int* idx, cudaStream_t stream) {
   const int nt = 32 * ((n + 32 * PB - 1) / (32 * PB));  // warps cover N
   const size_t fixed = 2 * 32 * (sizeof(uint2) + sizeof(float4));  // static slots
   size_t smem = (SMEM_XYZ ? (size_t)3 * PB * MAXT : (size_t)3 * ((n + 3) & ~3)) * sizeof(float);
@@ -410,11 +463,18 @@ int launch_block(const float* x, const float* y, const float* z, int rows,
   } else if (!SMEM_XYZ) {
     return (int)cudaErrorInvalidValue;  // the caller takes the SMEM_XYZ form
   }
-  auto kernel = fps_block_kernel<MAXT, MINB, SMEM_XYZ>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<rows, nt, smem, stream>>>(x, y, z, n, npoint, idx, flags);
+  cudaError_t err;
+  if constexpr (MASKED) {
+    auto kernel = fps_masked_kernel<MAXT, MINB, SMEM_XYZ>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<rows, nt, smem, stream>>>(x, y, z, valid, frames, n, npoint, idx, flags);
+  } else {
+    auto kernel = fps_block_kernel<MAXT, MINB, SMEM_XYZ>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<rows, nt, smem, stream>>>(x, y, z, n, npoint, idx, flags);
+  }
   return launch_status();
 }
 
@@ -422,6 +482,22 @@ int launch_block(const float* x, const float* y, const float* z, int rows,
 bool fits_registers(int n, int npoint) {
   return 2 * 32 * (sizeof(uint2) + sizeof(float4)) + 3 * ((n + 3) & ~3) * sizeof(float) +
              ((npoint + 3) & ~3) * sizeof(int) <= (size_t)SMEM_MAX;
+}
+
+// K2c and the masked FPS by N: registers up to 128 threads with 6 CTAs an
+// SM (80 registers), up to 512 with one; above N = 8 192 (or where the
+// planes' copy and the pick list do not fit) x, y, z go to shared memory.
+template <bool MASKED>
+int launch_block_rows(const float* x, const float* y, const float* z,
+                      const uint8_t* valid, int frames, int rows, int n,
+                      int npoint, int* idx, cudaStream_t stream) {
+  if (fits_registers(n, npoint)) {
+    if (n <= PB * 128)
+      return launch_block<128, 6, false, MASKED>(x, y, z, valid, frames, rows, n, npoint, idx, stream);
+    if (n <= PB * 512)
+      return launch_block<512, 1, false, MASKED>(x, y, z, valid, frames, rows, n, npoint, idx, stream);
+  }
+  return launch_block<1024, 1, true, MASKED>(x, y, z, valid, frames, rows, n, npoint, idx, stream);
 }
 
 }  // namespace
@@ -454,12 +530,17 @@ MSSVT_API int mssvt_fps_picks_block(const float* x, const float* y,
                                     int* idx, cudaStream_t stream) {
   if (n < 1 || n > MAX_N_BLOCK || npoint < 1) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return 0;
-  // registers: up to 128 threads with 6 CTAs an SM (80 registers), up to
-  // 512 with one; above N = 8 192 (or where the planes' copy and the pick
-  // list do not fit) x, y, z go to shared memory
-  if (fits_registers(n, npoint)) {
-    if (n <= PB * 128) return launch_block<128, 6, false>(x, y, z, rows, n, npoint, idx, stream);
-    if (n <= PB * 512) return launch_block<512, 1, false>(x, y, z, rows, n, npoint, idx, stream);
-  }
-  return launch_block<1024, 1, true>(x, y, z, rows, n, npoint, idx, stream);
+  return launch_block_rows<false>(x, y, z, nullptr, 1, rows, n, npoint, idx, stream);
+}
+
+// The masked FPS: (frames, n) planes, (rows, n) valid flags (one byte a
+// point), rows a multiple of frames; picks only, one CTA per row.
+MSSVT_API int mssvt_fps_picks_masked(const float* x, const float* y,
+                                     const float* z, const uint8_t* valid,
+                                     int frames, int rows, int n, int npoint,
+                                     int* idx, cudaStream_t stream) {
+  if (n < 1 || n > MAX_N_BLOCK || npoint < 1 || frames < 1 || rows % frames != 0)
+    return (int)cudaErrorInvalidValue;
+  if (rows <= 0) return 0;
+  return launch_block_rows<true>(x, y, z, valid, frames, rows, n, npoint, idx, stream);
 }

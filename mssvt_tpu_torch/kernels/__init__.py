@@ -21,11 +21,13 @@ from . import (attention, attention_bwd, attention_qk, attention_qk_bwd, ffn,
 
 # kernel name -> (wrapper module, name of its launch counter there)
 KERNELS = {"fill": fill, "fps": fps, "fps_picks_warp": fps,
-           "fps_picks_block": fps, "attention": attention,
+           "fps_picks_block": fps, "fps_picks_masked": fps,
+           "attention": attention,
            "attention_bwd": attention_bwd, "attention_qk": attention_qk,
            "attention_qk_bwd": attention_qk_bwd, "ffn": ffn}
 _COUNTERS = {"fps_picks_warp": "launches_warp",
-             "fps_picks_block": "launches_block"}
+             "fps_picks_block": "launches_block",
+             "fps_picks_masked": "launches_masked"}
 
 
 def launch_counts() -> dict:

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "mssvt_fps": [VP, CI, CI, CI, CI, CI, VP, VP, VP, VP],
     "mssvt_fps_picks_warp": [VP, VP, VP, CI, CI, CI, VP, VP],
     "mssvt_fps_picks_block": [VP, VP, VP, CI, CI, CI, VP, VP],
+    "mssvt_fps_picks_masked": [VP, VP, VP, VP, CI, CI, CI, CI, VP, VP],
     "mssvt_attention": [VP, VP, CF, CI, VP],
     "mssvt_attention_bwd": [VP, VP, CF, CI, VP],
     "mssvt_attention_qk": [VP, VP, CF, CI, VP],

@@ -21,6 +21,14 @@ N = 8 192), a warp's first maximum is a max of the min-distances' bits, and
 one barrier an iteration lets every warp reduce the warps' winners itself.
 :func:`fps_picks` chooses by N.
 
+The masked FPS (:func:`fps_picks_masked`, no TPU kernel: the JAX package's
+``farthest_point_sample_masked`` is a plain loop) is K2c's loop over rows
+with valid flags, PV-RCNN++'s sectorised keypoint sampling: an invalid
+point keeps min-distance -1, the first pick is the row's first valid point,
+and past the valid points the picks repeat. Its rows may share planes: row
+``r`` reads frame ``r % F`` of (F, N) planes, so the sectors of a frame read
+the frame's points once.
+
 CUDA tensors go to ``csrc/fps.cu``; CPU tensors to :func:`fps_plain`. The
 distances are built from single rounded operations, so all three kernels'
 picks equal the plain version's exactly.
@@ -35,6 +43,7 @@ from . import _lib, work
 launches = 0        # K2
 launches_warp = 0   # K2b
 launches_block = 0  # K2c
+launches_masked = 0  # the masked FPS
 MAX_N = 256            # a group of lanes a row (K2, K2b)
 MAX_N_BLOCK = 16384    # one CTA per row (K2c)
 MAX_PLANES = 8
@@ -138,6 +147,55 @@ def fps_picks_block(x, y, z, npoint: int):
         return fps_plain(x, y, z, (), npoint)[0]
     idx = _picks(x, y, z, npoint, "mssvt_fps_picks_block", MAX_N_BLOCK)
     launches_block += 1
+    return idx
+
+
+def fps_masked_plain(x, y, z, valid, npoint: int):
+    """Plain version of :func:`fps_picks_masked`: a loop of a few small
+    launches an iteration."""
+    rows, f = valid.shape[0], x.shape[0]
+    x, y, z = (p.float().repeat(rows // f, 1) for p in (x, y, z))
+    first = valid.to(torch.uint8).argmax(dim=1, keepdim=True)  # first valid
+    neg = torch.full((), -1.0, device=x.device)
+    min_dist = torch.where(valid, torch.full((), 1e10, device=x.device), neg)
+    last = first
+    picks = [first]
+    for _ in range(1, npoint):
+        dx = x - x.gather(1, last)
+        dy = y - y.gather(1, last)
+        dz = z - z.gather(1, last)
+        d = dx * dx + dy * dy + dz * dz
+        min_dist = torch.minimum(min_dist, torch.where(valid, d, neg))
+        last = torch.argmax(min_dist, dim=1, keepdim=True)
+        picks.append(last)
+    return torch.cat(picks, dim=1).to(torch.int32)
+
+
+@work.counted("fps_picks_masked", work.fps_masked)
+def fps_picks_masked(x, y, z, valid, npoint: int):
+    """The masked FPS: (F, N <= 16 384) f32 planes and (R, N) bool valid
+    flags, R a multiple of F (row ``r`` reads frame ``r % F``) -> (R,
+    npoint) int32 picks. Invalid points keep min-distance -1, the first
+    pick is the row's first valid point (0 where none is), ties go to the
+    lowest index."""
+    global launches_masked
+    if x.device.type == "cpu":
+        return fps_masked_plain(x, y, z, valid, npoint)
+    f, n = x.shape
+    rows = valid.shape[0]
+    for i, p in enumerate((x, y, z)):
+        _lib.require(p, f"plane {i}", torch.float32, (f, n), x.device)
+    _lib.require(valid, "valid", torch.bool, (rows, n), x.device)
+    if not (0 < n <= MAX_N_BLOCK) or npoint < 1 or rows % f:
+        raise ValueError(f"fps_picks_masked: N={n} must be in (0, "
+                         f"{MAX_N_BLOCK}], npoint >= 1, rows ({rows}) a "
+                         f"multiple of the frames ({f})")
+    idx = torch.empty((rows, npoint), dtype=torch.int32, device=x.device)
+    err = _lib.lib().mssvt_fps_picks_masked(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), valid.data_ptr(), f, rows,
+        n, int(npoint), idx.data_ptr(), _lib.stream_ptr(x))
+    _lib.check(err, "mssvt_fps_picks_masked")
+    launches_masked += 1
     return idx
 
 

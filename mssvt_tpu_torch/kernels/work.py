@@ -145,6 +145,16 @@ def fps_picks(x, y, z, npoint):
                 F32_FLOPS)
 
 
+def fps_masked(x, y, z, valid, npoint):
+    """The masked FPS: the frames' planes and the rows' valid flags read,
+    the picks written, 10 f32 operations a valid point and iteration
+    (counted on the data)."""
+    f, n = x.shape
+    rows = valid.shape[0]
+    return Work(0, int(valid.sum()) * (npoint - 1) * 10,
+                3 * f * n * 4 + rows * n + rows * npoint * 4, F32_FLOPS)
+
+
 def _asm_layout(win1_fea, k2_fea, fps1, q_ext, num_heads, q_prefix, nq):
     nw, n1cap, d = win1_fea.shape
     nk1, nk2 = fps1.shape[1], k2_fea.shape[1]

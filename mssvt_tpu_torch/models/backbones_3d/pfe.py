@@ -4,7 +4,8 @@ pcdet/models/backbones_3d/pfe/voxel_set_abstraction.py:124-411).
 
 Keypoints are sampled from the raw points (``SAMPLE_METHOD`` FPS: K2c on
 the card over every point row, padding included, as in JAX; SPC: the
-sectorised, proposal-centred masked FPS, plain on both devices), then
+sectorised, proposal-centred masked FPS, the masked FPS kernel on the
+card), then
 each keypoint gathers features from several sources, concatenated and
 fused by ``vsa_point_fc`` + ``vsa_bn`` + ReLU:
 
@@ -100,17 +101,15 @@ class VoxelSetAbstraction(nn.Module):
         return farthest_point_sample(points_xyz, self.num_keypoints)
 
     def forward(self, points_xyz, points_feat, points_valid, sources: Dict,
-                bev_features=None, bev_stride: int = 8, rois=None,
-                roi_valid=None):
+                picks, bev_features=None, bev_stride: int = 8):
         """points (B, N, 3) (padded at the origin), their features (B, N,
         C) or None, valid (B, N); ``sources`` {name: (xyz (B, M, 3),
-        features (B, M, C), valid (B, M))}; the BEV map (B, H, W, C) NHWC;
-        the proposals for SPC. Returns keypoints (B, K, 3), fused features
-        (B, K, NUM_OUTPUT_FEATURES) f32, the concatenated source features
-        (B, K, C) f32."""
-        fps_idx = self.sample_keypoints(points_xyz, points_valid, rois,
-                                        roi_valid)
-        keypoints = gather_batch_rows(points_xyz, fps_idx)
+        features (B, M, C), valid (B, M))}; the keypoint ``picks`` (B, K)
+        of :meth:`sample_keypoints`; the BEV map (B, H, W, C) NHWC.
+        Returns keypoints (B, K, 3), fused features (B, K,
+        NUM_OUTPUT_FEATURES) f32, the concatenated source features (B, K,
+        C) f32."""
+        keypoints = gather_batch_rows(points_xyz, picks)
         sa = self.cfg["SA_LAYER"]
         feats = []
         if bev_features is not None:

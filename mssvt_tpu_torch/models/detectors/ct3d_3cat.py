@@ -37,7 +37,7 @@ class CT3D3CAT(Detector3DTemplate):
 
     def build_networks(self):
         super().build_networks()
-        self.roi_cfg = self.model_cfg["ROI_HEAD"]
+        self.build_proposals(self.model_cfg["ROI_HEAD"])
         self.roi_head = CT3DHead(self.roi_cfg, dtype=self.ctx.dtype)
 
     def cat_thresholds(self, roi_labels):

@@ -10,6 +10,9 @@ second stage. Its eval request opens the six stage spans of
 ``mssvt.backbone_3d``, ``mssvt.map_to_bev`` and ``mssvt.backbone_2d``
 (:meth:`Detector3DTemplate.first_stage`), ``mssvt.head`` and ``mssvt.post``
 (``generic_post.run_dense_head``, or :meth:`Detector3DTemplate.two_stage`).
+Inside ``mssvt.post`` the two-stage ending opens ``mssvt.roi_head`` around
+its RoI head (and, in eval, the refinement); PV-RCNN and PV-RCNN++ open
+``mssvt.keypoints`` and ``mssvt.pfe`` before it.
 """
 
 from __future__ import annotations
@@ -29,9 +32,9 @@ from ..builders import (
     build_vfe,
 )
 from ..roi_heads.roi_head_template import (
+    Proposals,
     assign_proposal_targets,
     head_valid,
-    propose,
     refine_boxes,
     target_kwargs,
     two_stage_loss,
@@ -120,18 +123,25 @@ class Detector3DTemplate(nn.Module):
         return out
 
     # -- the two-stage ending ----------------------------------------------
+    def build_proposals(self, roi_cfg):
+        """A two-stage family's ``roi_cfg`` (its ``ROI_HEAD``) and its
+        proposal step, the module ``proposals``."""
+        self.roi_cfg = roi_cfg
+        self.proposals = Proposals(roi_cfg)
+
     def two_stage(self, batch, first, return_intermediates=False,
                   generator=None):
         """The anchor head's maps (``mssvt.head``), then in ``mssvt.post``
-        the proposal NMS, the family's RoI inputs and its RoI head: in
-        training on the sampled RoIs with :meth:`roi_loss` (``loss``,
-        ``tb_dict``), in eval :meth:`roi_detections`. The intermediates:
-        the family's, the RoIs and, in training, the sampled targets."""
+        the proposal NMS (``proposals``), the family's RoI inputs and its
+        RoI head (``mssvt.roi_head``): in training on the sampled RoIs with
+        :meth:`roi_loss` (``loss``, ``tb_dict``), in eval
+        :meth:`roi_detections`. The intermediates: the family's, the RoIs
+        and, in training, the sampled targets."""
         with tracing.span("head"):
             preds = self.dense_head(first[2])
         with tracing.span("post"):
-            rois, roi_scores, roi_labels, roi_valid = propose(
-                self.dense_head, preds, self.roi_cfg, self.training)
+            rois, roi_scores, roi_labels, roi_valid = self.proposals(
+                self.dense_head, preds)
             rin, extra = self.roi_inputs(batch, first, rois, roi_valid)
             out = {"pred_dicts": preds}
             if return_intermediates:
@@ -143,8 +153,9 @@ class Detector3DTemplate(nn.Module):
             targets = assign_proposal_targets(
                 rois, roi_valid, batch["gt_boxes"],
                 **target_kwargs(self.roi_cfg))
-            cls, reg = self.run_roi_head(rin, targets["rois"],
-                                         head_valid(targets), generator)
+            with tracing.span("roi_head"):
+                cls, reg = self.run_roi_head(rin, targets["rois"],
+                                             head_valid(targets), generator)
             out["loss"], out["tb_dict"] = self.roi_loss(batch, preds, rin,
                                                         cls, reg, targets)
             if return_intermediates:
@@ -172,10 +183,12 @@ class Detector3DTemplate(nn.Module):
     def roi_detections(self, rin, rois, roi_scores, roi_labels, roi_valid):
         """The RoI head on the proposals, its residuals decoded in each RoI
         (``refine_boxes``): the ``final_*`` outputs under
-        :meth:`final_scores`' mask, with no further NMS."""
-        cls, reg = self.run_roi_head(rin, rois, roi_valid)
-        scores, mask = self.final_scores(cls, roi_scores, roi_labels,
-                                         roi_valid)
-        return {"final_boxes": refine_boxes(rois, reg) * mask[..., None],
-                "final_scores": scores, "final_labels": roi_labels,
-                "final_mask": mask}
+        :meth:`final_scores`' mask, with no further NMS; all of it in the
+        span ``mssvt.roi_head``."""
+        with tracing.span("roi_head"):
+            cls, reg = self.run_roi_head(rin, rois, roi_valid)
+            scores, mask = self.final_scores(cls, roi_scores, roi_labels,
+                                             roi_valid)
+            return {"final_boxes": refine_boxes(rois, reg) * mask[..., None],
+                    "final_scores": scores, "final_labels": roi_labels,
+                    "final_mask": mask}

@@ -26,7 +26,7 @@ class PartA2Net(Detector3DTemplate):
         c_point = int(cfg["BACKBONE_3D"].get("NUM_FILTERS", [16])[0])
         self.point_head = PointIntraPartOffsetHead(
             cfg["POINT_HEAD"], c_point, num_class=1, dtype=dtype)
-        self.roi_cfg = cfg["ROI_HEAD"]
+        self.build_proposals(cfg["ROI_HEAD"])
         self.roi_head = PartA2FCHead(self.roi_cfg, part_channels=4,
                                      seg_channels=c_point, dtype=dtype)
 

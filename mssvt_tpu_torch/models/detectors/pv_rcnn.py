@@ -19,6 +19,7 @@ from typing import Any, Sequence
 
 import torch
 
+from ...runtime import tracing
 from ..backbones_3d.pfe import VoxelSetAbstraction
 from ..dense_heads.point_head import PointHeadSimple, assign_point_targets
 from ..roi_heads.pvrcnn_head import PVRCNNHead
@@ -52,7 +53,7 @@ class PVRCNN(Detector3DTemplate):
             bev_channels=self.backbone_2d.num_bev_features, dtype=ctx.dtype)
         self.point_head = PointHeadSimple(cfg["POINT_HEAD"], c_kp,
                                           dtype=ctx.dtype)
-        self.roi_cfg = cfg["ROI_HEAD"]
+        self.build_proposals(cfg["ROI_HEAD"])
         self.roi_head = PVRCNNHead(self.roi_cfg, c_kp, dtype=ctx.dtype)
 
     def forward(self, batch, return_intermediates: bool = False,
@@ -67,18 +68,23 @@ class PVRCNN(Detector3DTemplate):
 
     def roi_inputs(self, batch, first, rois, roi_valid):
         """The PFE's keypoints (B, K, 3) and their features weighted by the
-        point head, with the point head's logits (B, K, 1)."""
+        point head, with the point head's logits (B, K, 1). The raw points
+        by frame and the keypoint picks (the RoI mask and the sector FPS
+        for SPC) are the span ``mssvt.keypoints``; the keypoints' features
+        from every source, their fusion and the point head ``mssvt.pfe``."""
         sp_out, _, spatial_2d = first
-        xyz, feat, pvalid = per_sample_points(batch, self.batch_size,
-                                              self.max_points)
-        # the downsampled sites are compacted over the batch: per_sample
-        # lays them out by frame (a reshape would mix frames)
-        keypoints, kp_feat, _ = self.pfe(
-            xyz, feat, pvalid, sources={"x_conv_out": sp_out.per_sample()},
-            bev_features=spatial_2d, bev_stride=8, rois=rois,
-            roi_valid=roi_valid)
-        kp_cls = self.point_head(kp_feat)
-        kp_feat = kp_feat * torch.sigmoid(kp_cls)
+        with tracing.span("keypoints"):
+            xyz, feat, pvalid = per_sample_points(batch, self.batch_size,
+                                                  self.max_points)
+            picks = self.pfe.sample_keypoints(xyz, pvalid, rois, roi_valid)
+        with tracing.span("pfe"):
+            # the downsampled sites are compacted over the batch: per_sample
+            # lays them out by frame (a reshape would mix frames)
+            keypoints, kp_feat, _ = self.pfe(
+                xyz, feat, pvalid, {"x_conv_out": sp_out.per_sample()}, picks,
+                bev_features=spatial_2d, bev_stride=8)
+            kp_cls = self.point_head(kp_feat)
+            kp_feat = kp_feat * torch.sigmoid(kp_cls)
         return ({"keypoints": keypoints, "kp_features": kp_feat,
                  "kp_cls": kp_cls},
                 {"keypoints": keypoints, "kp_features": kp_feat})

@@ -22,7 +22,7 @@ from .detector3d_template import Detector3DTemplate
 class SECONDNetIoU(Detector3DTemplate):
     def build_networks(self):
         super().build_networks()
-        self.roi_cfg = self.model_cfg["ROI_HEAD"]
+        self.build_proposals(self.model_cfg["ROI_HEAD"])
         stride = int(self.roi_cfg.get("BEV_STRIDE", 8))
         self.roi_head = BEVGridRoIHead(
             self.roi_cfg, self.backbone_2d.num_bev_features,

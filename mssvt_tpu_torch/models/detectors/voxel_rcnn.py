@@ -17,7 +17,7 @@ class VoxelRCNN(Detector3DTemplate):
     def build_networks(self):
         super().build_networks(
             {**dict(self.model_cfg["BACKBONE_3D"]), "RETURN_STAGES": True})
-        self.roi_cfg = self.model_cfg["ROI_HEAD"]
+        self.build_proposals(self.model_cfg["ROI_HEAD"])
         self.roi_head = VoxelRCNNHead(
             self.roi_cfg, self.backbone_3d.stage_channels,
             dtype=self.ctx.dtype)

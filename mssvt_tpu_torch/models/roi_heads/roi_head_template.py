@@ -4,7 +4,8 @@ pcdet/models/roi_heads/roi_head_template.py and
 target_assigner/proposal_target_layer.py).
 
 - :func:`proposal_layer`: per-sample rotated NMS of the first stage's boxes
-  into a fixed number of RoIs.
+  into a fixed number of RoIs; :func:`propose` and its module
+  :class:`Proposals` run it on an anchor head's boxes.
 - :func:`assign_proposal_targets`: deterministic IoU-ranked fg/bg RoI
   sampling (as the JAX module: fg by descending IoU, bg preferring the
   hard interval) with regression targets in each RoI's canonical frame.
@@ -23,6 +24,7 @@ keep their index order as ``lax.top_k``'s do; picks are advanced indexing
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from ...ops.box_ops import pairwise_iou_3d
 from ...ops.nms import nms_bev
@@ -203,6 +205,19 @@ def propose(dense_head, preds, roi_cfg, train: bool):
     return proposal_layer(boxes[..., :7], scores, torch.ones_like(
         scores, dtype=torch.bool), labels=labels,
         **nms_kwargs(roi_cfg, train))
+
+
+class Proposals(nn.Module):
+    """:func:`propose` as a module without parameters, with the config's
+    TRAIN or TEST NMS by the module's mode: a forward hook on it sees the
+    RoIs (rois, scores, labels, valid) that the RoI head is given."""
+
+    def __init__(self, roi_cfg):
+        super().__init__()
+        self.roi_cfg = roi_cfg
+
+    def forward(self, dense_head, preds):
+        return propose(dense_head, preds, self.roi_cfg, self.training)
 
 
 def two_stage_loss(dense_head, preds, gt_boxes, cls_logits, reg, targets,

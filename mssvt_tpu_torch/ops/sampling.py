@@ -4,10 +4,11 @@
 The FPS of the MsSVT blocks runs as the K2 kernel
 (:func:`farthest_point_sample_planes_select` -> ``kernels/fps.py``), the
 selection-free :func:`farthest_point_sample_planes` (and the point
-detectors' :func:`farthest_point_sample` over it) as K2b/K2c; the rest are
-plain tensor ops, the padding-aware :func:`farthest_point_sample_masked`
-too (no kernel computes it: its invalid rows keep min-distance -1 and its
-first pick is the first valid row).
+detectors' :func:`farthest_point_sample` over it) as K2b/K2c, and the
+padding-aware :func:`farthest_point_sample_masked` (its invalid rows keep
+min-distance -1 and its first pick is the first valid row; PV-RCNN++'s
+:func:`sector_fps`) as the masked FPS kernel; the rest are plain tensor
+ops.
 
 Backward forms. The JAX package's gradients are deterministic, and so are
 these, bit for bit from one run to the next:
@@ -70,25 +71,14 @@ def farthest_point_sample(xyz, npoint: int):
 def farthest_point_sample_masked(xyz, valid, npoint: int):
     """FPS that prefers valid rows: invalid rows keep min-distance -1, the
     first pick is the first valid row; past the valid rows the tail repeats
-    indices the caller masks with ``valid[idx]``. (B, N, 3), (B, N) bool ->
-    (B, npoint) int32. A plain loop of a few small launches an iteration on
-    either device."""
-    x, y, z = xyz.detach().float().unbind(-1)
-    b, n = x.shape
-    first = valid.to(torch.uint8).argmax(dim=1, keepdim=True)  # first valid
-    neg = torch.full((), -1.0, device=x.device)
-    min_dist = torch.where(valid, torch.full((), 1e10, device=x.device), neg)
-    last = first
-    picks = [first]
-    for _ in range(1, npoint):
-        dx = x - x.gather(1, last)
-        dy = y - y.gather(1, last)
-        dz = z - z.gather(1, last)
-        d = dx * dx + dy * dy + dz * dz
-        min_dist = torch.minimum(min_dist, torch.where(valid, d, neg))
-        last = torch.argmax(min_dist, dim=1, keepdim=True)
-        picks.append(last)
-    return torch.cat(picks, dim=1).to(torch.int32)
+    indices the caller masks with ``valid[idx]``. (F, N, 3) points, (R, N)
+    bool with R a multiple of F (row ``r`` takes frame ``r % F``'s points)
+    -> (R, npoint) int32. CUDA tensors run the masked FPS kernel (one CTA a
+    row, N <= 16 384), CPU tensors its plain loop
+    (``kernels/fps.py``)."""
+    planes = xyz.detach().float().permute(2, 0, 1).contiguous()
+    return fps_kernel.fps_picks_masked(planes[0], planes[1], planes[2],
+                                       valid.contiguous(), npoint)
 
 
 def sample_points_with_roi(points_xyz, points_valid, rois, roi_valid,
@@ -114,8 +104,10 @@ def sector_fps(points_xyz, points_valid, npoint: int, num_sectors: int):
     """Sectorised FPS (ref: voxel_set_abstraction.py:45-75): a masked FPS
     of ``ceil(npoint / num_sectors)`` picks in each azimuth sector, then
     one over the union cut to ``npoint`` -> (B, npoint) int32. The sectors'
-    FPS loops run as one, the sectors stacked along the batch axis (each
-    row is independent, so the picks are those of one loop a sector)."""
+    FPS runs as one call, the sectors' rows stacked sector-major (row ``k *
+    B + b``: sector ``k`` of frame ``b``, which reads frame ``b``'s points;
+    each row is independent, so the picks are those of one FPS a
+    sector)."""
     if num_sectors <= 1:
         return farthest_point_sample_masked(points_xyz, points_valid, npoint)
     b, n, _ = points_xyz.shape
@@ -127,9 +119,8 @@ def sector_fps(points_xyz, points_valid, npoint: int, num_sectors: int):
                          0, s - 1)
     arange = torch.arange(s, device=xyz.device, dtype=torch.int32)
     v = points_valid[None] & (sector[None] == arange[:, None, None])
-    idx = farthest_point_sample_masked(
-        xyz[None].expand(s, b, n, 3).reshape(s * b, n, 3), v.reshape(s * b, n),
-        quota).reshape(s, b, quota)
+    idx = farthest_point_sample_masked(xyz, v.reshape(s * b, n),
+                                       quota).reshape(s, b, quota)
     cvalid = torch.gather(v, 2, idx.long())
     cand = idx.permute(1, 0, 2).reshape(b, s * quota)
     cvalid = cvalid.permute(1, 0, 2).reshape(b, s * quota)

@@ -9,7 +9,8 @@ inside a loop, a block or a kernel wrapper; the finer spans,
 ``mssvt.spconv_rules``, ``mssvt.nms`` and ``mssvt.backbone_graph``, open
 once for each table a sparse-conv layer builds, once for each NMS call and
 once for each replay of the MsSVT backbone's CUDA graph, never inside a
-kernel wrapper.
+kernel wrapper; the two-stage families' ``mssvt.keypoints``, ``mssvt.pfe``
+and ``mssvt.roi_head`` split ``mssvt.post`` once a request.
 
 The spans of an eval request: ``mssvt.request`` around the forward, and
 inside it, in order and without overlap, the six stages, opened by the
@@ -38,7 +39,18 @@ inside ``mssvt.backbone_3d``, the NMS ``mssvt.nms`` inside ``mssvt.post``:
   proposals, the RoI head and the refinement;
 - ``mssvt.nms``: ``ops/nms.py``'s ``nms_bev`` and ``circle_nms``, each
   greedy NMS call (candidates, suppression mask, scan; one a request for
-  one head or the proposals, inside ``mssvt.post``).
+  one head or the proposals, inside ``mssvt.post``);
+- ``mssvt.keypoints``: ``detectors/pv_rcnn.py``'s ``roi_inputs``, the raw
+  points by frame and the keypoint picks (PV-RCNN's FPS, or PV-RCNN++'s
+  RoI mask and sector FPS), inside ``mssvt.post`` after the proposals;
+- ``mssvt.pfe``: the same, the keypoints' features (the BEV map's bilinear
+  sample, the raw points' ball-query pooling, the sparse source's pooling
+  or vector pool), their fusion and the point head, after
+  ``mssvt.keypoints``;
+- ``mssvt.roi_head``: ``Detector3DTemplate.two_stage`` /
+  ``roi_detections``, every two-stage family's RoI head (for PV-RCNN the
+  RoI-grid pooling and the FCs) and, in eval, the refinement, last inside
+  ``mssvt.post``.
 
 PointPillar and CaDDN open ``mssvt.vfe``, ``mssvt.map_to_bev``,
 ``mssvt.backbone_2d``, ``mssvt.head`` and ``mssvt.post`` through the same

@@ -1193,6 +1193,106 @@ def test_farthest_point_sample_launches_k2c_k2b(dev, b, n, npoint, kernel):
             farthest_point_sample(torch.zeros((1, 16385, 3), device=dev), 8)
 
 
+def _masked_rows(rng, kind, rows, frames, n):
+    """(planes (3, frames, n) f32, valid (rows, n) bool) of a masked FPS
+    case: "sectors" KITTI-like points, each row one azimuth sector of its
+    frame (row r: frame r % frames, sector r // frames) among points near
+    a few boxes; "union" 80% valid; "empty" row 0 without a valid point;
+    "few" 5 valid points a row (fewer than the picks); "all" every point
+    valid; "ties" small integer coordinates (exact ties), 30% valid."""
+    if kind == "ties":
+        planes = rng.integers(-4, 5, (3, frames, n)).astype(np.float32)
+    else:
+        planes = np.stack([rng.uniform(0, 70.4, (frames, n)),
+                           rng.uniform(-40, 40, (frames, n)),
+                           rng.uniform(-3, 1, (frames, n))]).astype(np.float32)
+    if kind == "sectors":
+        az = np.arctan2(planes[1], planes[0])
+        sector = np.clip(((az + np.pi) / (2 * np.pi) * (rows // frames))
+                         .astype(int), 0, rows // frames - 1)
+        near = rng.random((frames, n)) < 0.7
+        valid = np.stack([near[r % frames] & (sector[r % frames] == r // frames)
+                          for r in range(rows)])
+    elif kind == "union":
+        valid = rng.random((rows, n)) < 0.8
+    elif kind == "few":
+        valid = np.zeros((rows, n), bool)
+        for r in range(rows):
+            valid[r, rng.choice(n, 5, replace=False)] = True
+    elif kind == "all":
+        valid = np.ones((rows, n), bool)
+    else:
+        valid = rng.random((rows, n)) < 0.3
+    if kind == "empty":
+        valid[0] = False
+    return planes, valid
+
+
+# (rows, frames, N, npoint, case): PV-RCNN++'s two passes at the cell's
+# shapes (2 frames x 6 sectors of 16 384 points -> 342; 2 rows of 2 052 ->
+# 2 048), then the kernel's other forms
+FPS_MASKED_CASES = [
+    (12, 2, 16384, 342, k) for k in ("sectors", "empty", "few", "all", "ties")
+] + [
+    (2, 2, 2052, 2048, k) for k in ("union", "empty", "few", "all", "ties")
+] + [
+    (37, 37, 700, 32, "ties"),       # 128 threads, 6 CTAs an SM
+    (5, 5, 4099, 64, "union"),       # N % 4 != 0: scalar loads
+    (4, 2, 8192, 100, "all"),        # registers: 512 threads
+    (3, 3, 16384, 9000, "union"),    # the pick list past shared memory
+    (6, 3, 300, 400, "few"),         # npoint > N
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,frames,n,npoint,kind", FPS_MASKED_CASES)
+def test_fps_masked_kernel_matches_plain(dev, rows, frames, n, npoint, kind):
+    """The masked FPS kernel's picks equal the plain loop's
+    (``fps_masked_plain``) exactly on the same card planes: rows that share
+    a frame's planes, an empty sector, fewer valid points than picks,
+    every point valid, exact ties; one launch a call."""
+    rng = np.random.default_rng(n + rows)
+    planes, valid = _masked_rows(rng, kind, rows, frames, n)
+    planes = [torch.as_tensor(p, device=dev) for p in planes]
+    valid = torch.as_tensor(valid, device=dev)
+    before = fps.launches_masked
+    got = fps.fps_picks_masked(*planes, valid, npoint)
+    want = fps.fps_masked_plain(*planes, valid, npoint)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert fps.launches_masked == before + 1
+    if kind == "empty":
+        assert not bool(got[0].any())
+
+
+@pytest.mark.cuda
+def test_sector_fps_on_card_launches_the_masked_kernel_twice(dev,
+                                                            monkeypatch):
+    """``ops.sampling.sector_fps`` at the cell's size (2 frames of 16 384
+    points, 2 048 keypoints, 6 sectors) launches the masked FPS twice and
+    no other kernel of the port, and picks what it picks with the plain
+    loop in the kernel's place; past 16 384 points it raises."""
+    from mssvt_tpu_torch import kernels
+    from mssvt_tpu_torch.ops import sampling
+
+    rng = np.random.default_rng(11)
+    planes, _ = _masked_rows(rng, "union", 2, 2, 16384)
+    xyz = torch.as_tensor(np.moveaxis(planes, 0, -1), device=dev)
+    valid = torch.as_tensor(rng.random((2, 16384)) < 0.5, device=dev)
+    valid[1, 9000:] = False  # padding rows
+    kernels.reset_launch_counts()
+    got = sampling.sector_fps(xyz, valid, 2048, 6)
+    counts = kernels.launch_counts()
+    assert counts["fps_picks_masked"] == 2 and sum(counts.values()) == 2
+    monkeypatch.setattr(fps, "fps_picks_masked", fps.fps_masked_plain)
+    assert torch.equal(got, sampling.sector_fps(xyz, valid, 2048, 6))
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="16384"):
+        sampling.farthest_point_sample_masked(
+            torch.zeros((1, 16385, 3), device=dev),
+            torch.ones((1, 16385), dtype=torch.bool, device=dev), 8)
+
+
 @pytest.mark.cuda
 def test_ball_query_on_card_matches_cpu(dev):
     """``ball_query`` at PV-RCNN head scale (a frame's 8 000 grid points
@@ -1325,7 +1425,8 @@ def test_tiny_point_detectors_on_card_match_cpu(dev, name, monkeypatch):
     on the same weights (refined boxes as sets within 1e-3, loss within
     1e-4 relative, gradient norm within 1e-3, a repeated backward
     bit-identical), launching K2c (PV-RCNN, PointRCNN) and K2b (PointRCNN)
-    on its FPS and no other kernel (PV-RCNN++'s sector FPS is plain)."""
+    on its FPS, the masked FPS (PV-RCNN++'s sector FPS), and no other
+    kernel."""
     import chip_smoke
     from mssvt_tpu_torch import kernels
 
@@ -1334,10 +1435,60 @@ def test_tiny_point_detectors_on_card_match_cpu(dev, name, monkeypatch):
     r = chip_smoke.point_tiny_check(torch, name, seed=31)
     launched = {k for k, v in kernels.launch_counts().items() if v}
     assert launched == {"pvrcnn": {"fps_picks_block"},
-                        "pvrcnn_plusplus": set(),
+                        "pvrcnn_plusplus": {"fps_picks_masked"},
                         "pointrcnn": {"fps_picks_block",
                                       "fps_picks_warp"}}[name]
     assert r["kept"][0] > 0
+
+
+@pytest.mark.cuda
+def test_pvrcnn_plusplus_keypoints_span_on_card(dev, tmp_path):
+    """One profiled eval request of the benchmark's rehearsal PV-RCNN++ (at
+    pcdet's depth) on the card: ``mssvt.keypoints`` holds the masked FPS
+    kernel twice and a few dozen launches in all (the plain loop launched
+    ~90 000), then ``mssvt.pfe`` and ``mssvt.roi_head`` follow inside
+    ``mssvt.post``."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.harness import spec, trace
+    from benchmark.traffic import kitti_points_scene
+    from mssvt_tpu_torch.models import build_network
+    from mssvt_tpu_torch.runtime.eval_utils import eval_step
+    from mssvt_tpu_torch.utils.edict import EasyDict
+
+    reh = json.loads(json.dumps(spec.load_json(
+        spec.BENCH / "rehearsal" / "pvrcnnpp-kitti.json")))
+    data = reh["data"]
+    model = build_network(
+        EasyDict(reh["MODEL"]), 3, reh["class_names"],
+        tuple(data["grid_size"]), tuple(data["voxel_size"]),
+        tuple(data["point_cloud_range"]), 2, data["max_voxels_per_frame"], 5,
+        num_point_features=4, device=dev, seed=0).eval()
+    host, _ = kitti_points_scene.make(
+        dict(reh["traffic"]["params"], distinct_batches=1), reh, 2, 5)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in host[0].items()}
+    eval_step(model, batch)  # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eval_step(model, batch)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = trace.load(path)
+    spans = {s: trace.ranges(events, "mssvt." + s)
+             for s in ("post", "keypoints", "pfe", "roi_head")}
+    assert all(len(r) == 1 for r in spans.values()), spans
+    (post,) = spans["post"]
+    order = [spans[s][0] for s in ("keypoints", "pfe", "roi_head")]
+    assert post[0] <= order[0][0] and order[-1][1] <= post[1]
+    for (_, end), (start, _) in zip(order, order[1:]):
+        assert end <= start
+    ks = trace.launched_within(events, spans["keypoints"])
+    masked = [e for e in ks if "fps_masked_kernel" in e["name"]]
+    print(f"mssvt.keypoints: {len(ks)} kernels, {len(masked)} masked FPS")
+    assert len(masked) == 2 and len(ks) < 64, [e["name"] for e in ks]
 
 
 # ------------------------------ CaDDN, CT3D_3CAT, AnchorHeadMulti/ATSS

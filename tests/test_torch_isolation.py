@@ -238,6 +238,9 @@ def test_wrappers_take_plain_versions_on_cpu(monkeypatch):
     assert torch.equal(gi, fps.fps_plain(*planes, (), 5)[0])
     for fn in (fps.fps_picks_warp, fps.fps_picks_block, fps.fps_picks):
         assert torch.equal(fn(*planes, 5), gi)
+    valid = torch.as_tensor(rng.random((8, 16)) < 0.7)
+    assert torch.equal(fps.fps_picks_masked(*planes, valid, 5),
+                       fps.fps_masked_plain(*planes, valid, 5))
     x = torch.randn(10, 32)
     p = [torch.ones(32), torch.zeros(32), torch.randn(32, 64), torch.zeros(64),
          torch.randn(64, 32), torch.zeros(32)]
@@ -269,7 +272,7 @@ def test_wrappers_take_plain_versions_on_cpu(monkeypatch):
     want = attention_qk_bwd.attention_qk_bwd_plain(*qk, g, **kw)
     for a, b in zip(got[:2] + got[2], want[:2] + want[2]):
         assert torch.equal(a, b)
-    assert len(kernels.KERNELS) == 9
+    assert len(kernels.KERNELS) == 10
     assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}
 
 

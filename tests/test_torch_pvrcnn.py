@@ -173,9 +173,9 @@ def test_voxel_set_abstraction_matches_jax(case):
                  roi_valid=roi_valid, train=train)
 
     def t_call(m, pts, feat, pvalid, sx, sf, sv, bev, rois, roi_valid):
-        return m(pts, feat, pvalid, {"x_conv_out": (sx, sf, sv)},
-                 bev_features=bev, bev_stride=8, rois=rois,
-                 roi_valid=roi_valid)
+        picks = m.sample_keypoints(pts, pvalid, rois, roi_valid)
+        return m(pts, feat, pvalid, {"x_conv_out": (sx, sf, sv)}, picks,
+                 bev_features=bev, bev_stride=8)
 
     got, want = check_module(
         JVSA(model_cfg=cfg, **kw),
@@ -355,3 +355,90 @@ def test_pv_rcnn_configs_build_on_cuda_by_default(name, monkeypatch):
     assert model.point_head.cls_fc_0.in_features == 128
     n = sum(p.numel() for p in model.parameters())
     assert n > 10_000_000, n
+
+
+# -------------------------------- PV-RCNN++ at pcdet's sparse depth (41 z)
+@pytest.mark.parametrize("pcdet,depth", [(True, 2), (False, 1)])
+def test_pv_rcnn_plusplus_widths_at_pcdet_depth(pcdet, depth):
+    """``pv_rcnn_plusplus.yaml`` at KITTI's grid with
+    ``BACKBONE_3D.PCDET_SPARSE_SHAPE``: the sites one cell deeper in z (41
+    -> 2), a 2 x 128-channel BEV map into the 2-D backbone; without the key
+    the JAX package's 1 x 128. The keypoints sample the 2-D backbone's
+    512-channel map either way, and the second stage keeps its widths."""
+    cfg, kw = kitti_build_kw("pv_rcnn_plusplus")
+    cfg.MODEL.BACKBONE_3D.PCDET_SPARSE_SHAPE = pcdet
+    model = t_build(**kw, device="cpu")
+    b3d = model.backbone_3d
+    assert b3d.sparse_shape == (1408, 1600, 40 + pcdet)
+    assert b3d.out_spatial_shape == (176, 200, depth)
+    assert b3d.num_bev_features == 128 * depth
+    assert model.backbone_2d.block0_conv0.weight.shape[1] == 128 * depth
+    assert model.backbone_2d.num_bev_features == 512
+    assert model.pfe.vsa_point_fc.in_features == 512 + 32 + 128
+    assert model.pfe.x_conv_out_vp_fc_0.in_features == 8 * (3 + 128)
+    assert model.roi_head.shared_fc_0.in_features == 128 * 216
+    assert model.proposals.roi_cfg is model.roi_cfg
+
+
+def test_pv_rcnn_plusplus_point_geometry_at_pcdet_depth():
+    """At 41 z-cells (the benchmark's CPU rehearsal grid, 0.2 m voxels,
+    KITTI's -3..1 m): the final stage's sites, which the vector pool reads,
+    sit at their cells' centres with its (1.6, 1.6, 1.6) m cells, z in the
+    two slices -2.2 and -0.6 m; a keypoint at the centre of a 2-D map cell
+    reads that cell's features (the map at 8 voxels a cell); the RoI grid
+    points lie inside their RoI."""
+    from benchmark.harness import spec
+    from benchmark.traffic import kitti_points_scene
+    from mssvt_tpu_torch.models.roi_heads.pvrcnn_head import (
+        roi_grid_points_3d,
+    )
+
+    reh = json.loads(json.dumps(spec.load_json(
+        spec.BENCH / "rehearsal" / "pvrcnnpp-kitti.json")))
+    reh["MODEL"].pop("DTYPE")
+    data = reh["data"]
+    torch.manual_seed(0)
+    model = t_build(TDict(reh["MODEL"]), 3, reh["class_names"],
+                    tuple(data["grid_size"]), tuple(data["voxel_size"]),
+                    tuple(data["point_cloud_range"]), 2,
+                    data["max_voxels_per_frame"], 5, num_point_features=4,
+                    device="cpu").eval()
+    host, _ = kitti_points_scene.make(
+        dict(reh["traffic"]["params"], distinct_batches=1), reh, 2, 7)
+    batch = {k: torch.as_tensor(v) for k, v in host[0].items()}
+    seen = {}
+    model.backbone_3d.conv_out.register_forward_hook(
+        lambda m, a, o: seen.__setitem__("out", o))
+    model.backbone_2d.register_forward_hook(
+        lambda m, a, o: seen.__setitem__("map", o))
+    with torch.no_grad():
+        model(batch)
+    out = seen["out"]
+    assert out.spatial_shape[2] == 2
+    assert out.voxel_size == pytest.approx((1.6, 1.6, 1.6))
+    xyz, _, ok = out.per_sample()
+    c = out.coords[out.valid][:, [3, 2, 1]].float()
+    want = (c + 0.5) * 1.6 + torch.tensor([0.0, -6.4, -3.0])
+    got = torch.cat([xyz[b][ok[b]] for b in range(2)])
+    order = torch.argsort(out.coords[out.valid][:, 0], stable=True)
+    torch.testing.assert_close(got, want[order], rtol=0, atol=1e-6)
+    slices = torch.tensor([-2.2, -0.6])
+    assert ((got[:, 2, None] - slices).abs().amin(1) < 1e-5).all()
+    # a keypoint at the centre of the 2-D map's cell (y 3, x 5)
+    bev = seen["map"]
+    pts = torch.zeros(2, 4, 3)
+    pts[:, 0] = torch.tensor([0.0 + 5.5 * 1.6, -6.4 + 3.5 * 1.6, -1.0])
+    sources = {"x_conv_out": out.per_sample()}
+    with torch.no_grad():
+        _, _, cat = model.pfe(pts, pts[..., :1], torch.ones(2, 4, dtype=bool),
+                              sources, torch.zeros(2, 3, dtype=torch.int32),
+                              bev_features=bev, bev_stride=8)
+    torch.testing.assert_close(cat[:, 0, :bev.shape[-1]], bev[:, 3, 5])
+    rois = torch.tensor([[[4.0, 1.0, -1.0, 4.0, 2.0, 1.5, 0.7]]])
+    g = roi_grid_points_3d(rois, 6)[0, 0]
+    local = g[:, :2] - rois[0, 0, :2]
+    h = rois[0, 0, 6]
+    lx = local[:, 0] * torch.cos(h) + local[:, 1] * torch.sin(h)
+    ly = -local[:, 0] * torch.sin(h) + local[:, 1] * torch.cos(h)
+    assert (lx.abs() < 2.0).all() and (ly.abs() < 1.0).all()
+    assert ((g[:, 2] + 1.0).abs() < 0.75).all()

@@ -94,15 +94,26 @@ def span_names(events):
                   and e["name"].startswith(tracing.PREFIX))
 
 
+# the spans a two-stage family opens inside ``mssvt.post`` after the NMS, in
+# order
+SECOND_STAGE = {"SECONDNetIoU": ("roi_head",), "VoxelRCNN": ("roi_head",),
+                "PVRCNN": ("keypoints", "pfe", "roi_head"),
+                "PartA2": ("roi_head",), "CT3D_3CAT": ("roi_head",)}
+
+
 @pytest.mark.parametrize("name", ["CenterPoint"] + sorted(VOXEL_DETECTORS))
 def test_request_makes_seven_spans_in_order(name, tiny, tmp_path):
     """The request and its six stages, in order and disjoint, for every
     voxel detector; the one NMS call's ``mssvt.nms`` nests in
     ``mssvt.post``, the sparse-conv tables' ``mssvt.spconv_rules`` in
-    ``mssvt.backbone_3d``."""
+    ``mssvt.backbone_3d``; a two-stage family's second-stage spans
+    (``mssvt.roi_head``, after PV-RCNN's ``mssvt.keypoints`` and
+    ``mssvt.pfe``) follow the NMS inside ``mssvt.post``, in order and
+    disjoint."""
     model, batch = tiny if name == "CenterPoint" else VOXEL_DETECTORS[name]()
     _, events = profiled_request(model, batch, tmp_path)
-    want = ["mssvt." + s for s in ("request",) + STAGES + ("nms",)]
+    inner = SECOND_STAGE.get(name, ())
+    want = ["mssvt." + s for s in ("request",) + STAGES + ("nms",) + inner]
     names = span_names(events)
     rules = names.count("mssvt.spconv_rules")
     assert names == sorted(want + ["mssvt.spconv_rules"] * rules)
@@ -114,6 +125,10 @@ def test_request_makes_seven_spans_in_order(name, tiny, tmp_path):
         assert end <= start
     (nms,) = trace.ranges(events, "mssvt.nms")
     assert stages[-1][0] <= nms[0] and nms[1] <= stages[-1][1]
+    post = [nms] + [trace.ranges(events, "mssvt." + s)[0] for s in inner]
+    for (_, end), (start, _) in zip(post, post[1:]):
+        assert end <= start
+    assert post[-1][1] <= stages[-1][1]
     for start, end in trace.ranges(events, "mssvt.spconv_rules"):
         assert stages[1][0] <= start and end <= stages[1][1]
 
