@@ -22,25 +22,20 @@ attention trains through the per-group einsum (the kernels carry no
 dropout, and JAX leaves them there too).
 
 At inference on the card (eval mode, no autograd, no generator) the
-backbone's forward replays a CUDA graph of itself (``BackboneGraph``):
-one launch in place of ~1 000 small ones and their host time; the same
-kernels run inside it.
+backbone's forward replays a CUDA graph of itself
+(``runtime/graphs.ForwardGraph``): one launch in place of ~1 000 small
+ones and their host time; the same kernels run inside it.
 """
 
 from __future__ import annotations
 
-import itertools
-import warnings
-from dataclasses import dataclass, replace
 from typing import Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 
-from ... import kernels
 from ...core.sparse import SparseVoxels
 from ...kernels import ffn as ffn_kernel
 from ...kernels.fill import PACK5_ZERO
@@ -58,7 +53,7 @@ from ...ops.window import (
     unpack_planes,
     window_partition,
 )
-from ...runtime import tracing
+from ...runtime import graphs
 from ..model_utils.attention import MixedScaleAttention
 from ..model_utils.layers import Dense, DropPath, LayerNorm, PosProjection
 from ..model_utils.layers import dropout as _dropout
@@ -415,7 +410,7 @@ class MixedScaleSparseTransformer(nn.Module):
             else:
                 raise NotImplementedError(p["name"])
             self.add_module(f"blocks_{i}", block)
-        self.graph = BackboneGraph()
+        self.graph = graphs.ForwardGraph("backbone_graph", "MsSVT backbone")
 
     def blocks(self):
         return [getattr(self, f"blocks_{i}") for i in range(self.num_blocks)]
@@ -437,157 +432,21 @@ class MixedScaleSparseTransformer(nn.Module):
         return out
 
     def forward(self, sp: SparseVoxels, generator=None) -> SparseVoxels:
-        if self._graphed(sp, generator):
-            return self.graph.run(self, sp)
-        return self.stages(sp, generator)[-1]
-
-    def _graphed(self, sp, generator) -> bool:
-        """Whether the call takes the CUDA graph: inference on the card,
-        and nothing that would see the ops one by one (a dispatch mode, a
-        hook) but plain forward hooks on the blocks, which a replay runs
-        after it. Those are there for the benchmark's judge
-        (``benchmark/loops/infer.py``'s ``Capture``), which keeps each
-        block's output through them."""
-        if not (sp.features.is_cuda and not self.training
-                and not torch.is_grad_enabled() and generator is None
-                and sp.index is None and not is_in_torch_dispatch_mode()):
-            return False
-        glob = nn.modules.module
-        if glob._global_forward_hooks or glob._global_forward_pre_hooks:
-            return False
-        blocks = set(self.blocks())
-        return not any(m._forward_pre_hooks or m._forward_hooks_with_kwargs
-                       or (m._forward_hooks and m not in blocks)
-                       for m in self.modules() if m is not self)
-
-
-@dataclass
-class _Graph:
-    graph: object   # torch.cuda.CUDAGraph
-    inputs: tuple   # static features, coords, valid: the replay reads them
-    stages: list    # static SparseVoxels of ``stages``: the replay writes them
-    launches: dict  # kernel launches its capture counted (name -> count)
-
-
-class BackboneGraph:
-    """The backbone's inference forward as one CUDA graph, kept for the
-    last key seen: the inputs' shapes, dtypes and device, the voxels'
-    geometry and the data pointers of every parameter and buffer (a
-    ``.to()`` or a replaced tensor captures anew; an in-place update keeps
-    the graph, whose replay reads the new values). In eval a detector sees
-    one key, its batch shape.
-
-    A new key drops the last one's graph, runs the forward on a side
-    stream (the call's answer; every lazy cache fills), then captures it
-    there from static copies of the inputs; a capture that raises leaves
-    the key eager (span ``mssvt.backbone_graph_eager``), with one warning.
-    A later call copies its inputs into the static ones, replays, and
-    returns clones of the outputs, which the next replay would overwrite;
-    forward hooks on the blocks then run on clones of each block's input
-    and output. The launch counters count the first call's launches; a
-    replay adds those its capture counted, which chip_smoke's main path
-    and the card tests hold against the kernels of a profiled replay."""
-
-    def __init__(self):
-        self.key = None
-        self.captured = None  # the key's _Graph; None: the key runs eagerly
-        self.warned = False
-
-    def clear(self):
-        """Drops the graph (say, before code the forward calls is
-        patched)."""
-        self.key = self.captured = None
-
-    def run(self, module, sp):
-        key = self._key(module, sp)
-        if key != self.key:
-            return self._setup(module, sp, key)
-        g = self.captured
-        if g is None:
-            with tracing.span("backbone_graph_eager"):
-                return module.stages(sp)[-1]
-        hooked = any(b._forward_hooks for b in module.blocks())
-        with tracing.span("backbone_graph"):
-            for dst, src in zip(g.inputs, (sp.features, sp.coords, sp.valid)):
-                dst.copy_(src)
-            g.graph.replay()
-            stages = _clones(g.stages if hooked else g.stages[-1:])
-        kernels.add_launch_counts(g.launches)
-        if hooked:
-            _run_forward_hooks(module.blocks(), stages)
+        if not self._graphed(sp, generator):
+            return self.stages(sp, generator)[-1]
+        blocks = self.blocks()
+        hooked = any(b._forward_hooks for b in blocks)
+        stages, statics = self.graph.run(
+            self, sp, ((None, lambda s, _: self.stages(s, hooks=False)),),
+            self.stages, (lambda st: st) if hooked else (lambda st: st[-1:]))
+        if statics is not None and hooked:
+            graphs.run_forward_hooks(
+                (b, (inp, None), out)
+                for b, inp, out in zip(blocks, stages, stages[1:]))
         return stages[-1]
 
-    @staticmethod
-    def _key(module, sp):
-        tensors = (sp.features, sp.coords, sp.valid)
-        return (tuple((t.shape, t.dtype, t.device) for t in tensors),
-                sp.batch_size, sp.spatial_shape, sp.voxel_size,
-                sp.point_cloud_range,
-                tuple(t.data_ptr() for t in itertools.chain(
-                    module.parameters(), module.buffers())))
-
-    def _setup(self, module, sp, key):
-        self.clear()  # the last key's graph and its memory go first
-        dev = sp.features.device
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            out = module.stages(sp)[-1]
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        self.key = key
-        try:
-            self.captured = _capture(module, sp, stream)
-        except RuntimeError as err:
-            if not self.warned:
-                self.warned = True
-                warnings.warn(f"MsSVT backbone: CUDA graph capture failed, "
-                              f"this input runs eagerly: {err}",
-                              RuntimeWarning, stacklevel=3)
-        return out
-
-
-def _capture(module, sp, stream) -> _Graph:
-    # the static inputs take in-place copies in and out of inference mode
-    with torch.inference_mode(False):
-        inputs = tuple(torch.empty_like(t)
-                       for t in (sp.features, sp.coords, sp.valid))
-    for dst, src in zip(inputs, (sp.features, sp.coords, sp.valid)):
-        dst.copy_(src)
-    static = replace(sp, features=inputs[0], coords=inputs[1],
-                     valid=inputs[2])
-    mark = kernels.launch_counts()
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with tracing.span("backbone_graph_capture"), torch.cuda.graph(
-                graph, stream=stream, capture_error_mode="thread_local"):
-            stages = module.stages(static, hooks=False)
-    finally:  # a capture launches nothing: take its counts back
-        launches = {n: v - mark[n]
-                    for n, v in kernels.launch_counts().items()}
-        kernels.add_launch_counts({n: -v for n, v in launches.items()})
-    return _Graph(graph, inputs, stages, launches)
-
-
-def _clones(stages):
-    """The voxels with cloned tensors (a tensor that stages share, cloned
-    once)."""
-    memo = {}
-
-    def clone(t):
-        if id(t) not in memo:
-            memo[id(t)] = t.clone()
-        return memo[id(t)]
-
-    return [replace(s, features=clone(s.features), coords=clone(s.coords),
-                    valid=clone(s.valid)) for s in stages]
-
-
-def _run_forward_hooks(blocks, stages):
-    """Each block's forward hooks as its eager call ``block(sp, None)``
-    runs them, on the replay's clones of its input and output (plain hooks
-    only: ``_graphed`` sends any other to the eager forward)."""
-    for block, inp, out in zip(blocks, stages, stages[1:]):
-        for hook in block._forward_hooks.values():
-            if hook(block, (inp, None), out) is not None:
-                raise RuntimeError("a forward hook on a graphed MsSVT block "
-                                   "may not replace the block's output")
+    def _graphed(self, sp, generator) -> bool:
+        """Whether the call takes the CUDA graph
+        (``runtime/graphs.graphable``); plain forward hooks on the blocks
+        run after a replay."""
+        return graphs.graphable(self, sp, generator, self.blocks())

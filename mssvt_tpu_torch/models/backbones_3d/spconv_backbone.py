@@ -12,13 +12,24 @@ construction (flax infers it): ``in_channels`` is the VFE's output width.
 The sites live on ``grid_size`` as given, as the JAX module's do; with
 ``pcdet_sparse_shape`` on pcdet's ``grid_size[::-1] + [1, 0, 0]``
 (spconv_backbone.py:97), one cell deeper in z, which at KITTI's 40 cells
-gives z 41 -> 21 -> 11 -> 5 -> 2 and a 2 x 128-channel BEV map. Site sets
-and neighbour tables are built in the span ``mssvt.spconv_rules``.
+gives z 41 -> 21 -> 11 -> 5 -> 2 and a 2 x 128-channel BEV map.
+
+The tables depend on the sites alone, never on the features, so a forward
+builds them all up front (:meth:`_Encoder8x.rules`, one span
+``mssvt.spconv_rules``: the input's index on the grid, each submanifold
+stage's neighbour table, each strided layer's output sites, table and
+index; spconv's indice keys), then runs the layers on them
+(:meth:`_Encoder8x.layers`). At inference on the card (eval, no autograd,
+no generator) each half replays a CUDA graph of itself
+(``runtime/graphs.ForwardGraph``, span ``mssvt.spconv_graph``): the rules
+inside ``mssvt.spconv_rules``, then the convolutions reading the rules'
+static tables in place.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +43,7 @@ from ...ops.sparse_conv import (
     downsample_output_sites,
     sparse_conv,
 )
-from ...runtime import tracing
+from ...runtime import graphs, tracing
 from ..model_utils.layers import MaskedBatchNorm
 
 # each stage's output sites as a fraction of the input capacity: conv_input
@@ -44,6 +55,13 @@ DOWN_LAYERS = (((3, 3, 3), (2, 2, 2), (1, 1, 1)),
                ((3, 3, 3), (2, 2, 2), (1, 1, 1)),
                ((3, 3, 3), (2, 2, 2), (1, 1, 0)),
                ((1, 1, 3), (1, 1, 2), (0, 0, 0)))
+# the 8x encoder's layers in their order: submanifold stages (``_SubMStage``)
+# and strided layers (``SparseConvDownLayer``)
+ENCODER = ("conv_input", "conv1", "conv2_down", "conv2_subm", "conv3_down",
+           "conv3_subm", "conv4_down", "conv4_subm", "conv_out")
+# the layers that end a stage: their outputs are ``VoxelBackBone8x``'s
+# stages and output, and plain forward hooks on them survive a replay
+STAGE_ENDS = ("conv1", "conv2_subm", "conv3_subm", "conv4_subm", "conv_out")
 
 
 def down_shape(spatial_shape, kernel_size, stride, padding):
@@ -125,23 +143,30 @@ class SparseConvDownLayer(SparseConvKernel):
         return down_shape(spatial_shape, self.kernel_size, self.stride,
                           self.padding)
 
-    def forward(self, sp: SparseVoxels) -> SparseVoxels:
+    def rules(self, sp: SparseVoxels):
+        """(the output sites, indexed and without features; the (V_out, K)
+        neighbour rows into ``sp``'s rows)."""
         geo = (self.kernel_size, self.stride, self.padding)
-        with tracing.span("spconv_rules"):
-            out_coords, out_valid, out_shape = downsample_output_sites(
-                sp.coords, sp.valid, sp.spatial_shape, *geo, self.max_out)
-            rows = build_strided_neighbor_table(
-                sp.coords, sp.valid, sp.index, sp.spatial_shape, out_coords,
-                out_valid, *geo)
-            out = SparseVoxels.create(
-                features=None, coords=out_coords, valid=out_valid,
-                batch_size=sp.batch_size, spatial_shape=out_shape,
-                voxel_size=tuple(sp.voxel_size[i] * self.stride[i]
-                                 for i in range(3)),
-                point_cloud_range=sp.point_cloud_range)
+        out_coords, out_valid, out_shape = downsample_output_sites(
+            sp.coords, sp.valid, sp.spatial_shape, *geo, self.max_out)
+        rows = build_strided_neighbor_table(
+            sp.coords, sp.valid, sp.index, sp.spatial_shape, out_coords,
+            out_valid, *geo)
+        out = SparseVoxels.create(
+            features=None, coords=out_coords, valid=out_valid,
+            batch_size=sp.batch_size, spatial_shape=out_shape,
+            voxel_size=tuple(sp.voxel_size[i] * self.stride[i]
+                             for i in range(3)),
+            point_cloud_range=sp.point_cloud_range)
+        return out, rows
+
+    def forward(self, sp: SparseVoxels, rule) -> SparseVoxels:
+        """``rule``: :meth:`rules` of ``sp``."""
+        out, rows = rule
+        geo = (self.kernel_size, self.stride, self.padding)
         x = self.conv(sp.features, rows, lambda: build_inverse_neighbor_table(
-            sp.coords, sp.valid, out.index, out_shape, *geo))
-        x = torch.relu(self.bn(x, out_valid)) * out_valid[:, None]
+            sp.coords, sp.valid, out.index, out.spatial_shape, *geo))
+        x = torch.relu(self.bn(x, out.valid)) * out.valid[:, None]
         return out.with_features(x)
 
 
@@ -168,10 +193,14 @@ class _SubMStage(nn.Module):
                                                        dtype=dtype))
             c_in = c
 
-    def forward(self, sp: SparseVoxels) -> SparseVoxels:
-        with tracing.span("spconv_rules"):
-            rows = build_subm_neighbor_table(sp.coords, sp.valid, sp.index,
-                                             sp.spatial_shape)
+    @staticmethod
+    def rules(sp: SparseVoxels):
+        """The stage's (V, K) neighbour rows on ``sp``'s sites."""
+        return build_subm_neighbor_table(sp.coords, sp.valid, sp.index,
+                                         sp.spatial_shape)
+
+    def forward(self, sp: SparseVoxels, rows) -> SparseVoxels:
+        """``rows``: :meth:`rules` of ``sp``."""
         if not self.residual:
             for i in range(self.n):
                 sp = getattr(self, f"subm_{i}")(sp, rows)
@@ -185,23 +214,67 @@ class _SubMStage(nn.Module):
         return sp
 
 
-def on_grid(sp: SparseVoxels, shape) -> SparseVoxels:
-    """``sp`` with its sorted-key index on ``shape``, built in the span
-    ``mssvt.spconv_rules`` where it is missing or on another grid. The rule:
-    the sparse-conv backbone that reads the index builds it."""
-    if sp.index is not None and tuple(sp.spatial_shape) == tuple(shape):
-        return sp
-    with tracing.span("spconv_rules"):
-        return SparseVoxels.create(sp.features, sp.coords, sp.valid,
-                                   sp.batch_size, shape, sp.voxel_size,
-                                   sp.point_cloud_range)
+@dataclass(frozen=True)
+class Rulebook:
+    """Every table of one forward of the 8x encoder, built from the input's
+    sites alone: ``sites``, those sites on the encoder's grid with their
+    sorted-key index (no features); ``tables[name]``, the table of the
+    layer ``name`` of :data:`ENCODER` (``rules`` of that layer on its input's
+    sites)."""
+
+    sites: SparseVoxels
+    tables: Dict[str, object]
 
 
-class VoxelBackBone8x(nn.Module):
+class _Encoder8x(nn.Module):
+    """The :data:`ENCODER` stack's forward over a :class:`Rulebook`, for a
+    module holding those layers and ``sparse_shape``."""
+
+    def rules(self, sp: SparseVoxels) -> Rulebook:
+        """The rulebook of ``sp``'s sites, in the span
+        ``mssvt.spconv_rules``. The sites take an index on
+        ``sparse_shape`` where theirs is missing or on another grid: the
+        sparse-conv backbone that reads the index builds it."""
+        with tracing.span("spconv_rules"):
+            if sp.index is not None and \
+                    tuple(sp.spatial_shape) == tuple(self.sparse_shape):
+                sites = sp.with_features(None)
+            else:
+                sites = SparseVoxels.create(
+                    None, sp.coords, sp.valid, sp.batch_size,
+                    self.sparse_shape, sp.voxel_size, sp.point_cloud_range)
+            tables, cur = {}, sites
+            for name in ENCODER:
+                layer = getattr(self, name)
+                tables[name] = layer.rules(cur)
+                if isinstance(layer, SparseConvDownLayer):
+                    cur = tables[name][0]
+        return Rulebook(sites, tables)
+
+    def layers(self, sp: SparseVoxels, rules: Rulebook, hooks=True):
+        """The output of each :data:`ENCODER` layer on ``sp``'s features,
+        in order. With ``hooks`` False the layers' ``forward`` runs without
+        their hooks (a capture: its tensors hold nothing until a
+        replay)."""
+        x, outs = rules.sites.with_features(sp.features), []
+        for name in ENCODER:
+            layer = getattr(self, name)
+            x = (layer if hooks else layer.forward)(x, rules.tables[name])
+            outs.append(x)
+        return outs
+
+
+class VoxelBackBone8x(_Encoder8x):
     """Ref: spconv_backbone.py:69-146. Returns the stride-8 SparseVoxels
     after ``conv_out``'s z compression (and, with ``return_stages``, the
     ``x_conv1``..``x_conv4`` stages). The input's sites are taken onto
-    ``sparse_shape`` (re-indexed where its grid or index differs)."""
+    ``sparse_shape`` (re-indexed where its grid or index differs).
+
+    Where :func:`runtime.graphs.graphable` allows (plain forward hooks on
+    the :data:`STAGE_ENDS` layers only), the forward replays two CUDA
+    graphs, the rules' and the layers', and returns clones; hooks on
+    those layers then run on clones of each one's input and output, with
+    the replay's own table, which the next replay overwrites."""
 
     def __init__(self, in_channels: int, input_capacity: int,
                  grid_size: Sequence[int],
@@ -234,18 +307,47 @@ class VoxelBackBone8x(nn.Module):
                                                       pcdet_sparse_shape)
         # the width of the BEV map of the output (z-major D*C channels)
         self.num_bev_features = self.out_spatial_shape[2] * out_channels
+        self.graph = graphs.ForwardGraph("spconv_graph",
+                                         "sparse-conv backbone")
+
+    def train(self, mode: bool = True):
+        if mode:  # training never replays: free the graphs' memory
+            self.graph.clear()
+        return super().train(mode)
 
     def forward(self, sp: SparseVoxels, generator=None):
-        sp = on_grid(sp, self.sparse_shape)
-        stages = {}
-        sp = self.conv1(self.conv_input(sp))
-        stages["x_conv1"] = sp
-        for i in (2, 3, 4):
-            sp = getattr(self, f"conv{i}_subm")(
-                getattr(self, f"conv{i}_down")(sp))
-            stages[f"x_conv{i}"] = sp
-        sp = self.conv_out(sp)
-        return (sp, stages) if self.return_stages else sp
+        if not self._graphed(sp, generator):
+            return self._result(dict(zip(ENCODER,
+                                         self.layers(sp, self.rules(sp)))))
+        hooked = [n for n in STAGE_ENDS if getattr(self, n)._forward_hooks]
+        names = (ENCODER if hooked else
+                 STAGE_ENDS if self.return_stages else ENCODER[-1:])
+        outs, statics = self.graph.run(
+            self, sp, (("spconv_rules", lambda s, _: self.rules(s)),
+                       (None, lambda s, r: self.layers(s, r, hooks=False))),
+            lambda s: self.layers(s, self.rules(s)),
+            lambda outs: [o for n, o in zip(ENCODER, outs) if n in names])
+        got = dict(zip(names, outs))
+        if statics is not None and hooked:
+            tables = statics[0].tables
+            graphs.run_forward_hooks(
+                (getattr(self, n), (got[ENCODER[ENCODER.index(n) - 1]],
+                                    tables[n]), got[n]) for n in hooked)
+        return self._result(got)
+
+    def _graphed(self, sp, generator) -> bool:
+        """Whether the call takes the CUDA graphs
+        (``runtime/graphs.graphable``); plain forward hooks on the
+        :data:`STAGE_ENDS` layers run after a replay."""
+        return graphs.graphable(self, sp, generator,
+                                [getattr(self, n) for n in STAGE_ENDS])
+
+    def _result(self, got):
+        out = got["conv_out"]
+        if not self.return_stages:
+            return out
+        return out, {f"x_conv{i + 1}": got[n]
+                     for i, n in enumerate(STAGE_ENDS[:4])}
 
 
 class VoxelResBackBone8x(VoxelBackBone8x):

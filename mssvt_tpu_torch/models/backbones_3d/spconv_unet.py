@@ -2,10 +2,11 @@
 ``mssvt_tpu/models/backbones_3d/spconv_unet.py``; ref:
 pcdet/models/backbones_3d/spconv_unet.py:49-212).
 
-The encoder is ``VoxelBackBone8x``'s stage stack (and its ``conv_out`` for
-the BEV path); the decoder walks back up through the encoder's own site
-sets. Per level (the reference's ``UR_block_forward``): a submanifold conv
-of the lateral skip, concatenated with the bottom features, a merging
+The encoder is ``VoxelBackBone8x``'s stage stack on its rulebook (and
+its ``conv_out`` for the BEV path; eager everywhere); the decoder walks
+back up through the encoder's own site sets and submanifold tables. Per
+level (the reference's ``UR_block_forward``): a submanifold conv of the
+lateral skip, concatenated with the bottom features, a merging
 submanifold conv plus the concatenation's channel reduction, then the
 inverse conv onto the finer level's sites (LayerNorm, ReLU).
 
@@ -32,20 +33,20 @@ from ...core.sparse import SparseVoxels
 from ...ops.sparse_conv import (
     build_inverse_neighbor_table,
     build_strided_neighbor_table,
-    build_subm_neighbor_table,
     sparse_conv,
 )
 from ..model_utils.layers import Dense, LayerNorm
 from .spconv_backbone import (
     CAPACITY_FRACTIONS,
+    ENCODER,
     SparseConvDownLayer,
     SubMConvLayer,
+    _Encoder8x,
     _SubMStage,
-    on_grid,
 )
 
 
-class UNetV2(nn.Module):
+class UNetV2(_Encoder8x):
     def __init__(self, in_channels: int, input_capacity: int,
                  grid_size: Sequence[int],
                  num_filters: Sequence[int] = (16, 32, 64, 64),
@@ -99,23 +100,19 @@ class UNetV2(nn.Module):
                         / np.sqrt(w.shape[0] * w.shape[1]))
 
     def forward(self, sp: SparseVoxels, generator=None):
-        # the backbone that reads the index builds it, on its own grid
-        sp = self.conv1(self.conv_input(on_grid(sp, self.sparse_shape)))
-        stages = [sp]
-        for i in range(2, 2 + self.levels):
-            sp = getattr(self, f"conv{i}_subm")(
-                getattr(self, f"conv{i}_down")(sp))
-            stages.append(sp)
-        encoded = self.conv_out(sp)
+        rules = self.rules(sp)
+        got = dict(zip(ENCODER, self.layers(sp, rules)))
+        stages = [got["conv1"]] + [got[f"conv{i}_subm"]
+                                   for i in range(2, 2 + self.levels)]
+        encoded = got["conv_out"]
 
         dt = self.compute_dtype
         x = stages[-1]
         for lvl in range(self.levels, 0, -1):
             lateral, finer = stages[lvl], stages[lvl - 1]
             c_here = lateral.features.shape[-1]
-            rows = build_subm_neighbor_table(lateral.coords, lateral.valid,
-                                             lateral.index,
-                                             lateral.spatial_shape)
+            # the lateral stage's own table: the same sites and kernel
+            rows = rules.tables[f"conv{lvl + 1}_subm"]
             x_trans = getattr(self, f"up{lvl}_t")(lateral, rows).features
             cat = torch.cat([x.features, x_trans], dim=-1)
             x_m = getattr(self, f"up{lvl}_m")(lateral.with_features(cat),

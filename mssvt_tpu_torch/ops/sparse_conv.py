@@ -24,7 +24,6 @@ from __future__ import annotations
 
 from typing import Sequence
 
-import numpy as np
 import torch
 
 from ..core.index import (
@@ -34,19 +33,22 @@ from ..core.index import (
     lookup,
     unique_compact,
 )
+from ..utils.device import device_constant
 
 
-def _kernel_offsets(kernel_size: Sequence[int]) -> np.ndarray:
-    """(K, 3) zyx offsets in [0, k), row-major (z, y, x) as spconv's
-    kernel layout; ``kernel_size`` is (x, y, z)."""
+def _kernel_offsets(kernel_size: Sequence[int], device) -> torch.Tensor:
+    """(K, 3) int64 zyx offsets in [0, k), row-major (z, y, x) as spconv's
+    kernel layout, on ``device``; ``kernel_size`` is (x, y, z). Made once a
+    kernel and device (``device_constant``), as are the triples below, so
+    a table copies nothing from the host and a CUDA graph can capture it."""
     kz, ky, kx = kernel_size[2], kernel_size[1], kernel_size[0]
-    return np.asarray([(z, y, x) for z in range(kz) for y in range(ky)
-                       for x in range(kx)], np.int32)
+    return device_constant([(z, y, x) for z in range(kz) for y in range(ky)
+                            for x in range(kx)], device, torch.int64)
 
 
 def _zyx(t, device):
-    """An (x, y, z) triple as a (3,) zyx int64 tensor."""
-    return torch.tensor([t[2], t[1], t[0]], dtype=torch.int64, device=device)
+    """An (x, y, z) triple as a (3,) zyx int64 tensor on ``device``."""
+    return device_constant([t[2], t[1], t[0]], device, torch.int64)
 
 
 def _with_batch(b, zyx):
@@ -59,11 +61,10 @@ def build_subm_neighbor_table(coords, valid, index: VoxelIndex, spatial_shape,
     """Neighbour rows (V, K) of a submanifold conv, -1 where absent; the
     centre offset maps to the site itself."""
     dev = coords.device
-    offs = torch.as_tensor(_kernel_offsets(kernel_size), device=dev).long()
-    half = torch.tensor([(kernel_size[2] - 1) // 2, (kernel_size[1] - 1) // 2,
-                         (kernel_size[0] - 1) // 2], device=dev)
+    half = [(k - 1) // 2 for k in kernel_size]
     c = coords.long()
-    nb = c[:, None, 1:4] + (offs - half)[None]
+    nb = c[:, None, 1:4] + (_kernel_offsets(kernel_size, dev)
+                            - _zyx(half, dev))[None]
     keys = linearize_coords(_with_batch(c[:, 0:1], nb), spatial_shape,
                             valid=valid[:, None])
     return lookup(index, keys)
@@ -133,15 +134,15 @@ def downsample_output_sites(coords, valid, spatial_shape, kernel_size, stride,
             f"strided sparse conv collapses spatial shape {spatial_shape} -> "
             f"{out_shape} (kernel {kernel_size}, stride {stride}, padding "
             f"{padding}); increase the grid or adjust the layer")
-    n_cand = [int(np.ceil(ks[i] / st[i])) for i in range(3)]
-    cands = np.asarray([(dz, dy, dx) for dx in range(n_cand[0])
-                        for dy in range(n_cand[1]) for dz in range(n_cand[2])],
-                       np.int64)
+    n_cand = [-(-ks[i] // st[i]) for i in range(3)]
     dev = coords.device
+    cands = device_constant([(dz, dy, dx) for dx in range(n_cand[0])
+                             for dy in range(n_cand[1])
+                             for dz in range(n_cand[2])], dev, torch.int64)
     c = coords.long()
     p_zyx, s_zyx, k_zyx = (_zyx(t, dev) for t in (pd, st, ks))
     base = torch.div(c[:, 1:4] + p_zyx, s_zyx, rounding_mode="floor")
-    oz = base[:, None, :] - torch.as_tensor(cands, device=dev)[None]
+    oz = base[:, None, :] - cands[None]
     j = (c[:, 1:4] + p_zyx)[:, None, :] - oz * s_zyx
     cover = ((j >= 0) & (j <= k_zyx - 1)).all(dim=-1)
     keys = linearize_coords(_with_batch(c[:, 0:1], oz), out_shape,
@@ -156,7 +157,7 @@ def build_strided_neighbor_table(in_coords, in_valid, in_index: VoxelIndex,
     """Neighbour rows (V_out, K) into the INPUT features: input site
     ``out * s - p + offset``."""
     dev = out_coords.device
-    offs = torch.as_tensor(_kernel_offsets(kernel_size), device=dev).long()
+    offs = _kernel_offsets(kernel_size, dev)
     s_zyx, p_zyx = _zyx(stride, dev), _zyx(padding, dev)
     c = out_coords.long()
     nb = c[:, None, 1:4] * s_zyx + offs[None] - p_zyx
@@ -174,7 +175,7 @@ def build_inverse_neighbor_table(fine_coords, fine_valid,
     offset k the coarse site ``(f + p - k) / s`` where the division is
     exact, -1 where absent or inexact."""
     dev = fine_coords.device
-    offs = torch.as_tensor(_kernel_offsets(kernel_size), device=dev).long()
+    offs = _kernel_offsets(kernel_size, dev)
     s_zyx, p_zyx = _zyx(stride, dev), _zyx(padding, dev)
     c = fine_coords.long()
     num = c[:, None, 1:4] + p_zyx - offs[None]

@@ -6,10 +6,10 @@ kernels, copies and runtime calls it caused, on the same clock. Without
 an active profiler it is a null context: one flag read, no
 ``record_function``. Stage spans open at stage boundaries only, never
 inside a loop, a block or a kernel wrapper; the finer spans,
-``mssvt.spconv_rules``, ``mssvt.nms`` and ``mssvt.backbone_graph``, open
-once for each table a sparse-conv layer builds, once for each NMS call and
-once for each replay of the MsSVT backbone's CUDA graph, never inside a
-kernel wrapper; the two-stage families' ``mssvt.keypoints``, ``mssvt.pfe``
+``mssvt.spconv_rules``, ``mssvt.nms``, ``mssvt.backbone_graph`` and
+``mssvt.spconv_graph``, open once for each sparse-conv rulebook, once for
+each NMS call and once for each replay of a backbone's CUDA graphs, never
+inside a kernel wrapper; the two-stage families' ``mssvt.keypoints``, ``mssvt.pfe``
 and ``mssvt.roi_head`` split ``mssvt.post`` once a request.
 
 The spans of an eval request: ``mssvt.request`` around the forward, and
@@ -22,15 +22,21 @@ inside ``mssvt.backbone_3d``, the NMS ``mssvt.nms`` inside ``mssvt.post``:
 - ``mssvt.vfe``: ``generic_post.apply_vfe``, the voxel features;
 - ``mssvt.backbone_3d``: ``Detector3DTemplate.first_stage``, the 3-D
   backbone;
-- ``mssvt.spconv_rules``: ``backbones_3d/spconv_backbone.py``, each
-  sorted-key index, output-site set and neighbour table of the
-  sparse-conv engine (many a request, inside ``mssvt.backbone_3d``);
-- ``mssvt.backbone_graph``: ``backbones_3d/mssvt.py``'s
-  ``BackboneGraph.run``, the input copies, replay and output clones of
-  the MsSVT backbone's CUDA graph (inside ``mssvt.backbone_3d``; its
-  capture, once a key, is ``mssvt.backbone_graph_capture``, and a forward
-  whose key failed to capture runs eagerly in
-  ``mssvt.backbone_graph_eager``);
+- ``mssvt.spconv_rules``: ``backbones_3d/spconv_backbone.py``'s
+  ``rules``, the sparse-conv engine's whole rulebook: every sorted-key
+  index, output-site set and neighbour table of the forward (one a
+  request, inside ``mssvt.backbone_3d``; on the card the replay of the
+  rules' CUDA graph, inside ``mssvt.spconv_graph``);
+- ``mssvt.backbone_graph``: ``runtime/graphs.py``'s ``ForwardGraph.run``
+  for the MsSVT backbone, the input copies, replay and output clones of
+  its CUDA graph (inside ``mssvt.backbone_3d``; its capture, once a key,
+  is ``mssvt.backbone_graph_capture``, and a forward whose key failed to
+  capture runs eagerly in ``mssvt.backbone_graph_eager``);
+- ``mssvt.spconv_graph``: the same for the sparse-conv backbone
+  (``VoxelBackBone8x``): the input copies, the rules' replay inside
+  ``mssvt.spconv_rules``, the layers' replay and the output clones
+  (``mssvt.spconv_graph_capture`` and ``mssvt.spconv_graph_eager`` as
+  above);
 - ``mssvt.map_to_bev``: ``Detector3DTemplate.bev_stages``, the BEV map;
 - ``mssvt.backbone_2d``: the same, the 2-D backbone;
 - ``mssvt.head``: ``generic_post.run_dense_head`` (one stage) or

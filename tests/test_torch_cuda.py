@@ -1755,3 +1755,260 @@ def test_mssvt_backbone_replay_runs_the_blocks_forward_hooks(mssvt_graph):
         assert _same(inp, eager[0][i]) and _same(out, eager[0][i + 1])
     for i, inp, out in seen[5:]:
         assert _same(out, eager[1][i + 1])
+
+
+# ----------------------------------------------------------------------
+# The sparse-conv backbone's inference forward as two CUDA graphs (the
+# rules', then the layers'), at SECOND's and PV-RCNN++'s KITTI shapes:
+# pcdet's grid, 40 000 voxels a frame, batch 4 and 2, bf16
+
+KITTI_GRID = (1408, 1600, 40)
+KITTI_VOXEL = (0.05, 0.05, 0.1)
+KITTI_RANGE = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
+KITTI_CAP = 40_000
+
+
+def _kitti_sites(seed, batch, live):
+    """``live`` sites a frame in blobs of a few metres (so the tables hold
+    neighbours), padded to 40 000 rows a frame; features from the seed."""
+    from mssvt_tpu_torch.core.sparse import SparseVoxels
+
+    rng = np.random.default_rng(seed)
+    coords = np.full((batch * KITTI_CAP, 4), -1, np.int32)
+    for b in range(batch):
+        centres = rng.uniform((0, 0, 5), (KITTI_GRID[0], KITTI_GRID[1], 30),
+                              (80, 3))
+        xyz = centres[rng.integers(0, 80, 4 * live)] + rng.normal(
+            0, (12, 12, 3), (4 * live, 3))
+        xyz = np.clip(np.rint(xyz), 0, np.array(KITTI_GRID) - 1).astype(int)
+        cells = np.unique(np.stack([xyz[:, 2], xyz[:, 1], xyz[:, 0]], 1),
+                          axis=0)
+        cells = cells[rng.permutation(len(cells))[:live]]
+        assert len(cells) == live
+        coords[b * KITTI_CAP:b * KITTI_CAP + live, 0] = b
+        coords[b * KITTI_CAP:b * KITTI_CAP + live, 1:] = cells
+    valid = coords[:, 0] >= 0
+    feats = rng.normal(size=(batch * KITTI_CAP, 4)).astype(np.float32)
+    return SparseVoxels.create(
+        torch.as_tensor(feats * valid[:, None]).cuda(),
+        torch.as_tensor(coords).cuda(), torch.as_tensor(valid).cuda(), batch,
+        KITTI_GRID, KITTI_VOXEL, KITTI_RANGE, with_index=False)
+
+
+@pytest.fixture(scope="module", params=[4, 2], ids=["second_b4",
+                                                     "pvrcnnpp_b2"])
+def spconv_graph(request):
+    """(backbone, two scenes of different live counts, each scene's eager
+    ``layers`` by name): ``VoxelBackBone8x`` as SECOND and PV-RCNN++ build
+    it (widths 16/32/64/64 -> 128, pcdet's grid), bf16, seeded weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels run only there")
+    from mssvt_tpu_torch.models.backbones_3d import spconv_backbone
+    from mssvt_tpu_torch.models.network import init_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    set_deterministic()
+    batch = request.param
+    model = init_weights(spconv_backbone.VoxelBackBone8x(
+        in_channels=4, input_capacity=KITTI_CAP * batch,
+        grid_size=KITTI_GRID, pcdet_sparse_shape=True,
+        dtype=torch.bfloat16), 3).cuda().eval()
+    scenes = [_kitti_sites(seed, batch, live)
+              for seed, live in ((5, 17_000), (6, 15_500))]
+    with torch.no_grad():
+        eager = [dict(zip(spconv_backbone.ENCODER,
+                          model.layers(sp, model.rules(sp))))
+                 for sp in scenes]
+    return model, scenes, eager
+
+
+def _same_sites(a, b):
+    return (_same(a, b) and tuple(a.spatial_shape) == tuple(b.spatial_shape)
+            and a.batch_size == b.batch_size)
+
+
+def _stages_of(out):
+    """(x_conv1, .., x_conv4, output) of a ``return_stages`` forward."""
+    sp, stages = out
+    return [stages[f"x_conv{i}"] for i in (1, 2, 3, 4)] + [sp]
+
+
+STAGE_ENDS = ("conv1", "conv2_subm", "conv3_subm", "conv4_subm", "conv_out")
+
+
+@pytest.mark.cuda
+def test_spconv_backbone_graph_equals_eager(spconv_graph):
+    """One pair of graphs serves two scenes of different live counts in
+    turn, each replay bit for bit the eager forward (the replays read the
+    static inputs anew): the output's features, coords and valid."""
+    model, scenes, eager = spconv_graph
+    model.graph.clear()
+    with torch.no_grad():
+        first = model(scenes[0])
+        assert model.graph.captured is not None
+        assert len(model.graph.captured.graphs) == 2
+        outs = [model(scenes[i]) for i in (1, 0, 1)]
+    assert _same_sites(first, eager[0]["conv_out"])
+    for i, out in zip((1, 0, 1), outs):
+        assert _same_sites(out, eager[i]["conv_out"])
+    assert not torch.equal(eager[0]["conv_out"].valid,
+                           eager[1]["conv_out"].valid)
+    assert float(outs[0].features.float().abs().sum()) > 0
+
+
+@pytest.mark.cuda
+def test_spconv_backbone_return_stages_through_the_graph(spconv_graph):
+    """VoxelRCNN's ``return_stages``: the four stages and the output of a
+    replay, bit for bit the eager ones, kept through the next replay."""
+    model, scenes, eager = spconv_graph
+    model.return_stages = True
+    try:
+        with torch.no_grad():
+            model(scenes[0])  # the set-up, if this key has none yet
+            a = _stages_of(model(scenes[0]))
+            b = _stages_of(model(scenes[1]))
+    finally:
+        model.return_stages = False
+    for got, want in ((a, eager[0]), (b, eager[1])):
+        for g, name in zip(got, STAGE_ENDS):
+            assert _same_sites(g, want[name]), name
+
+
+@pytest.mark.cuda
+def test_spconv_backbone_makes_no_host_sync(spconv_graph):
+    """Once its constants are on the card, neither the eager forward nor a
+    replay waits for the card: no pageable copy, no sync."""
+    model, scenes, eager = spconv_graph
+    with torch.no_grad():
+        model(scenes[0])  # the set-up, if this key has none yet
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            layers = model.layers(scenes[1], model.rules(scenes[1]))
+            out = model(scenes[1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert model.graph.captured is not None
+    assert _same_sites(layers[-1], eager[1]["conv_out"])
+    assert _same_sites(out, eager[1]["conv_out"])
+
+
+@pytest.mark.cuda
+def test_spconv_backbone_replays_open_their_spans(spconv_graph):
+    """Each replay opens ``mssvt.spconv_graph`` with one
+    ``mssvt.spconv_rules`` (the rules' replay) inside it, and nothing
+    else."""
+    model, scenes, _ = spconv_graph
+    with torch.no_grad():
+        model(scenes[0])  # the set-up, if this key has none yet
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            for i in (1, 0, 1):
+                model(scenes[i])
+    ev = [e for e in prof.events() if e.name.startswith("mssvt.")]
+    assert sorted(e.name for e in ev) == \
+        ["mssvt.spconv_graph"] * 3 + ["mssvt.spconv_rules"] * 3
+
+    def ranges(name):
+        return sorted((e.time_range.start, e.time_range.end) for e in ev
+                      if e.name == name)
+
+    for (g0, g1), (r0, r1) in zip(ranges("mssvt.spconv_graph"),
+                                  ranges("mssvt.spconv_rules")):
+        assert g0 <= r0 and r1 <= g1
+
+
+@pytest.mark.cuda
+def test_spconv_backbone_capture_failure_falls_back_to_eager(spconv_graph,
+                                                             monkeypatch):
+    """A capture that raises (here a device sync inside the rules') leaves
+    the key eager, with one warning; both calls give the eager output, the
+    second inside ``mssvt.spconv_graph_eager`` (its rules in
+    ``mssvt.spconv_rules``)."""
+    from mssvt_tpu_torch.models.backbones_3d import spconv_backbone
+
+    model, scenes, eager = spconv_graph
+    model.graph.clear()
+    model.graph.warned = False
+    table = spconv_backbone.build_subm_neighbor_table
+
+    def syncing(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return table(*a, **k)
+
+    monkeypatch.setattr(spconv_backbone, "build_subm_neighbor_table",
+                        syncing)
+    try:
+        with torch.no_grad():
+            with pytest.warns(RuntimeWarning, match="capture failed"):
+                first = model(scenes[0])
+            assert model.graph.key is not None
+            assert model.graph.captured is None
+            with warnings.catch_warnings(), torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                warnings.simplefilter("error")
+                second = model(scenes[0])
+    finally:
+        model.graph.clear()
+    assert _same_sites(first, eager[0]["conv_out"])
+    assert _same_sites(second, eager[0]["conv_out"])
+    spans = [e.name for e in prof.events() if e.name.startswith("mssvt.")]
+    assert spans == ["mssvt.spconv_graph_eager", "mssvt.spconv_rules"]
+
+
+@pytest.mark.cuda
+def test_spconv_backbone_outputs_survive_the_next_replay(spconv_graph):
+    model, scenes, eager = spconv_graph
+    with torch.no_grad():
+        model(scenes[0])
+        a = model(scenes[0])
+        b = model(scenes[1])
+    assert _same_sites(a, eager[0]["conv_out"])
+    assert _same_sites(b, eager[1]["conv_out"])
+
+
+@pytest.mark.cuda
+def test_spconv_backbone_replay_runs_the_stage_ends_forward_hooks(
+        spconv_graph):
+    """Forward hooks on the five stage-ending layers (the benchmark's judge
+    keeps their outputs through them) see each one's input and output
+    after a replay, in the eager order, and keep them through the next
+    replay; a hook on any other layer sends the call to the eager
+    forward."""
+    from mssvt_tpu_torch.models.backbones_3d.spconv_backbone import ENCODER
+
+    model, scenes, eager = spconv_graph
+    seen = []
+    handles = [getattr(model, n).register_forward_hook(
+        lambda m, a, o, n=n: seen.append((n, a[0], o))) for n in STAGE_ENDS]
+    try:
+        with torch.no_grad():
+            model(scenes[1])
+            seen.clear()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                model(scenes[0])
+                model(scenes[1])
+            other = model.conv2_down.register_forward_hook(
+                lambda m, a, o: None)
+            try:
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU]) as eager_prof:
+                    model(scenes[0])
+            finally:
+                other.remove()
+    finally:
+        for h in handles:
+            h.remove()
+    assert [n for n, _, _ in seen[:10]] == list(STAGE_ENDS) * 2
+    assert [e.name for e in prof.events()
+            if e.name == "mssvt.spconv_graph"] == ["mssvt.spconv_graph"] * 2
+    for k, (n, inp, out) in enumerate(seen[:10]):
+        want = eager[0] if k < 5 else eager[1]
+        before = ENCODER[ENCODER.index(n) - 1]
+        assert _same_sites(inp, want[before]), n
+        assert _same_sites(out, want[n]), n
+    assert not any(e.name.startswith("mssvt.spconv_graph")
+                   for e in eager_prof.events())
+    assert _same_sites(seen[-1][2], eager[0]["conv_out"])

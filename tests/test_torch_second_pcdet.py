@@ -182,10 +182,10 @@ def tiny_second():
 
 
 def test_second_request_spans(tiny_second, tmp_path):
-    """The six stages in order and disjoint inside ``mssvt.request``;
-    ``mssvt.spconv_rules`` (the input's index, each stage's table, each
-    strided layer's sites, table and index) only inside
-    ``mssvt.backbone_3d``."""
+    """The six stages in order and disjoint inside ``mssvt.request``; one
+    ``mssvt.spconv_rules`` a request (the whole rulebook: the input's
+    index, each stage's table, each strided layer's sites, table and
+    index), inside ``mssvt.backbone_3d``."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         eval_step(*tiny_second)
     path = tmp_path / "trace.json"
@@ -199,10 +199,8 @@ def test_second_request_spans(tiny_second, tmp_path):
     for (_, end), (start, _) in zip(stages, stages[1:]):
         assert end <= start
     rules = trace.ranges(events, "mssvt.spconv_rules")
-    # the input's index; conv_input's and conv1's tables; conv2-4's strided
-    # layers (sites, table and index in one span) and their stages' tables;
-    # conv_out's strided layer
-    assert len(rules) == 1 + 2 + 3 * 2 + 1
+    # the backbone builds every table up front, before its first layer
+    assert len(rules) == 1
     (bb,) = trace.ranges(events, "mssvt.backbone_3d")
     assert all(bb[0] <= s and e <= bb[1] for s, e in rules)
 

@@ -378,6 +378,187 @@ def test_backbone_builds_the_index_it_reads(name):
     assert float(got[0].features.abs().sum()) > 0
 
 
+def _backbone(name):
+    """A seeded tiny 8x backbone in eval: ``VoxelBackBone8x`` (on the grid
+    as given, or with ``pcdet_sparse_shape`` one cell deeper) or
+    ``UNetV2``."""
+    from mssvt_tpu_torch.models.backbones_3d.spconv_unet import UNetV2
+    from mssvt_tpu_torch.models.network import init_weights
+
+    if name == "UNetV2":
+        tm = UNetV2(in_channels=4, grid_size=GRID, **BACKBONE_KW)
+    else:
+        tm = t_bb.VoxelBackBone8x(
+            in_channels=4, grid_size=GRID,
+            pcdet_sparse_shape=name == "pcdet_sparse_shape", **BACKBONE_KW)
+    return init_weights(tm, 0).eval()
+
+
+def _bare(coords, valid, feats):
+    return TSV.create(_t(feats), _t(coords), _t(valid), BATCH, GRID, VS, PCR,
+                      with_index=False)
+
+
+def _assert_same_index(got, want):
+    assert torch.equal(got.sorted_keys, want.sorted_keys)
+    assert torch.equal(got.sorted_rows, want.sorted_rows)
+
+
+@pytest.mark.parametrize("seed", [13, 14])
+@pytest.mark.parametrize("name", ["VoxelBackBone8x", "pcdet_sparse_shape",
+                                  "UNetV2"])
+def test_rulebook_equals_the_tables_built_layer_by_layer(name, seed):
+    """One ``rules`` call gives the tables each layer built for itself: the
+    input's index on the backbone's grid, each submanifold stage's table on
+    its sites, and each strided layer's output sites, table and index, equal
+    to the table functions called one layer at a time."""
+    tm = _backbone(name)
+    coords, valid, feats = _scene(seed)
+    rules = tm.rules(_bare(coords, valid, feats))
+    c, v, shape = _t(coords), _t(valid), tuple(tm.sparse_shape)
+    index = t_index.build_index(c, v, shape)
+    assert rules.sites.features is None
+    assert torch.equal(rules.sites.coords, c)
+    assert torch.equal(rules.sites.valid, v)
+    assert tuple(rules.sites.spatial_shape) == shape
+    _assert_same_index(rules.sites.index, index)
+    assert set(rules.tables) == set(t_bb.ENCODER)
+    for layer_name in t_bb.ENCODER:
+        layer, table = getattr(tm, layer_name), rules.tables[layer_name]
+        if not isinstance(layer, t_bb.SparseConvDownLayer):
+            want = t_sc.build_subm_neighbor_table(c, v, index, shape)
+            assert torch.equal(table, want), layer_name
+            continue
+        geo = (layer.kernel_size, layer.stride, layer.padding)
+        oc, ov, oshape = t_sc.downsample_output_sites(c, v, shape, *geo,
+                                                      layer.max_out)
+        want = t_sc.build_strided_neighbor_table(c, v, index, shape, oc, ov,
+                                                 *geo)
+        sites, rows = table
+        assert torch.equal(rows, want), layer_name
+        assert torch.equal(sites.coords, oc) and torch.equal(sites.valid, ov)
+        assert tuple(sites.spatial_shape) == tuple(oshape)
+        assert sites.features is None
+        c, v, shape = oc, ov, tuple(oshape)
+        index = t_index.build_index(c, v, shape)
+        _assert_same_index(sites.index, index)
+    assert int(v.sum()) > 0  # conv_out keeps live sites
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("name", ["VoxelBackBone8x", "UNetV2"])
+def test_a_second_forward_makes_no_tensor_from_host_data(name, train,
+                                                         monkeypatch):
+    """The tables' small constants (kernel offsets, strides, paddings,
+    candidate sites) are made once a value and device and kept there: after
+    a first forward (and, in training, its backward) a second one creates
+    no tensor from host data. On the card each would be a pageable copy
+    and a host sync, which a CUDA graph cannot capture."""
+    tm = _backbone(name).train(train)
+    sp = _bare(*_scene(15))
+
+    def forward():
+        with torch.set_grad_enabled(train):
+            out = tm(sp)
+            feats = (out[0] if isinstance(out, tuple) else out).features
+            if train:
+                feats.sum().backward()
+        return feats.detach()
+
+    first = forward()
+
+    def refuse(*a, **k):
+        raise AssertionError("a tensor made from host data")
+
+    for fn in ("tensor", "as_tensor", "from_numpy"):
+        monkeypatch.setattr(torch, fn, refuse)
+    second = forward()
+    monkeypatch.undo()
+    if not train:
+        assert torch.equal(first, second)
+    assert float(second.abs().sum()) > 0
+
+
+# the route's conditions one at a time; plain forward hooks on a layer that
+# ends a stage run after a replay, any other hook sees the ops one by one
+SPCONV_ROUTES = {"cpu": False, "train": False, "grad": False,
+                 "generator": False, "pre_hook_on_stage_end": False,
+                 "hook_inside_stage": False, "hook_on_strided_layer": False,
+                 "kwargs_hook_on_stage_end": False, "hook_on_stage_end": True,
+                 "card_eval_no_grad": True}
+
+
+@pytest.mark.parametrize("case", sorted(SPCONV_ROUTES))
+def test_spconv_backbone_graph_route(case):
+    """Only an inference call on the card (eval, no autograd, no generator,
+    no hook but plain forward hooks on the five stage-ending layers) takes
+    the CUDA graphs; on the CPU every call runs the eager forward, opens no
+    ``mssvt.spconv_graph`` span and keeps no graph."""
+    from types import SimpleNamespace
+
+    model = _backbone("VoxelBackBone8x")
+    sp = _bare(*_scene(16))
+    gen = torch.Generator().manual_seed(1) if case == "generator" else None
+    if case == "train":
+        model.train()
+    hooks = {"pre_hook_on_stage_end": lambda: model.conv1
+             .register_forward_pre_hook(lambda m, a: None),
+             "hook_inside_stage": lambda: model.conv1.subm_0
+             .register_forward_hook(lambda m, a, o: None),
+             "hook_on_strided_layer": lambda: model.conv2_down
+             .register_forward_hook(lambda m, a, o: None),
+             "kwargs_hook_on_stage_end": lambda: model.conv_out
+             .register_forward_hook(lambda m, a, k, o: None,
+                                    with_kwargs=True),
+             "hook_on_stage_end": lambda: model.conv3_subm
+             .register_forward_hook(lambda m, a, o: None)}
+    handle = hooks[case]() if case in hooks else None
+    card_like = SimpleNamespace(
+        features=SimpleNamespace(is_cuda=case != "cpu"), index=None)
+    with torch.set_grad_enabled(case == "grad"):
+        graphed = model._graphed(card_like, gen)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = model(sp, gen)
+    if handle is not None:
+        handle.remove()
+    assert graphed == SPCONV_ROUTES[case]
+    names = [e.name for e in prof.events() if e.name.startswith("mssvt.")]
+    assert names == ["mssvt.spconv_rules"]
+    assert model.graph.key is None
+    model.eval()
+    with torch.no_grad():
+        want = model.layers(sp, model.rules(sp))[-1]
+    assert torch.equal(out.valid, want.valid)
+    if case == "train":
+        assert out.features.shape == want.features.shape
+    else:
+        assert torch.equal(out.features, want.features)
+
+
+@pytest.mark.parametrize("how", ["deepcopy", "pickle"])
+def test_a_copy_of_the_backbone_starts_without_graphs(how):
+    """A copy of a backbone that holds CUDA graphs (which cannot be
+    pickled, and read and write the original's tensors) starts with none;
+    the original keeps its own."""
+    import pickle
+    import threading
+
+    model = _backbone("VoxelBackBone8x")
+    held = threading.Lock()  # stands in for the captured graphs
+    model.graph.key, model.graph.captured = ("a key",), held
+    copy_ = (copy.deepcopy(model) if how == "deepcopy"
+             else pickle.loads(pickle.dumps(model)))
+    assert copy_.graph.key is None and copy_.graph.captured is None
+    assert (copy_.graph.name, copy_.graph.what) == (model.graph.name,
+                                                    model.graph.what)
+    assert model.graph.captured is held
+    sp = _bare(*_scene(17))
+    with torch.no_grad():
+        assert torch.equal(copy_(sp).features,
+                           model.layers(sp, model.rules(sp))[-1].features)
+
+
 def _assert_sites_and_features(got, want, name):
     np.testing.assert_array_equal(_np(got.coords), np.asarray(want.coords),
                                   err_msg=name)
