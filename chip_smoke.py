@@ -194,7 +194,11 @@ print the device time of each launch inside one K5 and one K7 call
    its K2c/K2b launches: the entry points, the official R40 evaluation,
    the picks of every K2c/K2b call of a request (PV-RCNN's 2 x 16 384 ->
    2 048, PointRCNN's four levels) against ``fps_plain`` on the same card
-   planes (timed); prints raw points and live RoIs a frame, each
+   planes (timed); then PointRCNN with pcdet's RoI head as
+   ``benchmark/configs/pointrcnn-kitti.json`` builds it (bf16) on the same
+   request: its launches (K2c 4, K2b 2) and its six FPS calls' picks, the
+   head's 200 x 512 -> 128 and 200 x 128 -> 32 inside the RoIs among them,
+   against ``fps_plain``; prints raw points and live RoIs a frame, each
    synchronised step and request, the proposal NMS's share, the sector
    FPS's host seconds, K2c's, K2b's, the groupings', the 3-NN's, the
    interpolation's and the RoI point pool's device time under
@@ -2725,6 +2729,11 @@ POINT_LAUNCHES = {  # each step and request of 13b
     "pv_rcnn": launches(fps_picks_block=1),
     "pv_rcnn_plusplus": launches(fps_picks_masked=2),
     "pointrcnn": launches(fps_picks_block=3, fps_picks_warp=1)}
+# 13b's request of PointRCNN with pcdet's RoI head, as the benchmark's
+# configuration builds it: the backbone's four levels, then the head's
+# 200 x 512 -> 128 (K2c) and 200 x 128 -> 32 (K2b) inside every RoI
+PCDET_POINTRCNN = ROOT / "benchmark" / "configs" / "pointrcnn-kitti.json"
+PCDET_HEAD_LAUNCHES = launches(fps_picks_block=4, fps_picks_warp=2)
 POINT_FILES = dict(train=[f"{i:06d}" for i in range(4)],
                    val=[f"{i:06d}" for i in range(4, 6)], points=120_000)
 POINT_TINY_RANGE = (0.0, -6.4, -2.0, 12.8, 6.4, 2.0)
@@ -2993,7 +3002,8 @@ def point_sites():
             (point_rcnn, "proposal_layer", "proposal NMS"),
             (pfe, "query_and_group", "query_and_group"),
             (pvrcnn_head, "query_and_group", "query_and_group"),
-            (pointnet2_backbone, "query_and_group", "query_and_group"),
+            (pointnet2_backbone, "ball_query", "query_and_group"),
+            (pointnet2_backbone, "group_points", "query_and_group"),
             (pfe, "vector_pool", "vector_pool"),
             (pfe, "sector_fps", "sector_fps"),
             (pointnet2_backbone, "three_nn", "three_nn"),
@@ -3013,7 +3023,10 @@ def request_fps_check(torch, model, batch, name, card):
     timed (CUDA events), with the kernel's bound (the planes read once, the
     picks written once, vs ~10 f32 operations a point and iteration). One
     line a call; returns the masked FPS's kernel row (PV-RCNN++), else
-    None."""
+    None, and the launch counts of the request alone (counted from 0).
+    ``pointrcnn_pcdet`` is PointRCNN with pcdet's RoI head: the four
+    levels, then the head's 200 x 512 -> 128 and 200 x 128 -> 32."""
+    from mssvt_tpu_torch import kernels
     from mssvt_tpu_torch.kernels import fps, work
     from mssvt_tpu_torch.models.backbones_3d import pfe, pointnet2_backbone
     from mssvt_tpu_torch.ops import sampling
@@ -3037,14 +3050,19 @@ def request_fps_check(torch, model, batch, name, card):
         for (mod, attr), original in zip(sites, originals):
             setattr(mod, attr, recorder(original))
         model.eval()
+        kernels.reset_launch_counts()
         eval_step(model, batch)
+        counts = kernels.launch_counts()
     finally:
         for (mod, attr), original in zip(sites, originals):
             setattr(mod, attr, original)
+    backbone = [(2, 16384, 4096), (2, 4096, 1024), (2, 1024, 256),
+                (2, 256, 64)]
     want = {"pv_rcnn": [(2, 16384, 2048)],
             "pv_rcnn_plusplus": [(12, 16384, 342), (2, 2052, 2048)],
-            "pointrcnn": [(2, 16384, 4096), (2, 4096, 1024), (2, 1024, 256),
-                          (2, 256, 64)]}[name]
+            "pointrcnn": backbone,
+            "pointrcnn_pcdet": backbone + [(200, 512, 128),
+                                           (200, 128, 32)]}[name]
     got = [(picks.shape[0], xyz.shape[1], int(args[-1]))
            for xyz, args, picks in calls]
     if got != want:
@@ -3101,7 +3119,65 @@ def request_fps_check(torch, model, batch, name, card):
         log(f"# 13b {name} masked FPS, both passes of a request: "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"bound_ms={row['bound_ms']:.4f} [{card}]")
-    return row
+    return row, counts
+
+
+def pcdet_head_request_check(torch, batch, card):
+    """13b: PointRCNN with pcdet's RoI head as ``PCDET_POINTRCNN`` builds
+    it (published widths, bf16, batch 2, TEST NMS 9 000 -> 100), seeded,
+    its point head's box output set as ``point_tiny_models`` sets it (boxes
+    of the class mean size at each point, so that the RoIs hold points),
+    serving one request of 13b's ``pointrcnn.yaml`` files: that request
+    alone launches K2c 4 times and K2b twice (``PCDET_HEAD_LAUNCHES``) and
+    no other kernel of K1-K7, and each of its six FPS calls, the head's
+    200-row ones included, picks what ``fps_plain`` picks on the same card
+    planes (``request_fps_check``). Logs the live RoIs a frame and those
+    that hold points."""
+    import json
+
+    from mssvt_tpu_torch.models import build_network
+    from mssvt_tpu_torch.utils.edict import EasyDict
+
+    config = json.loads(PCDET_POINTRCNN.read_text())
+    data, classes = config["data"], config["class_names"]
+    model = build_network(
+        EasyDict(config["MODEL"]), len(classes), classes,
+        tuple(data["grid_size"]), tuple(data["voxel_size"]),
+        tuple(data["point_cloud_range"]), 2,
+        int(data["max_voxels_per_frame"]), int(data["max_points_per_voxel"]),
+        num_point_features=int(data["num_point_features"]), device="cuda",
+        seed=28)
+    with torch.no_grad():
+        out = model.point_head.reg_out
+        out.weight.mul_(0.01)
+        out.bias.zero_()
+        out.bias[6] = 1.0
+    seen = {}
+    hooks = [model.proposals.register_forward_hook(
+                 lambda m, a, o: seen.__setitem__("valid", o[3])),
+             model.roi_head.pool.register_forward_hook(
+                 lambda m, a, o: seen.__setitem__("empty", o[1]))]
+    try:
+        _, counts = request_fps_check(torch, model, batch, "pointrcnn_pcdet",
+                                      card)
+    finally:
+        for h in hooks:
+            h.remove()
+    got = {k: v for k, v in counts.items() if v}
+    want = {k: v for k, v in PCDET_HEAD_LAUNCHES.items() if v}
+    if got != want:
+        raise AssertionError(f"13b pointrcnn_pcdet: the request's launches "
+                             f"{got} != {want}")
+    live = seen["valid"].sum(1).tolist()
+    held = (seen["valid"] & ~seen["empty"]).sum(1).tolist()
+    if not all(held):
+        raise AssertionError(f"13b pointrcnn_pcdet: live RoIs a frame {live}"
+                             f", of them holding points {held}")
+    log(f"# 13b pointrcnn_pcdet ({type(model.roi_head).__name__}, "
+        f"{PCDET_POINTRCNN.name}): the request's launches {got}; live RoIs "
+        f"a frame {live}, of them holding points {held} [{card}]")
+    del model
+    torch.cuda.empty_cache()
 
 
 def point_files_path(torch, card):
@@ -3178,7 +3254,9 @@ def point_files_path(torch, card):
         kitti_official_check(seen["result"], root, ds, classes, label)
         runs = {kind: (seen[f"{kind}_model"], seen[kind][-1][1])
                 for kind in ("step", "request")}
-        row = request_fps_check(torch, *runs["request"], name, card)
+        row, _ = request_fps_check(torch, *runs["request"], name, card)
+        if name == "pointrcnn":
+            pcdet_head_request_check(torch, runs["request"][1], card)
         if row is not None:
             # the launches of the counted request, held to POINT_LAUNCHES
             row["launches"] = seen["request"][-1][0]["fps_picks_masked"]

@@ -3,11 +3,21 @@ ref: pcdet/models/detectors/point_rcnn.py and roi_heads/pointrcnn_head.py).
 
 ``PointNet2MSG`` over the raw points (its FPS levels on K2c, and on K2b
 where a level's input has at most 256 points) -> ``PointHeadBox`` (a class
-and a box a point) -> the proposal NMS -> ``PointRCNNRoIHead``: the points
-pooled inside each RoI (``roipoint_pool3d``) in the RoI's canonical frame,
-a shared MLP, max over the points, shared FC layers, the class and box
-outputs. The gradient flows through the RoIs (the decoded point boxes) into
-the first stage, as in JAX. Outputs as PV-RCNN's.
+and a box a point) -> the proposal NMS (the module ``proposals``) -> the
+RoI head. Where ``ROI_HEAD`` holds no ``SA_CONFIG`` that is the JAX
+package's ``PointRCNNRoIHead``: the points pooled inside each RoI
+(``roipoint_pool3d``) in the RoI's canonical frame, a shared MLP, max over
+the points, shared FC layers, the class and box outputs; the gradient flows
+through the RoIs (the decoded point boxes) into the first stage, as in
+JAX. With ``SA_CONFIG`` it is pcdet's ``PointRCNNHead``
+(``roi_heads/pointrcnn_head.py``), which also pools each point's class
+score (the sigmoid of its class-max logit) and depth, and runs a PointNet++
+inside every RoI. Outputs as PV-RCNN's.
+
+The eval request opens ``mssvt.backbone_3d`` (the points by frame and
+``PointNet2MSG``, whose levels open ``mssvt.sa`` and ``mssvt.fp``),
+``mssvt.head`` (``PointHeadBox``) and ``mssvt.post`` (the decode, the
+proposals with their ``mssvt.nms``, and ``mssvt.roi_head``), in order.
 """
 
 from __future__ import annotations
@@ -18,13 +28,16 @@ import torch
 from torch import nn
 
 from ...ops.pointnet2 import roipoint_pool3d
+from ...runtime import tracing
 from ..backbones_3d.pointnet2_backbone import SharedMLP
 from ..builders import build_backbone_3d
 from ..dense_heads.point_head import PointHeadBox, assign_point_targets
 from ..model_utils.layers import BatchNorm, Dense
+from ..roi_heads.pointrcnn_head import PointRCNNHead
 from ..roi_heads.roi_head_template import (
     assign_proposal_targets,
     corner_weight_from_cfg,
+    Proposals,
     head_valid,
     nms_kwargs,
     proposal_layer,
@@ -66,10 +79,10 @@ class PointRCNNRoIHead(nn.Module):
         self.reg_out = Dense(c_in, code_size, dtype=dtype)
 
     def forward(self, points_xyz, point_features, points_valid, rois,
-                roi_valid):
+                roi_valid, point_scores=None):
         """points (B, N, 3), features (B, N, C), valid (B, N), rois (B, R,
         7) -> (cls (B, R), reg (B, R, code_size)), zeroed where the RoI is
-        not valid."""
+        not valid. ``point_scores`` is not read (pcdet's head pools it)."""
         pooled, _ = roipoint_pool3d(points_xyz, point_features, rois,
                                     self.num_sampled_points, points_valid)
         xyz = pooled[..., :3] - rois[..., None, :3]
@@ -88,6 +101,13 @@ class PointRCNNRoIHead(nn.Module):
         m = roi_valid.to(torch.float32)
         return (self.cls_out(x)[..., 0].float() * m,
                 self.reg_out(x).float() * m[..., None])
+
+
+def propose_points(boxes, scores, valid, labels, roi_cfg, train: bool):
+    """The point head's decoded boxes through :func:`proposal_layer` with
+    ``roi_cfg``'s TRAIN or TEST NMS (the module ``proposals``)."""
+    return proposal_layer(boxes, scores, valid, labels=labels,
+                          **nms_kwargs(roi_cfg, train))
 
 
 class PointRCNN(Detector3DTemplate):
@@ -110,9 +130,14 @@ class PointRCNN(Detector3DTemplate):
                                        num_class=ctx.num_class,
                                        dtype=ctx.dtype)
         self.roi_cfg = cfg["ROI_HEAD"]
-        self.roi_head = PointRCNNRoIHead(
-            self.roi_cfg, c_pt,
-            int(self.roi_cfg.get("NUM_SAMPLED_POINTS", 128)), dtype=ctx.dtype)
+        if "SA_CONFIG" in self.roi_cfg:
+            self.roi_head = PointRCNNHead(self.roi_cfg, c_pt, dtype=ctx.dtype)
+        else:
+            self.roi_head = PointRCNNRoIHead(
+                self.roi_cfg, c_pt,
+                int(self.roi_cfg.get("NUM_SAMPLED_POINTS", 128)),
+                dtype=ctx.dtype)
+        self.proposals = Proposals(self.roi_cfg, propose_points)
         # the class mean sizes live on the model's device (no host copy a
         # forward); not a parameter, not in the state dict
         self.register_buffer("mean_sizes", torch.tensor(
@@ -122,7 +147,7 @@ class PointRCNN(Detector3DTemplate):
 
     def run_roi_head(self, rin, rois, roi_valid, generator=None):
         return self.roi_head(rin["xyz"], rin["point_features"], rin["valid"],
-                             rois, roi_valid)
+                             rois, roi_valid, rin["point_scores"])
 
     def forward(self, batch, return_intermediates: bool = False,
                 generator=None):
@@ -130,17 +155,28 @@ class PointRCNN(Detector3DTemplate):
         ``tb_dict`` (``point_loss_cls``, ``point_loss_box``,
         ``rcnn_loss_cls``, ``rcnn_loss_reg``, ``rpn_loss``: the total, as
         JAX's). ``generator`` is unused (no dropout)."""
-        xyz, feat, valid = per_sample_points(batch, self.batch_size,
-                                             self.max_points)
-        point_features = self.backbone_3d(xyz, feat, valid)
-        cls_logits, box_preds = self.point_head(point_features)
+        with tracing.span("backbone_3d"):
+            xyz, feat, valid = per_sample_points(batch, self.batch_size,
+                                                 self.max_points)
+            point_features = self.backbone_3d(xyz, feat, valid)
+        with tracing.span("head"):
+            cls_logits, box_preds = self.point_head(point_features)
+        with tracing.span("post"):
+            return self._post(batch, xyz, valid, point_features, cls_logits,
+                              box_preds, return_intermediates)
+
+    def _post(self, batch, xyz, valid, point_features, cls_logits,
+              box_preds, return_intermediates):
+        """The decode, the proposals and the RoI head (span
+        ``mssvt.post``)."""
         labels_pred = cls_logits.argmax(dim=-1).to(torch.int32) + 1
         scores = torch.sigmoid(cls_logits).amax(dim=-1) * valid
         boxes = PointHeadBox.decode_point_boxes(xyz, box_preds, labels_pred,
                                                 self.mean_sizes)
-        rois, roi_scores, roi_labels, roi_valid = proposal_layer(
-            boxes, scores, valid, labels=labels_pred,
-            **nms_kwargs(self.roi_cfg, self.training))
+        rois, roi_scores, roi_labels, roi_valid = self.proposals(
+            boxes, scores, valid, labels_pred)
+        rin = {"xyz": xyz, "point_features": point_features, "valid": valid,
+               "point_scores": scores}
         out = {}
         if return_intermediates:
             out.update(rois=rois, roi_valid=roi_valid,
@@ -155,8 +191,9 @@ class PointRCNN(Detector3DTemplate):
             targets = assign_proposal_targets(
                 rois, roi_valid, gt, roi_per_image=int(
                     self.roi_cfg["TARGET_CONFIG"].get("ROI_PER_IMAGE", 128)))
-            r_cls, r_reg = self.roi_head(xyz, point_features, valid,
-                                         targets["rois"], head_valid(targets))
+            with tracing.span("roi_head"):
+                r_cls, r_reg = self.run_roi_head(rin, targets["rois"],
+                                                 head_valid(targets))
             rcnn_cls = roi_cls_loss(r_cls, targets["cls_labels"])
             rcnn_reg = roi_box_loss(
                 r_reg, targets["gt_of_rois"], targets["rois"],
@@ -170,7 +207,6 @@ class PointRCNN(Detector3DTemplate):
             if return_intermediates:
                 out["targets"] = targets
             return out
-        out.update(self.roi_detections(
-            {"xyz": xyz, "point_features": point_features, "valid": valid},
-            rois, roi_scores, roi_labels, roi_valid))
+        out.update(self.roi_detections(rin, rois, roi_scores, roi_labels,
+                                       roi_valid))
         return out

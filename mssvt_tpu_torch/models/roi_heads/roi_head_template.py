@@ -208,16 +208,20 @@ def propose(dense_head, preds, roi_cfg, train: bool):
 
 
 class Proposals(nn.Module):
-    """:func:`propose` as a module without parameters, with the config's
-    TRAIN or TEST NMS by the module's mode: a forward hook on it sees the
-    RoIs (rois, scores, labels, valid) that the RoI head is given."""
+    """A proposal function (a detector's own, else :func:`propose`, looked
+    up at each call) as a module without parameters, called with the
+    config's TRAIN or TEST NMS by the module's mode: a forward hook on it
+    sees the RoIs (rois, scores, labels, valid) that the RoI head is
+    given."""
 
-    def __init__(self, roi_cfg):
+    def __init__(self, roi_cfg, propose_fn=None):
         super().__init__()
         self.roi_cfg = roi_cfg
+        self.propose_fn = propose_fn
 
-    def forward(self, dense_head, preds):
-        return propose(dense_head, preds, self.roi_cfg, self.training)
+    def forward(self, *inputs):
+        return (self.propose_fn or propose)(*inputs, self.roi_cfg,
+                                            self.training)
 
 
 def two_stage_loss(dense_head, preds, gt_boxes, cls_logits, reg, targets,

@@ -2,9 +2,10 @@
 ref: pcdet/ops/pointnet2/ and ops/roipoint_pool3d/), on padded batch
 tensors with validity masks, plain PyTorch on both devices.
 
-- :func:`ball_query`, :func:`query_and_group`: the first ``nsample``
-  support points within a radius of each query, in index order, slot 0
-  replicated into the unfilled slots (ball_query_gpu.cu).
+- :func:`ball_query`, :func:`group_points`, :func:`query_and_group`: the
+  first ``nsample`` support points within a radius of each query, in index
+  order, slot 0 replicated into the unfilled slots (ball_query_gpu.cu),
+  and their grouped rows.
 - :func:`points_in_boxes`, :func:`roipoint_pool3d`: the first
   ``num_sampled_points`` points inside each box, wrapped modulo the count
   where fewer (roipoint_pool3d_kernel.cu:38-103).
@@ -77,16 +78,21 @@ def ball_query(radius: float, nsample: int, xyz, new_xyz, xyz_valid=None):
 
 def query_and_group(radius, nsample, xyz, new_xyz, features=None,
                     xyz_valid=None, use_xyz=True):
-    """:func:`ball_query` and the grouped (B, M, nsample, 3 [+ C]) rows:
-    each neighbour's xyz relative to its query, then its features; zero
-    for an empty query. Returns (grouped, empty)."""
+    """:func:`ball_query` and :func:`group_points`: (grouped, empty)."""
     idx, empty = ball_query(radius, nsample, xyz, new_xyz, xyz_valid)
+    return group_points(idx, empty, xyz, new_xyz, features, use_xyz), empty
+
+
+def group_points(idx, empty, xyz, new_xyz, features=None, use_xyz=True):
+    """The grouped (B, M, nsample, 3 [+ C]) rows of a ball query's (B, M,
+    nsample) ``idx``: each neighbour's xyz relative to its query, then its
+    features; zero for an ``empty`` query."""
     parts = []
     if use_xyz:
         parts.append(gather_batch_rows(xyz, idx) - new_xyz[:, :, None, :])
     if features is not None:
         parts.append(gather_batch_rows(features, idx))
-    return torch.cat(parts, dim=-1) * (~empty)[..., None, None], empty
+    return torch.cat(parts, dim=-1) * (~empty)[..., None, None]
 
 
 def roipoint_pool3d(points, point_features, boxes, num_sampled_points: int,

@@ -10,7 +10,8 @@ inside a loop, a block or a kernel wrapper; the finer spans,
 ``mssvt.spconv_graph``, open once for each sparse-conv rulebook, once for
 each NMS call and once for each replay of a backbone's CUDA graphs, never
 inside a kernel wrapper; the two-stage families' ``mssvt.keypoints``, ``mssvt.pfe``
-and ``mssvt.roi_head`` split ``mssvt.post`` once a request.
+and ``mssvt.roi_head`` split ``mssvt.post`` once a request; PointNet++'s
+``mssvt.sa`` and ``mssvt.fp`` open once for each level of the backbone.
 
 The spans of an eval request: ``mssvt.request`` around the forward, and
 inside it, in order and without overlap, the six stages, opened by the
@@ -55,12 +56,21 @@ inside ``mssvt.backbone_3d``, the NMS ``mssvt.nms`` inside ``mssvt.post``:
   ``mssvt.keypoints``;
 - ``mssvt.roi_head``: ``Detector3DTemplate.two_stage`` /
   ``roi_detections``, every two-stage family's RoI head (for PV-RCNN the
-  RoI-grid pooling and the FCs) and, in eval, the refinement, last inside
-  ``mssvt.post``.
+  RoI-grid pooling and the FCs; for PointRCNN the RoI point pool, the
+  canonical transform and, with pcdet's head, the PointNet++ inside every
+  RoI) and, in eval, the refinement, last inside ``mssvt.post``;
+- ``mssvt.sa``: ``backbones_3d/pointnet2_backbone.py``'s ``PointNet2MSG``,
+  one for each set abstraction level (FPS, ball queries, grouping, shared
+  MLPs, max), inside ``mssvt.backbone_3d``;
+- ``mssvt.fp``: the same, one for each feature propagation level (3-NN,
+  interpolation, shared MLPs), after the ``mssvt.sa`` levels.
 
 PointPillar and CaDDN open ``mssvt.vfe``, ``mssvt.map_to_bev``,
 ``mssvt.backbone_2d``, ``mssvt.head`` and ``mssvt.post`` through the same
-code.
+code. PointRCNN (``detectors/point_rcnn.py``) opens ``mssvt.backbone_3d``
+(the raw points by frame and ``PointNet2MSG``), ``mssvt.head`` (the point
+head) and ``mssvt.post`` (the decode, the proposals with their
+``mssvt.nms``, then ``mssvt.roi_head``), in order and disjoint.
 """
 
 from __future__ import annotations

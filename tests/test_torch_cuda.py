@@ -1491,6 +1491,88 @@ def test_pvrcnn_plusplus_keypoints_span_on_card(dev, tmp_path):
     assert len(masked) == 2 and len(ks) < 64, [e["name"] for e in ks]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,npoint,kernel", [(512, 128, "block"),
+                                             (128, 32, "warp")])
+def test_pointrcnn_head_fps_at_the_cells_shapes(dev, n, npoint, kernel):
+    """pcdet's PointRCNN head samples inside every RoI: 2 frames x 100 RoIs
+    = 200 rows, 512 pooled points -> 128 on K2c, then 128 -> 32 on K2b.
+    Rows as the pool makes them: distinct points, a box's few points
+    repeated (the pool wraps modulo the count), an empty RoI's zeros. The
+    picks of ``ops.sampling.farthest_point_sample`` equal the plain loop's,
+    one launch of the kernel that N selects."""
+    from mssvt_tpu_torch.ops.sampling import farthest_point_sample
+
+    rows = 200
+    g = torch.Generator().manual_seed(8)
+    xyz = torch.randn((rows, n, 3), generator=g) * 2.0
+    few = xyz[40:80, :5].repeat(1, -(-n // 5), 1)[:, :n]
+    xyz[40:80] = few
+    xyz[80:100] = 0.0
+    xyz = xyz.to(dev)
+    before = (fps.launches_block, fps.launches_warp)
+    got = farthest_point_sample(xyz, npoint)
+    planes = [xyz[..., i].contiguous() for i in range(3)]
+    want = fps.fps_plain(*planes, (), npoint)[0]
+    torch.cuda.synchronize()
+    assert got.shape == (rows, npoint) and torch.equal(got, want)
+    block = fps.launches_block - before[0]
+    warp = fps.launches_warp - before[1]
+    assert (block, warp) == ((1, 0) if kernel == "block" else (0, 1))
+
+
+@pytest.mark.cuda
+def test_pointrcnn_pcdet_head_tiny_on_card_matches_cpu(dev):
+    """The benchmark's rehearsal PointRCNN with pcdet's RoI head, in f32, on
+    the harness's seeded weights: on the card its detections are the
+    CPU's (boxes as sets within 1e-3 of their size, the same count a
+    frame); the plain reference, stage by stage on the card's outputs,
+    finds the same FPS picks and ball-query members and every stage within
+    1e-4; the request launches K2c and K2b and no other kernel of K1-K7."""
+    import copy
+
+    from benchmark.harness import compare, program, spec, weights
+    from benchmark.traffic import kitti_points_scene
+    from mssvt_tpu_torch import kernels
+
+    config = copy.deepcopy(spec.load_json(spec.BENCH / "rehearsal" /
+                                          "pointrcnn-kitti.json"))
+    config["MODEL"].pop("DTYPE")
+    ref = spec.load_module(spec.BENCH / "reference" / "pointrcnn-kitti.py")
+    cpu = torch.device("cpu")
+    host, _ = kitti_points_scene.make(
+        dict(config["traffic"]["params"], distinct_batches=1), config, 2, 13)
+    on_cpu = program.to_device(host[0], cpu)
+    ref_model = ref.build(config, 2, cpu)
+    made = weights.make(ref_model, 13, cpu, on_cpu, ref.forward)
+    want = program.request(program.build(config, 2, cpu, made), on_cpu)
+    model = program.build(config, 2, dev,
+                          {k: v.to(dev) for k, v in made.items()})
+    ref_model = ref_model.to(dev)
+    batch = program.to_device(host[0], dev)
+    got = {}
+    hooks = [getattr(*program.resolve(model, p)).register_forward_hook(
+        lambda m, a, o, p=p: got.__setitem__(p, o))
+        for p in ref.capture(ref_model)]
+    kernels.reset_launch_counts()
+    dets = program.request(model, batch)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    launched = {k for k, v in kernels.launch_counts().items() if v}
+    assert launched == {"fps_picks_block", "fps_picks_warp"}
+    dets_cpu = tuple(t.cpu() for t in dets)
+    assert compare.count_gap(dets_cpu[3], want[3]) == 0.0
+    scale = max(1.0, float(want[0].abs().amax()))
+    cands = (want[0], want[1], want[2], torch.ones_like(want[1]))
+    assert compare.det_gap(dets_cpu, want, cands) <= 1e-3 * scale
+    n = ref.judge(ref_model, batch, got, dets)
+    assert n["fps_gap"] == 0.0 and n["query_gap"] == 0.0, n
+    for k in ("backbone_rel", "bev_rel", "head_rel", "roi_rel"):
+        assert n[k] < 1e-4, n
+    assert n["det_gap"] < 1e-4 and n["count_gap"] == 0.0, n
+
+
 # ------------------------------ CaDDN, CT3D_3CAT, AnchorHeadMulti/ATSS
 # no kernel of K1-K7 on their path; the camera sampler's gathers go through
 # gather_rows, whose backward must repeat bit for bit

@@ -133,6 +133,56 @@ def test_request_makes_seven_spans_in_order(name, tiny, tmp_path):
         assert stages[1][0] <= start and end <= stages[1][1]
 
 
+@pytest.fixture(scope="module")
+def pointrcnn():
+    """The benchmark's rehearsal PointRCNN (pcdet's RoI head) on the CPU,
+    seeded weights, and one batch of its traffic."""
+    reh = json.loads(json.dumps(spec.load_json(
+        spec.BENCH / "rehearsal" / "pointrcnn-kitti.json")))
+    data = reh["data"]
+    model = build_network(
+        EasyDict(reh["MODEL"]), 3, reh["class_names"],
+        tuple(data["grid_size"]), tuple(data["voxel_size"]),
+        tuple(data["point_cloud_range"]), 2, data["max_voxels_per_frame"],
+        data["max_points_per_voxel"], num_point_features=4, device="cpu")
+    from benchmark.traffic import kitti_points_scene
+
+    host, _ = kitti_points_scene.make(
+        dict(reh["traffic"]["params"], distinct_batches=1), reh, 2, 7)
+    return model, {k: torch.as_tensor(v) for k, v in host[0].items()}
+
+
+def test_pointrcnn_request_spans_in_order(pointrcnn, tmp_path):
+    """PointRCNN's request opens ``mssvt.backbone_3d``, ``mssvt.head`` and
+    ``mssvt.post`` in order and disjoint inside ``mssvt.request``; each of
+    ``PointNet2MSG``'s four set abstractions opens ``mssvt.sa`` and each of
+    its four feature propagations ``mssvt.fp``, in order inside
+    ``mssvt.backbone_3d``; the proposals' ``mssvt.nms`` and then
+    ``mssvt.roi_head`` lie inside ``mssvt.post``."""
+    model, batch = pointrcnn
+    _, events = profiled_request(model, batch, tmp_path)
+    names = span_names(events)
+    assert names == sorted(["mssvt.request", "mssvt.backbone_3d",
+                            "mssvt.head", "mssvt.post", "mssvt.nms",
+                            "mssvt.roi_head"] + ["mssvt.sa"] * 4
+                           + ["mssvt.fp"] * 4)
+    (req,) = trace.ranges(events, "mssvt.request")
+    stages = [trace.ranges(events, "mssvt." + s)[0]
+              for s in ("backbone_3d", "head", "post")]
+    assert req[0] <= stages[0][0] and stages[-1][1] <= req[1]
+    levels = (trace.ranges(events, "mssvt.sa")
+              + trace.ranges(events, "mssvt.fp"))
+    for outer, inner in [(stages[0], levels),
+                         (stages[2], [trace.ranges(events, "mssvt.nms")[0],
+                                      trace.ranges(events,
+                                                   "mssvt.roi_head")[0]])]:
+        assert outer[0] <= inner[0][0] and inner[-1][1] <= outer[1]
+        for (_, end), (start, _) in zip(inner, inner[1:]):
+            assert end <= start
+    for (_, end), (start, _) in zip(stages, stages[1:]):
+        assert end <= start
+
+
 def test_no_record_function_without_a_profiler(tiny, monkeypatch):
     def refuse(name):
         raise AssertionError(f"record_function({name!r}) without a profiler")
