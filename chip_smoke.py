@@ -183,27 +183,31 @@ print the device time of each launch inside one K5 and one K7 call
    the peaks and the phase's seconds (``# 12a``/``# 12b`` lines).
 13. the point-based two-stage family (PV-RCNN, PV-RCNN++, PointRCNN; K2c
    on PV-RCNN's keypoint FPS and PointRCNN's set abstractions over more
-   than 256 points, K2b on its last, none on PV-RCNN++'s plain sector
-   FPS): 13a the JAX suite's tiny f32 models on the card against the CPU
+   than 256 points, K2b on its last, the masked FPS on PV-RCNN++'s sector
+   FPS, the ball-query kernel on every ball query of the three): 13a the JAX suite's tiny f32 models on the card against the CPU
    plain path on the same weights (refined boxes as sets within 1e-3; one
    ``train_step``: loss within 1e-4 relative, gradient norm within 1e-3;
    a bit-identical repeated backward; exactly the expected kernels
    launched); 13b ``pv_rcnn.yaml``, ``pv_rcnn_plusplus.yaml`` and
    ``pointrcnn.yaml`` at their published widths (f32) and batch 2 on a
    KITTI tree of 11b's seeded writer, each step and request checked for
-   its K2c/K2b launches: the entry points, the official R40 evaluation,
+   its K2c/K2b/masked FPS/ball-query launches: the entry points, the official R40 evaluation,
    the picks of every K2c/K2b call of a request (PV-RCNN's 2 x 16 384 ->
    2 048, PointRCNN's four levels) against ``fps_plain`` on the same card
    planes (timed); then PointRCNN with pcdet's RoI head as
    ``benchmark/configs/pointrcnn-kitti.json`` builds it (bf16) on the same
-   request: its launches (K2c 4, K2b 2) and its six FPS calls' picks, the
+   request: its launches (K2c 4, K2b 2, ball query 10) and its six FPS
+   calls' picks, the
    head's 200 x 512 -> 128 and 200 x 128 -> 32 inside the RoIs among them,
    against ``fps_plain``; prints raw points and live RoIs a frame, each
    synchronised step and request, the proposal NMS's share, the sector
    FPS's host seconds, K2c's, K2b's, the groupings', the 3-NN's, the
    interpolation's and the RoI point pool's device time under
    ``torch.profiler``, the peaks and the phase's seconds (``# 13a``/``#
-   13b`` lines).
+   13b`` lines); 13c the ball-query kernel at PointRCNN's first level (2 x
+   4 096 FPS centres over 16 384 raw points, r 0.1 / 16 slots and r 0.5 /
+   32) against ``ball_query_plain`` on the same card tensors, both timed,
+   beside ``work.ball_query``'s bound (``# 13c`` lines, the kernel row).
 14. the last three families (no kernel of K1-K7 on their path, and every
    step and request is checked to launch none): 14a the JAX suite's tiny
    f32 CaDDN, CT3D_3CAT and SECOND with AnchorHeadMulti/ATSS on the card
@@ -275,7 +279,7 @@ ROOT = Path(__file__).resolve().parent
 BF16_TOL = 2.0 ** -5
 KERNEL_NAMES = ("fill", "fps", "fps_picks_warp", "fps_picks_block",
                 "fps_picks_masked", "attention", "attention_bwd",
-                "attention_qk", "attention_qk_bwd", "ffn")
+                "attention_qk", "attention_qk_bwd", "ffn", "ball_query")
 
 
 def launches(**counts):
@@ -492,6 +496,7 @@ TPU_COUNTERPART = {
                        "farthest_point_sample_planes_pallas",
     "fps_picks_masked": "none (mssvt_tpu/ops/sampling.py:302 "
                         "farthest_point_sample_masked, a plain loop)",
+    "ball_query": "none (mssvt_tpu/ops/pointnet2.py ball_query, plain jnp)",
 }
 SOURCE = {n: f"mssvt_tpu_torch/csrc/{n}.cu" for n in KERNEL_NAMES}
 SOURCE["fps_picks_warp"] = SOURCE["fps_picks_block"] = SOURCE["fps"]
@@ -2719,21 +2724,29 @@ def nms_share(torch, model, batch, cfg, kind, sites=None):
 # PV-RCNN's keypoint FPS (2 x 16 384 -> 2 048) and PointRCNN's set
 # abstractions over more than 256 points (16 384 -> 4 096, 4 096 -> 1 024,
 # 1 024 -> 256), K2b PointRCNN's last one (256 -> 64); PV-RCNN++ samples its
-# keypoints with the masked sector FPS, plain on the card, and launches no
-# kernel. 13b trains and serves the three shipped configs at the yaml's
+# keypoints with the masked sector FPS. Every ball query of the three is one
+# launch of the ball-query kernel: PV-RCNN's and PV-RCNN++'s raw points,
+# sparse source and RoI grid, two radii each; PointRCNN's four levels, two
+# radii each. 13b trains and serves the three shipped configs at the yaml's
 # batch 2 on a KITTI tree of 11b's seeded writer, 4 train frames (2 steps)
 # and 2 val frames (1 request).
 POINT_TINY = ("pvrcnn", "pvrcnn_plusplus", "pointrcnn")
 POINT_YAMLS = ("pv_rcnn", "pv_rcnn_plusplus", "pointrcnn")
 POINT_LAUNCHES = {  # each step and request of 13b
-    "pv_rcnn": launches(fps_picks_block=1),
-    "pv_rcnn_plusplus": launches(fps_picks_masked=2),
-    "pointrcnn": launches(fps_picks_block=3, fps_picks_warp=1)}
+    "pv_rcnn": launches(fps_picks_block=1, ball_query=6),
+    "pv_rcnn_plusplus": launches(fps_picks_masked=2, ball_query=6),
+    "pointrcnn": launches(fps_picks_block=3, fps_picks_warp=1, ball_query=8)}
 # 13b's request of PointRCNN with pcdet's RoI head, as the benchmark's
 # configuration builds it: the backbone's four levels, then the head's
-# 200 x 512 -> 128 (K2c) and 200 x 128 -> 32 (K2b) inside every RoI
+# 200 x 512 -> 128 (K2c) and 200 x 128 -> 32 (K2b) inside every RoI; a ball
+# query at each of the backbone's eight radii and the head's first two levels
 PCDET_POINTRCNN = ROOT / "benchmark" / "configs" / "pointrcnn-kitti.json"
-PCDET_HEAD_LAUNCHES = launches(fps_picks_block=4, fps_picks_warp=2)
+PCDET_HEAD_LAUNCHES = launches(fps_picks_block=4, fps_picks_warp=2,
+                               ball_query=10)
+# 13c: the ball-query kernel at PointRCNN's first level (B, N, M, radius,
+# nsample): 2 frames x 4 096 FPS centres over 16 384 raw points, both radii
+BALL_QUERY_SHAPES = ((2, 16384, 4096, 0.1, 16), (2, 16384, 4096, 0.5, 32))
+BALL_QUERY_ROWS = 15_000  # valid raw points a frame (the rest padding)
 POINT_FILES = dict(train=[f"{i:06d}" for i in range(4)],
                    val=[f"{i:06d}" for i in range(4, 6)], points=120_000)
 POINT_TINY_RANGE = (0.0, -6.4, -2.0, 12.8, 6.4, 2.0)
@@ -2968,16 +2981,18 @@ def point_tiny_check(torch, name, seed):
 def point_tiny_reference(torch):
     """13a: ``point_tiny_check`` for the tiny PV-RCNN, PV-RCNN++ and
     PointRCNN: K2c launched by PV-RCNN and PointRCNN, K2b by PointRCNN, the
-    masked FPS by PV-RCNN++, no other kernel of K1-K7 by any."""
+    masked FPS by PV-RCNN++, the ball query by all three, no other kernel
+    of K1-K7 by any."""
     from mssvt_tpu_torch import kernels
 
     for name in POINT_TINY:
         kernels.reset_launch_counts()
         r = point_tiny_check(torch, name, seed=23)
         counts = {k: v for k, v in kernels.launch_counts().items() if v}
-        want = {"pvrcnn": {"fps_picks_block"},
-                "pvrcnn_plusplus": {"fps_picks_masked"},
-                "pointrcnn": {"fps_picks_block", "fps_picks_warp"}}[name]
+        want = {"pvrcnn": {"fps_picks_block", "ball_query"},
+                "pvrcnn_plusplus": {"fps_picks_masked", "ball_query"},
+                "pointrcnn": {"fps_picks_block", "fps_picks_warp",
+                              "ball_query"}}[name]
         if set(counts) != want:
             raise AssertionError(f"13a {name}: launches {counts}")
         log(f"# 13a tiny {name} ({r['detector']}, f32): {r['kept'][0]} "
@@ -3128,8 +3143,8 @@ def pcdet_head_request_check(torch, batch, card):
     its point head's box output set as ``point_tiny_models`` sets it (boxes
     of the class mean size at each point, so that the RoIs hold points),
     serving one request of 13b's ``pointrcnn.yaml`` files: that request
-    alone launches K2c 4 times and K2b twice (``PCDET_HEAD_LAUNCHES``) and
-    no other kernel of K1-K7, and each of its six FPS calls, the head's
+    alone launches K2c 4 times, K2b twice and the ball query 10 times
+    (``PCDET_HEAD_LAUNCHES``) and no other kernel of K1-K7, and each of its six FPS calls, the head's
     200-row ones included, picks what ``fps_plain`` picks on the same card
     planes (``request_fps_check``). Logs the live RoIs a frame and those
     that hold points."""
@@ -3180,6 +3195,69 @@ def pcdet_head_request_check(torch, batch, card):
     torch.cuda.empty_cache()
 
 
+def ball_query_check(torch, card, launches):
+    """13c: the ball-query kernel at ``BALL_QUERY_SHAPES`` (PointRCNN's
+    first level: seeded KITTI-range points, half of them in a 7 m cluster,
+    the rows past ``BALL_QUERY_ROWS`` padding at the origin and invalid; the
+    centres their K2c FPS picks) against ``ball_query_plain`` on the same
+    card tensors (``torch.equal``, and again on a repeat); the kernel's
+    device time (``queued_ms``) and the plain version's (CUDA events)
+    beside ``work.ball_query``'s bound. Returns the kernel row, the two
+    radii summed, its ``launches`` those of 13b's counted PointRCNN
+    request."""
+    import numpy as np
+
+    from mssvt_tpu_torch.kernels import ball_query as kb
+    from mssvt_tpu_torch.kernels import work
+    from mssvt_tpu_torch.ops.sampling import (farthest_point_sample,
+                                              gather_batch_rows)
+
+    rng = np.random.default_rng(13)
+    row = kernel_row("ball_query", 0.0, 0.0, 0.0, 0.0, "operations")
+    for b, n, m, radius, ns in BALL_QUERY_SHAPES:
+        pts = np.stack([rng.uniform(0, 70.4, (b, n)),
+                        rng.uniform(-40, 40, (b, n)),
+                        rng.uniform(-3, 1, (b, n))], -1).astype(np.float32)
+        pts[:, :n // 2] = pts[:, :n // 2] * 0.1 + [20, 0, -1]
+        pts[:, BALL_QUERY_ROWS:] = 0.0
+        xyz = torch.as_tensor(pts, device="cuda")
+        valid = (torch.arange(n, device="cuda") < BALL_QUERY_ROWS)[None] \
+            .expand(b, n).contiguous()
+        new_xyz = gather_batch_rows(xyz, farthest_point_sample(xyz, m))
+        args = (radius, ns, xyz, new_xyz, valid)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = kb.ball_query_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        for _ in range(2):
+            got = kb.ball_query(*args)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"13c ball query at {b} x {m} over {n},"
+                                     f" r {radius}, {ns} slots: the kernel "
+                                     "differs from the plain version")
+        ms = queued_ms(torch, lambda: kb.ball_query(*args), reps=20)
+        plain_ms = start.elapsed_time(end)
+        bound_ms, bound_by = work.ball_query(*args).bound()
+        empty = int(want[1].sum())
+        full = int((want[0][..., -1] != want[0][..., 0]).sum())
+        log(f"# 13c ball query ({b} x {m} over {n}, r {radius}, {ns} slots;"
+            f" empty {empty}, full {full} of {b * m} queries): idx and empty "
+            f"equal the plain version's, twice; ms={ms:.4f} plain_ms="
+            f"{plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) [{card}]")
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["bound_ms"] += bound_ms
+        row["bound_by"] = bound_by
+    row["launches"] = launches
+    log(f"# 13c ball query, both radii of PointRCNN's first level: "
+        f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} bound_ms="
+        f"{row['bound_ms']:.4f}; launches in a PointRCNN request {launches} "
+        f"[{card}]")
+    return row
+
+
 def point_files_path(torch, card):
     """13b: ``pv_rcnn.yaml``, ``pv_rcnn_plusplus.yaml`` and ``pointrcnn.yaml``
     at their published widths (f32) and batch (2), trained for one epoch
@@ -3191,7 +3269,8 @@ def point_files_path(torch, card):
     request with the proposal NMS's share, the profiled step and request
     of each (K2c's, K2b's and the masked FPS's device time, the groupings,
     the 3-NN, the interpolation, the RoI point pool), the peaks and the
-    phase's seconds; returns the masked FPS's kernel row."""
+    phase's seconds; returns the masked FPS's and the ball query's kernel
+    rows (13c, ``ball_query_check``)."""
     import shutil
 
     from mssvt_tpu_torch.datasets.kitti import KittiDataset, create_kitti_infos
@@ -3257,6 +3336,9 @@ def point_files_path(torch, card):
         row, _ = request_fps_check(torch, *runs["request"], name, card)
         if name == "pointrcnn":
             pcdet_head_request_check(torch, runs["request"][1], card)
+            # 13c; its row's launches are the counted request's
+            rows["ball_query"] = ball_query_check(
+                torch, card, seen["request"][-1][0]["ball_query"])
         if row is not None:
             # the launches of the counted request, held to POINT_LAUNCHES
             row["launches"] = seen["request"][-1][0]["fps_picks_masked"]

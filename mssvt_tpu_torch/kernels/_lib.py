@@ -35,6 +35,7 @@ BUILD_SECONDS = None
 VP = ctypes.c_void_p
 CI = ctypes.c_int
 CF = ctypes.c_float
+CL = ctypes.c_longlong
 
 # C signatures: every entry returns a cudaError_t (0 = launched)
 _SIGNATURES = {
@@ -57,6 +58,8 @@ _SIGNATURES = {
     "mssvt_nms_greedy": [VP, VP, VP, CI, CI, CI, VP, VP, VP, VP],
     "mssvt_nms_greedy_packed": [VP, VP, VP, CI, CI, CI, VP, VP, VP],
     "mssvt_nms_iou_mask": [VP, CI, CI, CI, CF, VP, VP],
+    "mssvt_ball_query": [VP, CL, CL, CL, VP, CL, CL, CL, VP, CL, CL, CI, CI,
+                         CI, CI, CF, VP, VP, VP],
 }
 
 

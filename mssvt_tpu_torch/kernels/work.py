@@ -315,6 +315,23 @@ def nms_iou_mask(boxes, near: int):
     return Work(0, ops, _nbytes(boxes) + _upper_word_bytes(b, k), F32_FLOPS)
 
 
+# f32 operations of a pair in csrc/ball_query.cu: 3 differences, 3 squares,
+# 2 sums (the compare not counted)
+BALL_QUERY_PAIR_OPS = 8
+
+
+def ball_query(radius, nsample, xyz, new_xyz, xyz_valid=None):
+    """The ball query: every query's full walk over its frame's support
+    points as the operations (a walk that stops at ``nsample`` hits does
+    less); the points, the queries and the valid flags read, the slots and
+    the empty flags written."""
+    b, n = xyz.shape[:2]
+    m = new_xyz.shape[1]
+    read = (b * n + b * m) * 3 * 4 + (0 if xyz_valid is None else b * n)
+    written = b * m * int(nsample) * 4 + b * m
+    return Work(0, b * m * n * BALL_QUERY_PAIR_OPS, read + written, F32_FLOPS)
+
+
 _DTYPE_NAMES = {
     torch.bool: "pred", torch.uint8: "u8", torch.int8: "s8",
     torch.int16: "s16", torch.int32: "s32", torch.int64: "s64",

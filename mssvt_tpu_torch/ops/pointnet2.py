@@ -1,32 +1,35 @@
 """PointNet++ primitives (torch counterpart of ``mssvt_tpu/ops/pointnet2.py``;
 ref: pcdet/ops/pointnet2/ and ops/roipoint_pool3d/), on padded batch
-tensors with validity masks, plain PyTorch on both devices.
+tensors with validity masks. The ball query runs as one hand-written kernel
+on the card (``kernels/ball_query.py``, ``csrc/ball_query.cu``) and as its
+plain version on the CPU; everything else here is plain PyTorch on both
+devices.
 
 - :func:`ball_query`, :func:`group_points`, :func:`query_and_group`: the
   first ``nsample`` support points within a radius of each query, in index
   order, slot 0 replicated into the unfilled slots (ball_query_gpu.cu),
-  and their grouped rows.
+  and their grouped rows. Each ball query is the span ``mssvt.ball_query``.
 - :func:`points_in_boxes`, :func:`roipoint_pool3d`: the first
   ``num_sampled_points`` points inside each box, wrapped modulo the count
   where fewer (roipoint_pool3d_kernel.cu:38-103).
 - :func:`vector_pool`: PV-RCNN++'s local-grid mean pooling
   (vector_pool_gpu.cu).
 
-The first-k fill is a search, not a scatter: the running count of hits
-along the support axis (int32) is nondecreasing, so the j-th hit is the
-first position where the count reaches j + 1 (``torch.searchsorted``).
-Every slot is written once, so the result is the same on every run, and
-no (..., 3) difference tensor is built: the squared distances come from
-the coordinate planes in JAX's order of operations. The gathers of
-features go through ``sampling.gather_batch_rows`` (a deterministic
-backward, however many picks a row collects: an empty query picks row 0
-``nsample`` times).
+The first-k fill of the RoI point pool (and of the ball query's plain
+version) is a search, not a scatter (``kernels.ball_query.first_hits``):
+every slot is written once, so the result is the same on every run. The
+gathers of features go through ``sampling.gather_batch_rows`` (a
+deterministic backward, however many picks a row collects: an empty query
+picks row 0 ``nsample`` times).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels import ball_query as _ball_query
+from ..kernels.ball_query import first_hits
+from ..runtime import tracing
 from .sampling import gather_batch_rows
 
 
@@ -45,35 +48,15 @@ def points_in_boxes(points, boxes):
             & (lz.abs() <= half[..., 2]))
 
 
-def first_hits(mask, k: int):
-    """(..., N) bool -> (..., k) int32: the indices of the first ``k`` set
-    entries in index order, -1 past the last one."""
-    n = mask.shape[-1]
-    count = torch.cumsum(mask, dim=-1, dtype=torch.int32)
-    want = torch.arange(1, k + 1, dtype=torch.int32, device=mask.device)
-    pos = torch.searchsorted(count, want.expand(mask.shape[:-1] + (k,))
-                             .contiguous(), out_int32=True)
-    return torch.where(pos < n, pos, -1)
-
-
 def ball_query(radius: float, nsample: int, xyz, new_xyz, xyz_valid=None):
     """(B, N, 3) support points, (B, M, 3) queries -> idx (B, M, nsample)
     int32 (the first ``nsample`` support points with squared distance below
     ``radius ** 2``, in index order; the rest of the slots repeat slot 0,
-    0 when none), empty (B, M) bool."""
-    d2 = None
-    for i in range(3):
-        d = new_xyz[..., i].detach()[:, :, None] - xyz[..., i].detach()[:, None, :]
-        d2 = d * d if d2 is None else d2 + d * d
-    del d
-    in_ball = d2 < radius ** 2  # the bound rounded to f32, as JAX's
-    del d2
-    if xyz_valid is not None:
-        in_ball &= xyz_valid[:, None, :]
-    idx = first_hits(in_ball, nsample)
-    empty = idx[..., 0] < 0
-    first = torch.where(empty, 0, idx[..., 0])
-    return torch.where(idx >= 0, idx, first[..., None]), empty
+    0 when none), empty (B, M) bool: ``kernels.ball_query``'s kernel on
+    CUDA tensors (f32 only), its plain version on CPU tensors."""
+    with tracing.span("ball_query"):
+        return _ball_query.ball_query(radius, nsample, xyz, new_xyz,
+                                      xyz_valid)
 
 
 def query_and_group(radius, nsample, xyz, new_xyz, features=None,

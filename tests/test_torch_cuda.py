@@ -34,6 +34,7 @@ from mssvt_tpu_torch.kernels import (
 from mssvt_tpu_torch.ops import box_ops
 from mssvt_tpu_torch.ops import nms as ops_nms
 from mssvt_tpu_torch.runtime.train_utils import set_deterministic
+import ball_query_cases
 from test_torch_nms import (
     EDGE_CASES,
     HAND_CASES,
@@ -1293,35 +1294,151 @@ def test_sector_fps_on_card_launches_the_masked_kernel_twice(dev,
             torch.ones((1, 16385), dtype=torch.bool, device=dev), 8)
 
 
+# the ball queries the cells run (label, B, N support points, M queries,
+# radius, nsample, support layout): PointRCNN's four levels at both radii
+# (the centres FPS picks of the level's points), its first level with the
+# padding rows invalid, the pcdet head's two levels inside 200 RoIs (the
+# pooled rows' xyz a strided view of their features); PV-RCNN++'s raw points
+# (invalid padding), its vector pool over sparse sites (invalid padding) and
+# its RoI grid (100 RoIs x 216 grid points a frame over 2 048 keypoints)
+BALL_QUERY_CELL_SHAPES = [
+    ("sa0_r0.1", 2, 16384, 4096, 0.1, 16, "points"),
+    ("sa0_r0.5", 2, 16384, 4096, 0.5, 32, "points"),
+    ("sa0_valid_r0.1", 2, 16384, 4096, 0.1, 16, "padded"),
+    ("sa0_valid_r0.5", 2, 16384, 4096, 0.5, 32, "padded"),
+    ("sa1_r0.5", 2, 4096, 1024, 0.5, 16, "points"),
+    ("sa1_r1.0", 2, 4096, 1024, 1.0, 32, "points"),
+    ("sa2_r1.0", 2, 1024, 256, 1.0, 16, "points"),
+    ("sa2_r2.0", 2, 1024, 256, 2.0, 32, "points"),
+    ("sa3_r2.0", 2, 256, 64, 2.0, 16, "points"),
+    ("sa3_r4.0", 2, 256, 64, 4.0, 32, "points"),
+    ("head0_r0.2", 200, 512, 128, 0.2, 16, "roi"),
+    ("head1_r0.4", 200, 128, 32, 0.4, 16, "roi"),
+    ("raw_r0.4", 2, 16384, 2048, 0.4, 16, "padded"),
+    ("raw_r0.8", 2, 16384, 2048, 0.8, 16, "padded"),
+    ("vector_pool_r1.2", 2, 6000, 2048, 1.2, 16, "padded"),
+    ("vector_pool_r2.4", 2, 6000, 2048, 2.4, 32, "padded"),
+    ("roi_grid_r0.8", 2, 2048, 21600, 0.8, 16, "grid"),
+    ("roi_grid_r1.6", 2, 2048, 21600, 1.6, 16, "grid"),
+]
+
+
+def _ball_query_inputs(b, n, m, layout, dev, seed):
+    """Seeded (xyz, new_xyz, valid) on the card. KITTI-range points, half of
+    them in a 7 m cluster; "points": the centres are the points' FPS picks;
+    "padded": the same with the last eighth of the rows at the origin and
+    invalid; "roi": canonical points about a RoI's centre (some rows one
+    box's few points repeated, some all zeros, as the pool makes them), xyz
+    the first 3 of 133 channels, the centres a random subset; "grid": the
+    centres scattered within 2 m of the points."""
+    from mssvt_tpu_torch.ops.sampling import (farthest_point_sample,
+                                              gather_batch_rows)
+
+    g = torch.Generator().manual_seed(seed)
+    valid = None
+    if layout == "roi":
+        feat = torch.randn((b, n, 133), generator=g)
+        feat[..., :3] *= 0.8
+        feat[40:80, :, :3] = feat[40:80, :5, :3].repeat(1, -(-n // 5), 1)[
+            :, :n]
+        feat[80:100, :, :3] = 0.0
+        feat = feat.to(dev)
+        xyz = feat[..., :3]
+        pick = torch.randperm(n, generator=g)[:m].to(dev)
+        return xyz, xyz[:, pick].contiguous(), None
+    lo = torch.tensor([0.0, -40.0, -3.0])
+    hi = torch.tensor([70.4, 40.0, 1.0])
+    pts = lo + (hi - lo) * torch.rand((b, n, 3), generator=g)
+    pts[:, : n // 2] = pts[:, : n // 2] * 0.1 + torch.tensor([20.0, 0.0,
+                                                                 -1.0])
+    if layout == "padded":
+        rows = n - n // 8
+        pts[:, rows:] = 0.0
+        valid = (torch.arange(n) < rows)[None].expand(b, n).to(dev)
+    xyz = pts.to(dev)
+    if layout == "grid":
+        q = xyz[:, torch.randint(0, n, (m,), generator=g).to(dev)]
+        q = q + (torch.rand((b, m, 3), generator=g).to(dev) - 0.5) * 4.0
+        return xyz, q, valid
+    return xyz, gather_batch_rows(xyz, farthest_point_sample(xyz, m)), valid
+
+
 @pytest.mark.cuda
-def test_ball_query_on_card_matches_cpu(dev):
-    """``ball_query`` at PV-RCNN head scale (a frame's 8 000 grid points
-    against 2 048 keypoints, 2 frames, 16 slots; masked raw points of
-    PointRCNN's level 0 at 4 096 x 16 384): indices and emptiness equal to
-    the CPU's, and on a repeat."""
+@pytest.mark.parametrize("label,b,n,m,radius,ns,layout",
+                         BALL_QUERY_CELL_SHAPES,
+                         ids=[c[0] for c in BALL_QUERY_CELL_SHAPES])
+def test_ball_query_on_card_matches_cpu(dev, label, b, n, m, radius, ns,
+                                        layout):
+    """The ball-query kernel at every call shape of the two point cells:
+    ``idx`` and ``empty`` equal to ``ball_query_plain``'s on the same card
+    tensors, and on a repeat; one launch a call."""
+    from mssvt_tpu_torch.kernels import ball_query as kb
+
+    seed = [c[0] for c in BALL_QUERY_CELL_SHAPES].index(label)
+    xyz, q, valid = _ball_query_inputs(b, n, m, layout, dev, seed)
+    want = kb.ball_query_plain(radius, ns, xyz, q, valid)
+    before = kb.launches
+    for _ in range(2):
+        got = kb.ball_query(radius, ns, xyz, q, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert kb.launches - before == 2
+    assert int(want[1].sum()) < want[1].numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ball_query_cases.EDGE_CASES)
+def test_ball_query_edge_cases_on_card(dev, case):
+    """``ball_query_cases``' edge cases (every query empty, every point in
+    the ball, nsample > N, N across tiles and ragged, d2 == r2 exactly, all
+    rows invalid): the kernel equals ``ball_query_plain`` on the card and
+    the numpy oracle, twice."""
+    from mssvt_tpu_torch.kernels import ball_query as kb
+
+    radius, ns, xyz, q, valid = ball_query_cases.edge_case(case)
+    want = ball_query_cases.oracle(radius, ns, xyz, q, valid)
+    args = (radius, ns, torch.as_tensor(xyz, device=dev),
+            torch.as_tensor(q, device=dev),
+            None if valid is None else torch.as_tensor(valid, device=dev))
+    plain = kb.ball_query_plain(*args)
+    for _ in range(2):
+        got = kb.ball_query(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+        np.testing.assert_array_equal(got[0].cpu().numpy(), want[0])
+        np.testing.assert_array_equal(got[1].cpu().numpy(), want[1])
+
+
+@pytest.mark.cuda
+def test_ball_query_one_launch_a_call(dev):
+    """``ops.pointnet2.ball_query`` on CUDA tensors: one launch of the
+    kernel, counted by ``kernels.ball_query.launches`` and seen as the only
+    kernel of a profiled call; a bf16 or f64 input raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mssvt_tpu_torch.kernels import ball_query as kb
     from mssvt_tpu_torch.ops.pointnet2 import ball_query
 
-    rng = np.random.default_rng(7)
-    for m, n, radius, valid_rows in ((8000, 2048, 1.6, None),
-                                     (4096, 16384, 0.5, 15000)):
-        pts = np.stack([rng.uniform(0, 70.4, (2, n)),
-                        rng.uniform(-40, 40, (2, n)),
-                        rng.uniform(-3, 1, (2, n))], -1).astype(np.float32)
-        pts[:, :n // 2] = pts[:, :n // 2] * 0.1 + [20, 0, -1]
-        q = pts[:, rng.integers(0, n, m)] + rng.normal(
-            size=(2, m, 3)).astype(np.float32) * radius
-        valid = None if valid_rows is None else np.arange(n)[None].repeat(
-            2, 0) < valid_rows
-        args = lambda d: (torch.as_tensor(pts, device=d),  # noqa: E731
-                          torch.as_tensor(q, device=d),
-                          None if valid is None else torch.as_tensor(
-                              valid, device=d))
-        want = ball_query(radius, 16, *args("cpu"))
-        for _ in range(2):
-            got = ball_query(radius, 16, *args(dev))
-            assert torch.equal(got[0].cpu(), want[0])
-            assert torch.equal(got[1].cpu(), want[1])
-        assert 0 < int(want[1].sum()) < want[1].numel()
+    xyz, q, valid = _ball_query_inputs(2, 16384, 4096, "padded", dev, 5)
+    ball_query(0.5, 32, xyz, q, valid)
+    torch.cuda.synchronize()
+    before = kb.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ball_query(0.5, 32, xyz, q, valid)
+        torch.cuda.synchronize()
+    assert kb.launches - before == 1
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    # the span shows on the device's timeline too, as an annotation
+    names = [e.name for e in prof.events() if e.device_type == cuda
+             and e.name != "mssvt.ball_query"]
+    assert len(names) == 1 and "ball_query_kernel" in names[0], names
+    spans = [e for e in prof.events() if e.name == "mssvt.ball_query"
+             and e.device_type == cpu]
+    assert len(spans) == 1
+    for dtype in (torch.bfloat16, torch.float64):
+        with pytest.raises(TypeError):
+            ball_query(0.5, 32, xyz.to(dtype), q.to(dtype), valid)
 
 
 @pytest.mark.cuda
@@ -1425,8 +1542,8 @@ def test_tiny_point_detectors_on_card_match_cpu(dev, name, monkeypatch):
     on the same weights (refined boxes as sets within 1e-3, loss within
     1e-4 relative, gradient norm within 1e-3, a repeated backward
     bit-identical), launching K2c (PV-RCNN, PointRCNN) and K2b (PointRCNN)
-    on its FPS, the masked FPS (PV-RCNN++'s sector FPS), and no other
-    kernel."""
+    on its FPS, the masked FPS (PV-RCNN++'s sector FPS), the ball query
+    (all three), and no other kernel."""
     import chip_smoke
     from mssvt_tpu_torch import kernels
 
@@ -1434,10 +1551,10 @@ def test_tiny_point_detectors_on_card_match_cpu(dev, name, monkeypatch):
     kernels.reset_launch_counts()
     r = chip_smoke.point_tiny_check(torch, name, seed=31)
     launched = {k for k, v in kernels.launch_counts().items() if v}
-    assert launched == {"pvrcnn": {"fps_picks_block"},
-                        "pvrcnn_plusplus": {"fps_picks_masked"},
-                        "pointrcnn": {"fps_picks_block",
-                                      "fps_picks_warp"}}[name]
+    assert launched == {"pvrcnn": {"fps_picks_block", "ball_query"},
+                        "pvrcnn_plusplus": {"fps_picks_masked", "ball_query"},
+                        "pointrcnn": {"fps_picks_block", "fps_picks_warp",
+                                      "ball_query"}}[name]
     assert r["kept"][0] > 0
 
 
@@ -1528,7 +1645,8 @@ def test_pointrcnn_pcdet_head_tiny_on_card_matches_cpu(dev):
     CPU's (boxes as sets within 1e-3 of their size, the same count a
     frame); the plain reference, stage by stage on the card's outputs,
     finds the same FPS picks and ball-query members and every stage within
-    1e-4; the request launches K2c and K2b and no other kernel of K1-K7."""
+    1e-4; the request launches K2c, K2b and the ball query (10 times) and
+    no other kernel of K1-K7."""
     import copy
 
     from benchmark.harness import compare, program, spec, weights
@@ -1559,8 +1677,9 @@ def test_pointrcnn_pcdet_head_tiny_on_card_matches_cpu(dev):
     torch.cuda.synchronize()
     for h in hooks:
         h.remove()
-    launched = {k for k, v in kernels.launch_counts().items() if v}
-    assert launched == {"fps_picks_block", "fps_picks_warp"}
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert set(counts) == {"fps_picks_block", "fps_picks_warp", "ball_query"}
+    assert counts["ball_query"] == 10  # the backbone's 8, the head's 2
     dets_cpu = tuple(t.cpu() for t in dets)
     assert compare.count_gap(dets_cpu[3], want[3]) == 0.0
     scale = max(1.0, float(want[0].abs().amax()))

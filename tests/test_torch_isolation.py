@@ -215,6 +215,7 @@ def test_wrappers_take_plain_versions_on_cpu(monkeypatch):
         attention_bwd,
         attention_qk,
         attention_qk_bwd,
+        ball_query,
         ffn,
         fill,
         fps,
@@ -272,7 +273,12 @@ def test_wrappers_take_plain_versions_on_cpu(monkeypatch):
     want = attention_qk_bwd.attention_qk_bwd_plain(*qk, g, **kw)
     for a, b in zip(got[:2] + got[2], want[:2] + want[2]):
         assert torch.equal(a, b)
-    assert len(kernels.KERNELS) == 10
+    xyz = torch.as_tensor(rng.uniform(0, 2, (2, 40, 3)).astype(np.float32))
+    live = torch.as_tensor(rng.random((2, 40)) < 0.7)
+    got = ball_query.ball_query(0.8, 8, xyz, xyz[:, :5], live)
+    want = ball_query.ball_query_plain(0.8, 8, xyz, xyz[:, :5], live)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert len(kernels.KERNELS) == 11
     assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}
 
 
@@ -280,7 +286,7 @@ def test_kernel_sources_are_present():
     names = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert names == {"fill.cu", "fps.cu", "attention.cu", "attention_bwd.cu",
                      "attention_qk.cu", "attention_qk_bwd.cu", "ffn.cu",
-                     "nms.cu", "nms_iou.cu"}
+                     "nms.cu", "nms_iou.cu", "ball_query.cu"}
     headers = {p.name for p in (PORT / "csrc").glob("*.cuh")}
     assert headers == {"attention_common.cuh", "attention_bwd_common.cuh"}
     # the host voxelizer's C++ lies outside the nvcc glob (csrc/*.cu)
@@ -288,6 +294,7 @@ def test_kernel_sources_are_present():
             if p.suffix == ".cpp"] == ["voxelizer.cpp"]
     mods = {m.name for m in pkgutil.iter_modules([str(PORT / "kernels")])}
     assert {"fill", "fps", "attention", "attention_bwd", "attention_qk",
-            "attention_qk_bwd", "ffn", "nms", "nms_iou", "_lib"} <= mods
+            "attention_qk_bwd", "ffn", "nms", "nms_iou", "ball_query",
+            "_lib"} <= mods
     assert importlib.import_module("mssvt_tpu_torch.kernels._lib").BUILD_DIR \
         == ROOT / "build" / "kernels"

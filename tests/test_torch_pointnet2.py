@@ -5,7 +5,9 @@ package on the CPU (f32, numpy-seeded inputs).
   CPU): the JAX suite's oracle and padding cases, and picks equal to JAX's
   on float coordinates with padding rows at the origin; the masked FPS,
   ``sample_points_with_roi`` and ``sector_fps`` equal to JAX's exactly;
-- ``ball_query`` exactly (indices and empty flags), ``query_and_group``
+- ``ball_query`` exactly (indices and empty flags; on CPU tensors it is
+  ``kernels.ball_query.ball_query_plain``, held to a numpy oracle on the
+  edge cases of ``ball_query_cases``), ``query_and_group``
   and ``roipoint_pool3d`` to 1e-5 of the largest magnitude (values and the
   cotangents of the features and the query centres), ``vector_pool``
   against the JAX suite's brute force and against JAX (values and the
@@ -33,7 +35,10 @@ import torch
 
 from mssvt_tpu.ops import pointnet2 as jp
 from mssvt_tpu.ops import sampling as js
+from ball_query_cases import EDGE_CASES, edge_case, oracle
 from mssvt_tpu_torch.bridge import load_flax_variables, to_flax_tree
+from mssvt_tpu_torch.kernels import ball_query as kb
+from mssvt_tpu_torch.kernels import work
 from mssvt_tpu_torch.ops import pointnet2 as tp
 from mssvt_tpu_torch.ops import sampling as ts
 from test_sampling import _fps_oracle
@@ -253,6 +258,100 @@ def test_ball_query_matches_jax(radius, nsample, masked):
     idx = got[0].numpy()
     full = (idx[..., 1:] != idx[..., :1]).all(-1)  # every slot a new point
     assert full.any() and (~got[1].numpy()).sum() > 100
+
+
+def _case_tensors(case):
+    radius, ns, xyz, q, valid = edge_case(case)
+    return radius, ns, _t(xyz), _t(q), None if valid is None else _t(valid)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_ball_query_plain_edge_cases(case):
+    """The plain version against the numpy oracle, and what each case
+    pins: no hit anywhere (every slot 0, every query empty), every point a
+    hit (the first ``nsample`` indices), fewer points than slots (slot 0
+    repeated past the hits), a point at exactly d2 == r2 (no hit) beside
+    one an ulp inside (a hit)."""
+    radius, ns, xyz, q, valid = _case_tensors(case)
+    idx, empty = kb.ball_query_plain(radius, ns, xyz, q, valid)
+    want = oracle(*edge_case(case))
+    assert idx.dtype == torch.int32 and empty.dtype == torch.bool
+    np.testing.assert_array_equal(idx.numpy(), want[0])
+    np.testing.assert_array_equal(empty.numpy(), want[1])
+    if case in ("all_empty", "all_invalid"):
+        assert bool(empty.all()) and not bool(idx.any())
+    elif case == "all_in_ball":
+        assert not bool(empty.any())
+        assert bool((idx == torch.arange(ns, dtype=torch.int32)).all())
+    elif case == "nsample_over_n":
+        hits = 16  # 20 points, 4 of them moved out of every ball
+        assert bool((idx[..., hits:] == idx[..., :1]).all())
+        assert bool((idx[..., 1:hits] > idx[..., :hits - 1]).all())
+    elif case == "boundary":
+        np.testing.assert_array_equal(idx.numpy()[:, 0],
+                                      [[1, 4, 5, 1, 1, 1, 1, 1]] * 2)
+    elif case == "ragged_n":
+        assert 0 < int(empty.sum()) < empty.numel()
+        assert bool((idx >= 1024).any()) and bool((idx >= 2048).any())
+
+
+def test_ball_query_on_cpu_is_the_plain_version(monkeypatch):
+    """``ops.pointnet2.ball_query`` on CPU tensors calls the plain version
+    once and returns its result; no kernel is launched."""
+    seen = []
+    plain = kb.ball_query_plain
+    monkeypatch.setattr(kb, "ball_query_plain",
+                        lambda *a: seen.append(a) or plain(*a))
+    args = _case_tensors("ragged_n")
+    before = kb.launches
+    got = tp.ball_query(*args)
+    want = plain(*args)
+    assert len(seen) == 1 and kb.launches == before
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("bad,error", [
+    ("bf16", TypeError), ("f64", TypeError), ("shape", ValueError),
+    ("frames", ValueError), ("valid_dtype", ValueError),
+    ("valid_shape", ValueError), ("nsample", ValueError)])
+def test_ball_query_kernel_inputs_refused(bad, error):
+    """What the kernel does not take raises before a launch: f32 points and
+    queries only, (B, *, 3), the same frames, (B, N) bool valid flags,
+    ``nsample`` >= 1."""
+    xyz, q = torch.zeros((2, 50, 3)), torch.zeros((2, 7, 3))
+    valid, ns = torch.ones((2, 50), dtype=torch.bool), 16
+    if bad == "bf16":
+        q = q.bfloat16()
+    elif bad == "f64":
+        xyz = xyz.double()
+    elif bad == "shape":
+        xyz = torch.zeros((2, 50, 4))
+    elif bad == "frames":
+        q = torch.zeros((3, 7, 3))
+    elif bad == "valid_dtype":
+        valid = valid.to(torch.uint8)
+    elif bad == "valid_shape":
+        valid = valid[:, :49]
+    else:
+        ns = 0
+    with pytest.raises(error):
+        kb.kernel_inputs(ns, xyz, q, valid)
+    assert kb.kernel_inputs(16, torch.zeros((2, 50, 3)), torch.zeros(
+        (2, 7, 3)), torch.ones((2, 50), dtype=torch.bool)) == (2, 50, 7)
+
+
+def test_ball_query_work():
+    """``work.ball_query``: the full walk's 8 f32 operations a pair, the
+    points, queries and valid flags read once, the slots and empty flags
+    written once; bound by the operations at PointRCNN's first level."""
+    xyz, q = torch.zeros((2, 16384, 3)), torch.zeros((2, 4096, 3))
+    valid = torch.ones((2, 16384), dtype=torch.bool)
+    w = work.ball_query(0.1, 16, xyz, q, valid)
+    assert w.flops == 0 and w.ops == 2 * 4096 * 16384 * 8
+    assert w.nbytes == (2 * 16384 + 2 * 4096) * 12 + 2 * 16384 \
+        + 2 * 4096 * 16 * 4 + 2 * 4096
+    assert w.bound()[1] == "operations"
+    assert work.ball_query(0.1, 16, xyz, q).nbytes == w.nbytes - 2 * 16384
 
 
 def test_query_and_group_matches_jax():

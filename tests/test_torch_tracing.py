@@ -99,6 +99,14 @@ def span_names(events):
 SECOND_STAGE = {"SECONDNetIoU": ("roi_head",), "VoxelRCNN": ("roi_head",),
                 "PVRCNN": ("keypoints", "pfe", "roi_head"),
                 "PartA2": ("roi_head",), "CT3D_3CAT": ("roi_head",)}
+# the ball queries of a request (one ``mssvt.ball_query`` each): the tiny
+# PV-RCNN's raw-point and sparse-source pooling in ``mssvt.pfe`` and its
+# RoI-grid pooling in ``mssvt.roi_head``, one radius each
+BALL_QUERIES = {"PVRCNN": 3}
+
+
+def _inside(inner, outer):
+    return any(s <= inner[0] and inner[1] <= e for s, e in outer)
 
 
 @pytest.mark.parametrize("name", ["CenterPoint"] + sorted(VOXEL_DETECTORS))
@@ -109,14 +117,21 @@ def test_request_makes_seven_spans_in_order(name, tiny, tmp_path):
     ``mssvt.backbone_3d``; a two-stage family's second-stage spans
     (``mssvt.roi_head``, after PV-RCNN's ``mssvt.keypoints`` and
     ``mssvt.pfe``) follow the NMS inside ``mssvt.post``, in order and
-    disjoint."""
+    disjoint; PV-RCNN's ball queries each open ``mssvt.ball_query`` inside
+    ``mssvt.pfe`` or ``mssvt.roi_head``."""
     model, batch = tiny if name == "CenterPoint" else VOXEL_DETECTORS[name]()
     _, events = profiled_request(model, batch, tmp_path)
     inner = SECOND_STAGE.get(name, ())
     want = ["mssvt." + s for s in ("request",) + STAGES + ("nms",) + inner]
     names = span_names(events)
     rules = names.count("mssvt.spconv_rules")
-    assert names == sorted(want + ["mssvt.spconv_rules"] * rules)
+    queries = BALL_QUERIES.get(name, 0)
+    assert names == sorted(want + ["mssvt.spconv_rules"] * rules
+                           + ["mssvt.ball_query"] * queries)
+    second = [r for s in ("pfe", "roi_head")
+              for r in trace.ranges(events, "mssvt." + s)]
+    assert all(_inside(r, second)
+               for r in trace.ranges(events, "mssvt.ball_query"))
     assert (rules > 0) == (name != "CenterPoint")
     (req,) = trace.ranges(events, "mssvt.request")
     stages = [trace.ranges(events, "mssvt." + s)[0] for s in STAGES]
@@ -158,14 +173,21 @@ def test_pointrcnn_request_spans_in_order(pointrcnn, tmp_path):
     ``PointNet2MSG``'s four set abstractions opens ``mssvt.sa`` and each of
     its four feature propagations ``mssvt.fp``, in order inside
     ``mssvt.backbone_3d``; the proposals' ``mssvt.nms`` and then
-    ``mssvt.roi_head`` lie inside ``mssvt.post``."""
+    ``mssvt.roi_head`` lie inside ``mssvt.post``; each ball query opens
+    ``mssvt.ball_query``, two in each ``mssvt.sa`` (a radius each) and two
+    in ``mssvt.roi_head`` (the head's first two levels)."""
     model, batch = pointrcnn
     _, events = profiled_request(model, batch, tmp_path)
     names = span_names(events)
     assert names == sorted(["mssvt.request", "mssvt.backbone_3d",
                             "mssvt.head", "mssvt.post", "mssvt.nms",
                             "mssvt.roi_head"] + ["mssvt.sa"] * 4
-                           + ["mssvt.fp"] * 4)
+                           + ["mssvt.fp"] * 4 + ["mssvt.ball_query"] * 10)
+    queries = trace.ranges(events, "mssvt.ball_query")
+    for sa in trace.ranges(events, "mssvt.sa"):
+        assert sum(_inside(q, [sa]) for q in queries) == 2
+    assert sum(_inside(q, trace.ranges(events, "mssvt.roi_head"))
+               for q in queries) == 2
     (req,) = trace.ranges(events, "mssvt.request")
     stages = [trace.ranges(events, "mssvt." + s)[0]
               for s in ("backbone_3d", "head", "post")]
